@@ -1,0 +1,496 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch port on one NVIDIA GPU (written for the H100).
+
+    python3 chip_smoke.py
+
+Phases, each printed as it ends; any failure exits non-zero:
+
+1. card and build: the card's name and power limit (nvidia-smi), then the
+   three CUDA kernels built from ``diffsinger_tpu_torch/ops/csrc`` at once;
+2. kernels: each kernel against its plain PyTorch version at main-path
+   shapes in the working dtype (bf16; K3 float32), and K2 also in float32 at
+   a small shape, with the max abs error beside its tolerance;
+3. e2e: the acoustic model (configs/acoustic.yaml at full width, seeded
+   random weights, 50 euler steps, bf16) and the mini-NSF vocoder, driven
+   through ``DiffSingerAcoustic.forward_infer`` and ``Generator``: timed
+   requests at B=16, T_txt=128, T_mel=1024; one request with padding; one
+   long phrase at T_txt=512. Launch counters, reset before each of these
+   and read after it, show the kernels ran (per request: K2 and K1 6 x 50
+   times, K3 4 times). A reduced-batch float32 run is compared with the same
+   run on every kernel's plain version;
+4. the ``kernels`` JSON line (launches, time, bound, plain and library
+   times), then the last line ``{"ok": true, "device": {...}}``.
+
+Float32 products run in full float32 here: TF32 is off for both matmuls and
+cuDNN convolutions. The script imports nothing of JAX or the JAX package.
+The compiler's messages go to chiprun_out/chip_smoke_build.log and every
+number to chiprun_out/chip_smoke.json.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+OUT_DIR = ROOT / "chiprun_out"
+
+# H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, float32 on the
+# CUDA cores, device memory
+PEAK_BF16_TC = 989e12
+PEAK_F32 = 67e12
+PEAK_BYTES = 3.35e12
+
+STEPS = 50
+B, T_TXT, T_MEL = 16, 128, 1024
+VOCAB = 62
+REQUESTS = 3  # timed requests; the first also warms up
+
+
+def fail(msg: str) -> None:
+    print(f"FAIL: {msg}", flush=True)
+    sys.exit(1)
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device time of fn over ``iters`` launches (CUDA events)."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def max_err(got, want) -> float:
+    return (got.float() - want.float()).abs().max().item()
+
+
+def seeded_weights(module, seed: int) -> None:
+    """Give the zero- or constant-initialised parameters seeded random values,
+    so that the denoiser's velocity, the layer scales and the PReLU slopes are
+    not trivial."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            if name.endswith("output_projection.weight"):
+                p.copy_(torch.randn(p.shape, generator=g) * 0.03)
+            elif name.endswith(".gamma"):
+                p.copy_(0.1 + 0.05 * torch.randn(p.shape, generator=g))
+            elif name.endswith("convmodule.net.5.weight"):
+                p.copy_(0.1 + 0.3 * torch.rand(p.shape, generator=g))
+            elif name.endswith(".bias"):
+                p.copy_(0.02 * torch.randn(p.shape, generator=g))
+
+
+# our kernels by the names nvcc gives them, for the profile's breakdown
+KERNEL_GROUPS = (("K2 GEMMs + LN stats", ("gemm_bf16_kernel", "gemm_f32_kernel", "ln_stats_kernel")),
+                 ("K1 depthwise", ("dwconv_prelu_kernel",)),
+                 ("K3 attention", ("flash_fwd_kernel",)))
+
+
+def profile_request(fn) -> dict:
+    """Run fn under torch.profiler; device time by kernel group and the share
+    of the request's wall time in which the device ran no kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0.0)
+        if us and getattr(ev, "device_type", None) == torch.autograd.DeviceType.CUDA:
+            kernels[ev.key] = kernels.get(ev.key, 0.0) + us
+    busy = sum(kernels.values())
+    if not busy:
+        log("[profile] the profiler saw no device time: not measured")
+        return {"measured": False}
+    groups = {name: sum(us for k, us in kernels.items() if any(p in k for p in pats))
+              for name, pats in KERNEL_GROUPS}
+    groups["stock PyTorch kernels"] = busy - sum(groups.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
+    log(f"[profile] one request under the profiler: wall {wall_us / 1e3:.1f} ms, device busy "
+        f"{busy / 1e3:.1f} ms, idle share {1 - busy / wall_us:.3f}")
+    for name, us in groups.items():
+        log(f"[profile]   {name}: {us / 1e3:.1f} ms ({us / busy:.3f} of device time)")
+    OUT_DIR.mkdir(exist_ok=True)
+    averages = prof.key_averages()
+    sort_key = ("self_device_time_total" if hasattr(averages[0], "self_device_time_total")
+                else "self_cuda_time_total")
+    (OUT_DIR / "chip_smoke_profile.txt").write_text(averages.table(sort_by=sort_key, row_limit=40))
+    return {"measured": True, "wall_ms": wall_us / 1e3, "busy_ms": busy / 1e3,
+            "idle_share": 1 - busy / wall_us,
+            "groups_ms": {k: v / 1e3 for k, v in groups.items()},
+            "top_kernels_ms": {k: v / 1e3 for k, v in top}}
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Route the model's kernel calls to the plain versions (for comparison only)."""
+    from diffsinger_tpu_torch.models import commons
+    from diffsinger_tpu_torch.models.backbones import lynxnet
+    from diffsinger_tpu_torch.ops import flash_attention, lynx_fused
+
+    saved = lynxnet.fused_conv_module, commons.flash_attention
+    lynxnet.fused_conv_module = lynx_fused.fused_conv_module_plain
+    commons.flash_attention = flash_attention.flash_attention_plain
+    try:
+        yield
+    finally:
+        lynxnet.fused_conv_module, commons.flash_attention = saved
+
+
+def main() -> None:
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("CUDA is not available")
+    if not (ROOT / "diffsinger_tpu_torch" / "ops" / "csrc").is_dir():
+        fail("the diffsinger_tpu_torch package is not beside this script")
+    sys.path.insert(0, str(ROOT))
+    import numpy as np
+    import torch.nn.functional as F
+
+    from diffsinger_tpu_torch.config import load_config
+    from diffsinger_tpu_torch.models.backbones.lynxnet import LYNXConvModule
+    from diffsinger_tpu_torch.models.toplevel import DiffSingerAcoustic
+    from diffsinger_tpu_torch.ops import depthwise_conv, flash_attention, lynx_fused, native
+    from diffsinger_tpu_torch.vocoders.nsf_hifigan_model import Generator, NsfHifiGanConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    report = {"phases": {}}
+    counters = {"K1": depthwise_conv, "K2": lynx_fused, "K3": flash_attention}
+
+    def reset_counts():
+        for m in counters.values():
+            m.launches = 0
+
+    def read_counts():
+        return {k: m.launches for k, m in counters.items()}
+
+    # ------------------------------------------------------------ 1. card + build
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 and smi.stdout.strip() \
+        else "nvidia-smi unavailable"
+    log(card)
+    report["card"] = card
+    t0 = time.perf_counter()
+    built = native.build()
+    build_s = time.perf_counter() - t0
+    for name in native.KERNEL_SOURCES:
+        native.load(name)
+    log(f"[build] {len(built)} kernel libraries built in {build_s:.1f} s "
+        f"({', '.join(f'{n} {s:.1f} s' for n, (s, _) in built.items())})")
+    report["build"] = {"seconds": build_s}
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / "chip_smoke_build.log").write_text(
+        "".join(f"--- {n}: {sec:.1f} s\n{msg}\n" for n, (sec, msg) in built.items()))
+
+    # ------------------------------------------------------------ 2. kernels
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def randn(*shape, dtype=torch.float32, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+    bf = torch.bfloat16
+    checks = []
+
+    def check(name, got, want, tol):
+        err = max_err(got, want)
+        ok = math.isfinite(err) and err <= tol
+        checks.append({"name": name, "max_abs_err": err, "tol": tol, "ok": ok})
+        log(f"[kernels] {name}: max|err| {err:.3e} (tolerance {tol:.3e}) {'ok' if ok else 'MISS'}")
+        return err
+
+    # K1 at K2's middle stage: s [16, 1024, 2048] bf16, k = 31
+    I = 2048
+    s = randn(B, T_MEL, I, dtype=bf)
+    dw_w, dw_b = randn(I, 31, dtype=bf, scale=0.2), randn(I, dtype=bf, scale=0.1)
+    alpha = (0.1 + 0.3 * torch.rand(I, generator=gen, device=dev)).to(bf)
+    k1_args = (s, dw_w, alpha, dw_b)
+    want = depthwise_conv.depthwise_conv1d_prelu_plain(*k1_args)
+    # bf16 outputs: one bf16 ulp of the largest output (both sum in float32)
+    k1_err = check("K1 bf16 [16,1024,2048] k=31", depthwise_conv.depthwise_conv1d_prelu(*k1_args),
+                   want, 2 ** -7 * want.float().abs().max().item())
+
+    # K2 at the main path: x [16, 1024, 1024] bf16, C=1024, I=2048, k=31
+    torch.manual_seed(1)
+    conv_mod = LYNXConvModule(1024, 2, 31).to(dev)
+    seeded_weights(conv_mod, 2)
+    with torch.no_grad():
+        conv_mod.net[0].weight.add_(0.2 * torch.randn(1024, generator=gen, device=dev))
+    conv_bf = LYNXConvModule(1024, 2, 31).to(dev, bf)
+    conv_bf.load_state_dict(conv_mod.state_dict())
+    x = randn(B, T_MEL, 1024, dtype=bf)
+    k2_params = {n: p.detach() for n, p in lynx_fused.conv_module_params_from_module(conv_bf).items()}
+    want = lynx_fused.fused_conv_module_plain(x, **k2_params)
+    # bf16: two bf16 ulps of the largest output; intermediates rounded to bf16
+    # on both sides may land one ulp apart where float32 sums differ in order
+    k2_err = check("K2 bf16 [16,1024,1024] I=2048 k=31",
+                   lynx_fused.fused_conv_module(x, **k2_params), want,
+                   2 ** -6 * want.float().abs().max().item())
+    # K2 float32 at a small, ragged shape
+    torch.manual_seed(3)
+    small = LYNXConvModule(64, 2, 31).to(dev)
+    seeded_weights(small, 4)
+    xs = randn(2, 100, 64)
+    sp = {n: p.detach() for n, p in lynx_fused.conv_module_params_from_module(small).items()}
+    check("K2 f32 [2,100,64] I=128 k=31", lynx_fused.fused_conv_module(xs, **sp),
+          lynx_fused.fused_conv_module_plain(xs, **sp), 1e-4)
+
+    # K3 at the encoder's shapes, with key padding in two rows
+    def attn_case(b, length):
+        q, k, v = (randn(b, 2, length, 128) for _ in range(3))
+        pad = torch.zeros(b, length, dtype=torch.bool, device=dev)
+        pad[1, length - length // 4:] = True
+        pad[3, length // 2:] = True
+        return q, k, v, pad
+
+    k3_args = attn_case(B, T_TXT)
+    k3_err = check("K3 f32 [16,2,128,128] padded", flash_attention.flash_attention(*k3_args),
+                   flash_attention.flash_attention_plain(*k3_args), 1e-4)
+    long_args = attn_case(B, 512)
+    check("K3 f32 [16,2,512,128] padded", flash_attention.flash_attention(*long_args),
+          flash_attention.flash_attention_plain(*long_args), 1e-4)
+    torch.cuda.synchronize()
+    report["phases"]["kernels"] = checks
+    if not all(c["ok"] for c in checks):
+        fail("a kernel disagrees with its plain version")
+
+    # ------------------------------------------------------------ 3. e2e
+    hp = load_config(ROOT / "configs" / "acoustic.yaml", "sampling_steps=50")
+    n_mels = hp["audio_num_mel_bins"]
+    n_layers = hp["backbone_args"]["num_layers"]
+    n_enc = hp["enc_layers"]
+    torch.manual_seed(5)
+    model32 = DiffSingerAcoustic(hp, vocab_size=VOCAB, out_dims=n_mels, dtype=torch.float32)
+    seeded_weights(model32.module, 6)
+    model = DiffSingerAcoustic(hp, vocab_size=VOCAB, out_dims=n_mels, dtype=bf)
+    model.module.load_state_dict(model32.module.state_dict())
+    voc_cfg = NsfHifiGanConfig(num_mels=n_mels, sampling_rate=hp["audio_sample_rate"],
+                               mini_nsf=True)
+    torch.manual_seed(7)
+    vocoder32 = Generator(voc_cfg, dtype=torch.float32).eval()
+    vocoder = Generator(voc_cfg, dtype=bf).eval()
+    vocoder.load_state_dict(vocoder32.state_dict())
+    hop = voc_cfg.hop_size
+
+    rng = np.random.default_rng(0)
+
+    def request(b, t_txt, t_mel, ragged=False):
+        tokens = rng.integers(1, VOCAB, (b, t_txt))
+        mel2ph = np.tile(np.repeat(np.arange(1, t_txt + 1), t_mel // t_txt)[None], (b, 1))
+        if ragged:  # later rows: fewer tokens, and frames past their end padded
+            for i in range(b):
+                n_tok = t_txt - 5 * i
+                tokens[i, n_tok:] = 0
+                mel2ph[i][mel2ph[i] > n_tok] = 0
+        f0 = 220.0 * 2 ** (rng.uniform(-1, 1, (b, 1)) + 0.2 * np.sin(
+            np.linspace(0, 20, t_mel))[None])
+        return (torch.from_numpy(tokens).to(dev), torch.from_numpy(mel2ph).to(dev),
+                torch.from_numpy(f0.astype(np.float32)).to(dev))
+
+    def run(m, voc, tokens, mel2ph, f0, noise_seed):
+        """One request; returns mel, wav and the acoustic and vocoder seconds."""
+        g = torch.Generator(device=dev).manual_seed(noise_seed)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = m.forward_infer(tokens, mel2ph, f0, steps=STEPS, generator=g)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with torch.no_grad():
+            wav = voc(out.diff_out, f0)
+        torch.cuda.synchronize()
+        return out.diff_out, wav, t1 - t0, time.perf_counter() - t1
+
+    def expect_counts(counts, n_req, phase):
+        want = {"K1": n_layers * STEPS * n_req, "K2": n_layers * STEPS * n_req,
+                "K3": n_enc * n_req}
+        log(f"[e2e] {phase}: launches {counts} (expected {want})")
+        if counts != want:
+            fail(f"{phase}: launch counts {counts} != {want}")
+
+    def check_out(mel, wav, mel2ph, phase):
+        b, t_mel = mel2ph.shape
+        if mel.shape != (b, t_mel, n_mels) or wav.shape != (b, t_mel * hop):
+            fail(f"{phase}: shapes mel {tuple(mel.shape)} wav {tuple(wav.shape)}")
+        if not (torch.isfinite(mel).all() and torch.isfinite(wav).all()):
+            fail(f"{phase}: non-finite output")
+        if (mel[mel2ph == 0] != 0).any():
+            fail(f"{phase}: padded frames are not zero")
+
+    # timed requests at the bench shape
+    inputs = request(B, T_TXT, T_MEL)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    times, split = [], []
+    for r in range(REQUESTS):
+        mel, wav, t_ac, t_voc = run(model, vocoder, *inputs, noise_seed=r)
+        times.append(t_ac + t_voc)
+        split.append((t_ac, t_voc))
+    counts = read_counts()
+    main_counts = counts
+    expect_counts(counts, REQUESTS, f"{REQUESTS} requests B={B} T_mel={T_MEL}")
+    check_out(mel, wav, inputs[1], "requests")
+    steady = times[1:]
+    fps = B * T_MEL / (sum(steady) / len(steady))
+    log(f"[e2e] request times {['%.3f s' % t for t in times]}; steady {fps:.1f} mel frames/s "
+        f"({B * T_MEL / min(steady):.1f} best) on {card}; "
+        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(f"[e2e] split of the steady requests: acoustic "
+        f"{['%.3f s' % a for a, _ in split[1:]]}, vocoder {['%.3f s' % v for _, v in split[1:]]}")
+    report["phases"]["requests"] = {
+        "times_s": times, "acoustic_vocoder_s": split, "frames_per_s": fps,
+        "frames_per_s_best": B * T_MEL / min(steady),
+        "launches": counts, "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+    # one profiled request: device time by kernel and the device's idle share
+    reset_counts()
+    report["phases"]["profile"] = profile_request(lambda: run(model, vocoder, *inputs, 3))
+    expect_counts(read_counts(), 1, "profiled request")
+
+    # one request with padding: ragged mel2ph and pad tokens
+    padded = request(B, T_TXT, T_MEL, ragged=True)
+    reset_counts()
+    mel, wav, _, _ = run(model, vocoder, *padded, noise_seed=11)
+    torch.cuda.synchronize()
+    expect_counts(read_counts(), 1, "padded request")
+    check_out(mel, wav, padded[1], "padded request")
+
+    # one long phrase
+    long_req = request(1, 512, 4096)
+    reset_counts()
+    t0 = time.perf_counter()
+    mel, wav, _, _ = run(model, vocoder, *long_req, noise_seed=12)
+    torch.cuda.synchronize()
+    long_s = time.perf_counter() - t0
+    expect_counts(read_counts(), 1, "long phrase T_txt=512 T_mel=4096")
+    check_out(mel, wav, long_req[1], "long phrase")
+    log(f"[e2e] long phrase: {long_s:.3f} s, wav {tuple(wav.shape)}")
+    report["phases"]["long_phrase_s"] = long_s
+
+    # reduced-batch float32: kernels against every kernel's plain version
+    small_req = request(2, 64, 512, ragged=True)
+    reset_counts()
+    mel_k, wav_k, _, _ = run(model32, vocoder32, *small_req, noise_seed=13)
+    torch.cuda.synchronize()
+    expect_counts(read_counts(), 1, "f32 reduced batch")
+    reset_counts()
+    with plain_kernels():
+        mel_p, wav_p, _, _ = run(model32, vocoder32, *small_req, noise_seed=13)
+    torch.cuda.synchronize()
+    if read_counts() != {"K1": 0, "K2": 0, "K3": 0}:
+        fail("the plain run launched a kernel")
+    mel_err, wav_err = max_err(mel_k, mel_p), max_err(wav_k, wav_p)
+    # float32 throughout, sums in another order over 50 steps: the fidelity
+    # bound of BASELINE.md (mel MAE <= 1e-3) as a max, for mel and wav
+    log(f"[e2e] f32 B=2 T_mel=512 kernels vs plain: max|mel err| {mel_err:.3e}, "
+        f"max|wav err| {wav_err:.3e} (tolerance 1e-3)")
+    report["phases"]["f32_vs_plain"] = {"mel": mel_err, "wav": wav_err}
+    if not (mel_err <= 1e-3 and wav_err <= 1e-3):
+        fail("the float32 slice disagrees with its plain-version run")
+    # what bf16 costs in fidelity: the main path's dtype against float32 on the
+    # same weights and noise (reported, not held to a bound)
+    mel_b, _, _, _ = run(model, vocoder, *small_req, noise_seed=13)
+    diff = (mel_b.float() - mel_k).abs()
+    log(f"[e2e] bf16 vs f32, same request: mel MAE {diff.mean().item():.3e}, "
+        f"max {diff.max().item():.3e} (log-mel units)")
+    report["phases"]["bf16_vs_f32_mel"] = {"mae": diff.mean().item(), "max": diff.max().item()}
+
+    # ------------------------------------------------------------ 4. kernel line
+    x_t = s.transpose(1, 2).contiguous()
+    w_conv = dw_w[:, None, :].contiguous()
+    q, k, v, pad = k3_args
+    visible = pad[:, None, :, None] == pad[:, None, None, :]
+    bt = B * T_MEL
+    c_enc, i_enc = 1024, I
+    # K1: 2k float32 operations per output; bytes: s in, out, taps, bias, alpha
+    k1_ops = 2 * 31 * bt * I
+    k1_bytes = 2 * (2 * bt * I) + 2 * (I * 31 + 2 * I)
+    # K2: the two products on the tensor cores, the taps on the CUDA cores;
+    # bytes: x in, y out, weights once
+    k2_tc = 2 * bt * c_enc * 2 * i_enc + 2 * bt * i_enc * c_enc
+    k2_simt = 2 * 31 * bt * i_enc
+    k2_bytes = 2 * (2 * bt * c_enc) + 2 * (2 * i_enc * c_enc + i_enc * c_enc + 31 * i_enc
+                                          + 4 * i_enc + 4 * c_enc)
+    # K3: only the visible (query, key) pairs are needed: QK^T and PV
+    pairs = int(visible.sum().item()) * 2  # per head
+    k3_ops = 4 * pairs * 128
+    k3_bytes = 4 * 4 * q.numel() + pad.numel()
+    lines = [
+        ("K1", "depthwise_conv1d_prelu", "diffsinger_tpu_torch/ops/csrc/depthwise_conv.cu",
+         "diffsinger_tpu/ops/depthwise_conv.py:83", k1_err,
+         lambda: depthwise_conv.depthwise_conv1d_prelu(*k1_args),
+         lambda: depthwise_conv.depthwise_conv1d_prelu_plain(*k1_args),
+         lambda: F.conv1d(x_t, w_conv, dw_b, padding=15, groups=I),
+         max(k1_bytes / PEAK_BYTES, k1_ops / PEAK_F32), k1_bytes / PEAK_BYTES >= k1_ops / PEAK_F32),
+        ("K2", "fused_conv_module", "diffsinger_tpu_torch/ops/csrc/lynx_fused.cu",
+         "diffsinger_tpu/ops/lynx_fused.py:153", k2_err,
+         lambda: lynx_fused.fused_conv_module(x, **k2_params),
+         lambda: lynx_fused.fused_conv_module_plain(x, **k2_params),
+         None,
+         max(k2_bytes / PEAK_BYTES, k2_tc / PEAK_BF16_TC, k2_simt / PEAK_F32),
+         k2_bytes / PEAK_BYTES >= max(k2_tc / PEAK_BF16_TC, k2_simt / PEAK_F32)),
+        ("K3", "flash_attention", "diffsinger_tpu_torch/ops/csrc/flash_attention.cu",
+         "diffsinger_tpu/models/commons.py:206", k3_err,
+         lambda: flash_attention.flash_attention(*k3_args),
+         lambda: flash_attention.flash_attention_plain(*k3_args),
+         lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=visible),
+         max(k3_bytes / PEAK_BYTES, k3_ops / PEAK_F32), k3_bytes / PEAK_BYTES >= k3_ops / PEAK_F32),
+    ]
+    kernels = []
+    for key, name, src, replaces, err, fn, plain, lib, bound_s, by_bytes in lines:
+        entry = {
+            "name": name, "route": "cuda", "source": src, "replaces": replaces,
+            "launches": main_counts[key],
+            "launches_per_request": main_counts[key] // REQUESTS,
+            "max_abs_err": err,
+            "ms": time_ms(fn),
+            "plain_ms": time_ms(plain, iters=5, warmup=1),
+            "bound_ms": bound_s * 1e3,
+            "bound_by": "bytes" if by_bytes else "operations",
+            "library_ms": time_ms(lib) if lib is not None else None,
+        }
+        kernels.append(entry)
+        log(f"[time] {key} {name}: {entry['ms']:.4f} ms (bound {entry['bound_ms']:.4f} ms by "
+            f"{entry['bound_by']}; plain {entry['plain_ms']:.4f} ms; library "
+            f"{entry['library_ms'] if entry['library_ms'] is None else '%.4f ms' % entry['library_ms']}) "
+            f"on {card}")
+    report["kernels"] = kernels
+
+    (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

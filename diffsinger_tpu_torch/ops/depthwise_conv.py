@@ -1,0 +1,73 @@
+"""K1: 'same'-padded depthwise 1-D conv + optional bias + per-channel PReLU.
+
+Counterpart of diffsinger_tpu/ops/depthwise_conv.py. The CUDA kernel is
+``csrc/depthwise_conv.cu`` (its header note gives the bound and the design);
+:func:`depthwise_conv1d_prelu_plain` is its plain PyTorch version with the same
+arithmetic: taps accumulated in float32 in tap order, then the bias, then
+PReLU, stored in the input dtype.
+
+Weights use the torch layout: ``w`` is the depthwise Conv1d weight
+``[C, 1, k]`` with its singleton axis dropped, ``[C, k]``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from diffsinger_tpu_torch.ops import native
+
+# launches of the CUDA kernel in this process; tests and chip_smoke.py reset it
+launches = 0
+
+
+def depthwise_conv1d_prelu_plain(x: torch.Tensor, w: torch.Tensor, alpha: torch.Tensor,
+                                 bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain version of K1. x [B, T, C], w [C, k], alpha [C], bias [C] or None."""
+    k = w.shape[1]
+    pad_l = k // 2
+    t = x.shape[1]
+    xp = F.pad(x.float(), (0, 0, pad_l, k - 1 - pad_l))
+    wf = w.float()
+    acc = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for j in range(k):
+        acc = acc + xp[:, j:j + t, :] * wf[:, j]
+    if bias is not None:
+        acc = acc + bias.float()
+    acc = torch.where(acc >= 0, acc, alpha.float() * acc)
+    return acc.to(x.dtype)
+
+
+def depthwise_conv1d_prelu(x: torch.Tensor, w: torch.Tensor, alpha: torch.Tensor,
+                           bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """'same' depthwise conv over x [B, T, C] with taps w [C, k], then PReLU.
+
+    Pads ``(k // 2, k - 1 - k // 2)``. On a CPU tensor this is the plain
+    version; on a CUDA tensor it launches the kernel or raises.
+    """
+    if x.device.type == "cpu":
+        return depthwise_conv1d_prelu_plain(x, w, alpha, bias)
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    b, t, c = x.shape
+    k = w.shape[-1]
+    like = dict(device=x.device, dtype=x.dtype)
+    native.require(x, "x", shape=(b, t, c), **like)
+    native.require(w, "w", shape=(c, k), **like)
+    native.require(alpha, "alpha", shape=(c,), **like)
+    if bias is not None:
+        native.require(bias, "bias", shape=(c,), **like)
+    if not 1 <= k <= 61:
+        raise ValueError(f"kernel size {k} outside 1..61")
+    out = torch.empty_like(x)
+    lib = native.load("depthwise_conv")
+    rc = lib.ds_dwconv_prelu(
+        x.data_ptr(), w.data_ptr(), None if bias is None else bias.data_ptr(),
+        alpha.data_ptr(), out.data_ptr(), b, t, c, k, native.dtype_code(x.dtype),
+        native.stream_ptr(x))
+    native.check(rc, "depthwise_conv1d_prelu")
+    global launches
+    launches += 1
+    return out
