@@ -8,8 +8,10 @@ Phases, each printed as it ends; any failure exits non-zero:
 1. card and build: the card's name and power limit (nvidia-smi), then the
    three CUDA kernels built from ``diffsinger_tpu_torch/ops/csrc`` at once;
 2. kernels: each kernel against its plain PyTorch version at main-path
-   shapes in the working dtype (bf16; K3 float32), and K2 also in float32 at
-   a small shape, with the max abs error beside its tolerance;
+   shapes in the working dtype (bf16; K3 float32), with the max abs error
+   beside its tolerance; K2 also in float32 at a small shape and in bf16 at
+   ragged shapes (rows not a multiple of the tile, widths that are multiples
+   of 32 and of nothing larger), K3 also at a ragged length without a mask;
 3. e2e: the acoustic model (configs/acoustic.yaml at full width, seeded
    random weights, 50 euler steps, bf16) and the mini-NSF vocoder, driven
    through ``DiffSingerAcoustic.forward_infer`` and ``Generator``: timed
@@ -18,8 +20,9 @@ Phases, each printed as it ends; any failure exits non-zero:
    and read after it, show the kernels ran (per request: K2 and K1 6 x 50
    times, K3 4 times). A reduced-batch float32 run is compared with the same
    run on every kernel's plain version;
-4. the ``kernels`` JSON line (launches, time, bound, plain and library
-   times), then the last line ``{"ok": true, "device": {...}}``.
+4. times: K3 at the long shape [16, 2, 512, 128] and K2's two GEMMs alone
+   (``[time]`` lines), then the ``kernels`` JSON line (launches, time, bound,
+   plain and library times) and the last line ``{"ok": true, "device": {...}}``.
 
 Float32 products run in full float32 here: TF32 is off for both matmuls and
 cuDNN convolutions. The script imports nothing of JAX or the JAX package.
@@ -256,6 +259,24 @@ def main() -> None:
     k2_err = check("K2 bf16 [16,1024,1024] I=2048 k=31",
                    lynx_fused.fused_conv_module(x, **k2_params), want,
                    2 ** -6 * want.float().abs().max().item())
+    # K2 bf16 where the tiles are ragged: M = 999 rows, and widths C = 96, I = 160
+    def k2_case(b, t, c, inner, k):
+        def rnd(*shape, scale=1.0):
+            return randn(*shape, dtype=bf, scale=scale)
+
+        params = dict(ln_scale=1 + rnd(c, scale=0.2), ln_bias=rnd(c, scale=0.1),
+                      w1=rnd(2 * inner, c, scale=c ** -0.5), b1=rnd(2 * inner, scale=0.1),
+                      dw_w=rnd(inner, k, scale=0.2), dw_b=rnd(inner, scale=0.1),
+                      alpha=0.25 + rnd(inner, scale=0.1),
+                      w2=rnd(c, inner, scale=inner ** -0.5), b2=rnd(c, scale=0.1))
+        return rnd(b, t, c), params
+
+    for shape in ((3, 333, 1024, 2048, 31), (5, 77, 96, 160, 7)):
+        xr, params_r = k2_case(*shape)
+        want_r = lynx_fused.fused_conv_module_plain(xr, **params_r)
+        check("K2 bf16 ragged x [%d,%d,%d] I=%d k=%d" % shape,
+              lynx_fused.fused_conv_module(xr, **params_r), want_r,
+              2 ** -6 * want_r.float().abs().max().item())
     # K2 float32 at a small, ragged shape
     torch.manual_seed(3)
     small = LYNXConvModule(64, 2, 31).to(dev)
@@ -279,6 +300,9 @@ def main() -> None:
     long_args = attn_case(B, 512)
     check("K3 f32 [16,2,512,128] padded", flash_attention.flash_attention(*long_args),
           flash_attention.flash_attention_plain(*long_args), 1e-4)
+    q2, k2, v2, _ = attn_case(4, 200)  # ragged against every tile, no mask
+    check("K3 f32 [4,2,200,128] no mask", flash_attention.flash_attention(q2, k2, v2),
+          flash_attention.flash_attention_plain(q2, k2, v2), 1e-4)
     torch.cuda.synchronize()
     report["phases"]["kernels"] = checks
     if not all(c["ok"] for c in checks):
@@ -441,9 +465,50 @@ def main() -> None:
     k2_bytes = 2 * (2 * bt * c_enc) + 2 * (2 * i_enc * c_enc + i_enc * c_enc + 31 * i_enc
                                           + 4 * i_enc + 4 * c_enc)
     # K3: only the visible (query, key) pairs are needed: QK^T and PV
-    pairs = int(visible.sum().item()) * 2  # per head
-    k3_ops = 4 * pairs * 128
-    k3_bytes = 4 * 4 * q.numel() + pad.numel()
+    def k3_bound(q, pad):
+        pairs = int((pad[:, None, :, None] == pad[:, None, None, :]).sum().item()) * q.shape[1]
+        return 4 * pairs * q.shape[-1], 4 * 4 * q.numel() + pad.numel()
+
+    k3_ops, k3_bytes = k3_bound(q, pad)
+
+    # K3 at the long shape, where arithmetic and not the launch bounds it
+    ql, kl, vl, padl = long_args
+    visible_l = padl[:, None, :, None] == padl[:, None, None, :]
+    ops_l, bytes_l = k3_bound(ql, padl)
+    k3_long = {
+        "ms": time_ms(lambda: flash_attention.flash_attention(*long_args)),
+        "bound_ms": max(ops_l / PEAK_F32, bytes_l / PEAK_BYTES) * 1e3,
+        "plain_ms": time_ms(lambda: flash_attention.flash_attention_plain(*long_args), 5, 1),
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(ql, kl, vl, attn_mask=visible_l)),
+    }
+    log("[time] K3 flash_attention at [16,2,512,128]: %(ms).4f ms (bound %(bound_ms).4f ms by "
+        "operations; plain %(plain_ms).4f ms; library %(library_ms).4f ms)" % k3_long + f" on {card}")
+    report["k3_long"] = k3_long
+
+    # K2's two GEMMs alone, through the library's C interface
+    lib = native.load("lynx_fused")
+    stream = native.stream_ptr(x)
+    mean = torch.empty(bt, device=dev)
+    rstd = torch.empty(bt, device=dev)
+    native.check(lib.ds_lynx_ln_stats(x.data_ptr(), mean.data_ptr(), rstd.data_ptr(), bt, c_enc,
+                                      lynx_fused.LN_EPS, 1, stream), "ln_stats")
+    s_buf, y_buf = torch.empty_like(s), torch.empty_like(x)
+    p2 = k2_params
+    gemms = {}
+    for name, flop, fn in (
+        ("pw1", 2 * bt * c_enc * 2 * i_enc, lambda: native.check(lib.ds_lynx_pw1_swiglu(
+            x.data_ptr(), mean.data_ptr(), rstd.data_ptr(), p2["ln_scale"].data_ptr(),
+            p2["ln_bias"].data_ptr(), p2["w1"].data_ptr(), p2["b1"].data_ptr(),
+            s_buf.data_ptr(), bt, c_enc, i_enc, 1, stream), "pw1")),
+        ("pw2", 2 * bt * i_enc * c_enc, lambda: native.check(lib.ds_lynx_pw2(
+            s.data_ptr(), p2["w2"].data_ptr(), p2["b2"].data_ptr(), y_buf.data_ptr(),
+            bt, i_enc, c_enc, 1, stream), "pw2")),
+    ):
+        ms = time_ms(fn)
+        gemms[name] = {"ms": ms, "tflops": flop / ms / 1e9}
+        log(f"[time] K2 {name} alone: {ms:.4f} ms, {flop / ms / 1e9:.1f} TFLOP/s bf16 on {card}")
+    log(f"[time] K2 pw1 + pw2: {gemms['pw1']['ms'] + gemms['pw2']['ms']:.4f} ms")
+    report["k2_gemms"] = gemms
     lines = [
         ("K1", "depthwise_conv1d_prelu", "diffsinger_tpu_torch/ops/csrc/depthwise_conv.cu",
          "diffsinger_tpu/ops/depthwise_conv.py:83", k1_err,

@@ -27,11 +27,53 @@
 //   3. K1 over s with dw_conv.bias and PReLU (zero padding at each sequence's
 //      ends, the conv's own padding; real frames are never masked);
 //   4. pw2: a tiled GEMM with a bias epilogue.
-// bf16 products run on the tensor cores through mma.sync m16n8k16 (bf16 in,
-// float32 accumulate) from a register-staged shared-memory tile; float32
-// products, kept for exact checks, run on the CUDA cores. Both GEMMs are the
-// simple first version: no TMA, no wgmma, no pipelining beyond staging the
-// next tile in registers.
+// float32 products, kept for exact checks and the float32 slice, run on the
+// CUDA cores in a tiled GEMM. bf16 products run on the tensor cores, in the
+// usual Hopper shape:
+//   - a block of three warpgroups computes 128-row output tiles: one thread of
+//     the producer warpgroup issues TMA loads (cp.async.bulk.tensor, 128-byte
+//     swizzle) of a [128 x 64] tile of A and two [128 x 64] boxes of W, which
+//     lie back to back as one [256 x 64] operand, into a ring of up to 4 stages
+//     (48 KB each), each stage with a "full" mbarrier that counts the bytes and
+//     an "empty" one that the consumers' 8 warps release; registers are handed
+//     from the producer to the consumers with setmaxnreg (40 / 232);
+//   - each of the two consumer warpgroups owns 64 rows and a float32
+//     accumulator of 64 x 256 (wgmma.mma_async m64n256k16, W from shared
+//     memory through a descriptor), 128 registers a thread;
+//   - the grid is one block per SM; a block walks the output tiles (those
+//     that share rows of A next to each other) and its producer runs ahead
+//     across tiles, so the next tile's first stages load during the epilogue;
+//   - pw1: the two boxes of W are 128 value rows of w1 at n0 and the matching
+//     128 gate rows at I + n0, so the value and the gate of an output column
+//     sit in the same thread, 64 accumulator registers apart, and the epilogue
+//     applies bias and SwiGLU in registers and writes s once (with the
+//     hardware's exp and reciprocal approximations: the result is rounded to
+//     bf16, and the exact form made the epilogue a seventh of the kernel). The
+//     LN prologue stays in the kernel with the plain version's arithmetic: TMA
+//     brings raw x; a consumer reads its A fragments from the swizzled tile
+//     with ldmatrix, computes (x - mean) * rstd * ln_w + ln_b in float32
+//     (statistics of its two rows in registers, ln_w and ln_b from a float32
+//     table in shared memory), rounds to bf16 and issues wgmma with A from
+//     registers. Two sets of four fragments alternate, so the next k tile is
+//     normalised while the tensor cores work on the current one;
+//   - pw2: the two boxes are W rows n0.. and n0 + 128.. (a 128 x 256 output
+//     tile), A is read from shared memory through a descriptor, the epilogue
+//     adds the bias.
+// TMA zero-fills what lies past M, N or K, and the epilogues mask the ragged
+// edge, so M is any number and C, I any multiples of 32. The tensor maps are
+// encoded on the host on every call (activations move between calls) with
+// cuTensorMapEncodeTiled, looked up at run time in libcuda, and passed
+// by value as __grid_constant__ parameters. The epilogue goes from the
+// accumulators to device memory through a transpose among the four lanes of a
+// quad, so that each lane stores 16 bytes and each warp whole sectors.
+// Tried on the H100 and dropped, each at the main shape: normalising the A
+// tile in place in shared memory by the producer warpgroup, with A then read
+// through a descriptor (pw1 0.56 ms against 0.40 ms with register fragments);
+// clusters of two blocks along M with W multicast (no change: L2 is not the
+// limit).
+
+#include <cuda.h>
+#include <dlfcn.h>
 
 #include "common.cuh"
 
@@ -64,6 +106,13 @@ __device__ __forceinline__ float swiglu(float value, float gate) {
   return value * (gate * (1.f / (1.f + expf(-gate))));
 }
 
+// The same with the hardware's exp2 and reciprocal approximations (relative
+// error about 2^-21), for results that are rounded to bf16: the exact form
+// costs some 40 instructions, and the bf16 epilogue has 64 of them a thread.
+__device__ __forceinline__ float swiglu_fast(float value, float gate) {
+  return value * gate * __fdividef(1.f, 1.f + __expf(-gate));
+}
+
 // Row of W that feeds row r of a B tile BN rows tall, for the output tile
 // starting at column n0. With SWIGLU the tile's first BN/2 rows are value
 // columns n0.. and the last BN/2 the matching gate columns N + n0..
@@ -81,172 +130,314 @@ __device__ __forceinline__ int w_row(int r, int n0, int N) {
 }
 
 // ------------------------------------------------- bf16: tensor-core GEMM
-constexpr int TC_BM = 128, TC_BN = 128, TC_BK = 32, TC_LDS = TC_BK + 8;
-constexpr int TC_THREADS = 256;  // 8 warps: 2 along M (64 rows) x 4 along N
+constexpr int TC_BM = 128;   // rows of an output tile (64 per consumer warpgroup)
+constexpr int TC_BOX = 128;  // rows of one box of W
+constexpr int TC_BK = 64;    // 128 bytes: one row of the 128-byte swizzle
+constexpr int TC_TILE_BYTES = 128 * TC_BK * 2;
+constexpr int TC_STAGE_BYTES = 3 * TC_TILE_BYTES;  // A, box 0, box 1
+constexpr int TC_MAX_STAGES = 4;
+constexpr int TC_THREADS = 384;  // consumer warpgroups 0 and 1, producer warpgroup 2
+constexpr int TC_SMEM_LIMIT = 232448;
 
-__device__ __forceinline__ uint32_t lds32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+__device__ __forceinline__ uint32_t pack_pair(float a, float b) {
+  const __nv_bfloat162 r = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const uint32_t*>(&r);
 }
 
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// Transposes the 4 x 4 words that the four lanes t = 0..3 of a quad hold:
+// afterwards v[i] is what lane i held in v[t]. All lanes of the warp call it.
+__device__ __forceinline__ void quad_transpose(uint32_t (&v)[4], int t) {
+#pragma unroll
+  for (int k = 0; k < 4; k += 2) {  // 2 x 2 blocks: swap the off-diagonal words
+    const uint32_t got = __shfl_xor_sync(0xffffffffu, (t & 1) ? v[k] : v[k + 1], 1);
+    if (t & 1) v[k] = got; else v[k + 1] = got;
+  }
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {  // then the off-diagonal 2 x 2 blocks
+    const uint32_t got = __shfl_xor_sync(0xffffffffu, (t & 2) ? v[k] : v[k + 2], 2);
+    if (t & 2) v[k] = got; else v[k + 2] = got;
+  }
 }
 
-// B-tile row where n8 tile `ni` (0..3) of warp column `wn` starts. With SWIGLU
-// tiles 0, 1 are value columns and 2, 3 the gate columns of the same outputs,
-// so one thread holds both halves of each SwiGLU pair.
-template <bool SWIGLU>
-__device__ __forceinline__ int tc_boff(int wn, int ni) {
-  if (SWIGLU) return (ni < 2 ? 0 : TC_BN / 2) + wn * 16 + (ni & 1) * 8;
-  return wn * 32 + ni * 8;
+// two bf16 values of x (one word) -> LN -> two bf16 values;
+// wb = (ln_w[c], ln_b[c], ln_w[c + 1], ln_b[c + 1])
+__device__ __forceinline__ uint32_t ln_pair(uint32_t x, float mu, float rs, const float4& wb) {
+  const float lo = (__uint_as_float(x << 16) - mu) * rs * wb.x + wb.y;
+  const float hi = (__uint_as_float(x & 0xffff0000u) - mu) * rs * wb.z + wb.w;
+  return pack_pair(lo, hi);
 }
 
-// out [M, N] = A [M, K] @ W^T + bias, W [N, K]; with SWIGLU, A is normalised
-// on load with (mean, rstd, ln_w, ln_b), W is [2N, K], bias [2N], and
-// out = value * silu(gate).
-template <bool SWIGLU>
-__global__ void __launch_bounds__(TC_THREADS)
-gemm_bf16_kernel(const bf16* __restrict__ A, const float* __restrict__ mean,
-                 const float* __restrict__ rstd, const bf16* __restrict__ ln_w,
-                 const bf16* __restrict__ ln_b, const bf16* __restrict__ W,
+__device__ __forceinline__ float2 load_pair(const bf16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+// PW1:  out [M, N] = SwiGLU(LN(A) @ W^T + bias), A [M, K] raw x, W [2N, K]
+//       (value rows, then gate rows), bias [2N]; an output tile is 128 x 128.
+// !PW1: out [M, N] = A @ W^T + bias, W [N, K]; an output tile is 128 x 256.
+template <bool PW1>
+__global__ void __launch_bounds__(TC_THREADS, 1)
+gemm_bf16_kernel(const __grid_constant__ CUtensorMap map_a,
+                 const __grid_constant__ CUtensorMap map_w,
+                 const float* __restrict__ mean, const float* __restrict__ rstd,
+                 const bf16* __restrict__ ln_w, const bf16* __restrict__ ln_b,
                  const bf16* __restrict__ bias, bf16* __restrict__ out,
-                 int M, int N, int K) {
-  __shared__ __align__(16) bf16 As[TC_BM][TC_LDS];
-  __shared__ __align__(16) bf16 Bs[TC_BN][TC_LDS];
-  __shared__ float mean_s[TC_BM], rstd_s[TC_BM];
+                 int M, int N, int K, int stages) {
+  extern __shared__ uint8_t smem_raw[];
+  // the swizzled tiles need 1024-byte alignment
+  uint8_t* tiles = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(tiles + stages * TC_STAGE_BYTES);
+  uint64_t* empty = full + TC_MAX_STAGES;
+  float4* ln_tab = reinterpret_cast<float4*>(empty + TC_MAX_STAGES);  // [ceil(K / 64) * 32]
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int wm = warp >> 2, wn = warp & 3;
-  const int m0 = blockIdx.x * TC_BM;
-  const int n0 = blockIdx.y * (SWIGLU ? TC_BN / 2 : TC_BN);
+  const int tid = threadIdx.x;
+  const int k_tiles = (K + TC_BK - 1) / TC_BK;
+  // output tiles, the ones that share rows of A next to each other; a block
+  // takes every gridDim.x-th
+  constexpr int TILE_N = PW1 ? TC_BOX : 2 * TC_BOX;
+  const int n_tiles = (N + TILE_N - 1) / TILE_N;
+  const int out_tiles = n_tiles * ((M + TC_BM - 1) / TC_BM);
 
-  if (SWIGLU) {
-    for (int r = tid; r < TC_BM; r += TC_THREADS) {
-      const int m = m0 + r;
-      mean_s[r] = m < M ? mean[m] : 0.f;
-      rstd_s[r] = m < M ? rstd[m] : 0.f;
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);   // the producer's arrive, plus the bytes
+      mbar_init(&empty[s], 8);  // one arrive from each consumer warp
     }
-    __syncthreads();
+    mbar_init_fence();
   }
-
-  // each thread stages two 16-byte chunks of A and two of B per k tile
-  int ld_row[2], ld_col[2], ld_wrow[2];
-#pragma unroll
-  for (int p = 0; p < 2; ++p) {
-    const int id = tid + p * TC_THREADS;
-    ld_row[p] = id >> 2;
-    ld_col[p] = (id & 3) * 8;
-    ld_wrow[p] = w_row<SWIGLU, TC_BN>(ld_row[p], n0, N);
-  }
-  uint4 a_reg[2], b_reg[2];
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-
-  auto load = [&](int k0) {
-#pragma unroll
-    for (int p = 0; p < 2; ++p) {
-      const int m = m0 + ld_row[p];
-      a_reg[p] = m < M ? *reinterpret_cast<const uint4*>(A + (size_t)m * K + k0 + ld_col[p]) : zero;
-      b_reg[p] = ld_wrow[p] >= 0
-                     ? *reinterpret_cast<const uint4*>(W + (size_t)ld_wrow[p] * K + k0 + ld_col[p])
-                     : zero;
+  if (PW1) {
+    for (int i = tid; i < k_tiles * (TC_BK / 2); i += TC_THREADS) {
+      const int c = 2 * i;  // K is even
+      ln_tab[i] = c < K ? make_float4(to_f(ln_w[c]), to_f(ln_b[c]), to_f(ln_w[c + 1]),
+                                      to_f(ln_b[c + 1]))
+                        : make_float4(0.f, 0.f, 0.f, 0.f);
     }
-  };
-  auto store = [&](int k0) {
-#pragma unroll
-    for (int p = 0; p < 2; ++p) {
-      uint4 a = a_reg[p];
-      const int r = ld_row[p];
-      if (SWIGLU && m0 + r < M) {  // LN prologue, float32 as in the TPU kernel
-        bf16* e = reinterpret_cast<bf16*>(&a);
-        const float mu = mean_s[r], rs = rstd_s[r];
-#pragma unroll
-        for (int q = 0; q < 8; ++q) {
-          const int k = k0 + ld_col[p] + q;
-          e[q] = __float2bfloat16((to_f(e[q]) - mu) * rs * to_f(ln_w[k]) + to_f(ln_b[k]));
+  }
+  __syncthreads();
+
+  if (tid >= 2 * 128) {
+    // ------------------------------------------------------------ producer
+    // runs ahead of the consumers across output tiles, so the next tile's
+    // first stages load during this tile's epilogue
+    reg_dealloc<40>();
+    if (tid == 2 * 128) {
+      int s = 0;
+      uint32_t parity = 1;  // a fresh "empty" barrier lets the first round pass
+      for (int tile = blockIdx.x; tile < out_tiles; tile += gridDim.x) {
+        const int n0 = tile % n_tiles * TILE_N, m0 = tile / n_tiles * TC_BM;
+        const int row_b0 = n0;
+        const int row_b1 = PW1 ? N + n0 : n0 + TC_BOX;
+        for (int it = 0; it < k_tiles; ++it) {
+          mbar_wait(&empty[s], parity);
+          mbar_arrive_expect_tx(&full[s], TC_STAGE_BYTES);
+          uint8_t* st = tiles + s * TC_STAGE_BYTES;
+          const int k0 = it * TC_BK;
+          tma_load_2d(st, &map_a, &full[s], k0, m0);
+          tma_load_2d(st + TC_TILE_BYTES, &map_w, &full[s], k0, row_b0);
+          tma_load_2d(st + 2 * TC_TILE_BYTES, &map_w, &full[s], k0, row_b1);
+          if (++s == stages) {
+            s = 0;
+            parity ^= 1;
+          }
         }
       }
-      *reinterpret_cast<uint4*>(&As[r][ld_col[p]]) = a;
-      *reinterpret_cast<uint4*>(&Bs[r][ld_col[p]]) = b_reg[p];
     }
-  };
+  } else {
+    // ----------------------------------------------------------- consumers
+    reg_alloc<232>();
+    const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+    const int g = lane >> 2, t = lane & 3;
+    // ldmatrix: lanes 0-15 address rows 0-15 of the warp's 16 at the first
+    // 16-byte chunk of the k step, lanes 16-31 the same rows at the second
+    const int lm_row = wg * 64 + warp * 16 + (lane & 15);
+    const int lm_chunk = lane >> 4;
+    const uint32_t tiles_u32 = smem_u32(tiles);
+    const uint64_t desc0 = wgmma_desc_sw128(tiles);
 
-  float acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-  const int KT = K / TC_BK;
-  load(0);
-  store(0);
-  __syncthreads();
-  for (int kt = 0; kt < KT; ++kt) {
-    if (kt + 1 < KT) load((kt + 1) * TC_BK);  // in flight during the products
-#pragma unroll
-    for (int ks = 0; ks < TC_BK; ks += 16) {
-      uint32_t af[4][4];
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi) {
-        const int r = wm * 64 + mi * 16 + g;
-        af[mi][0] = lds32(&As[r][ks + t4 * 2]);
-        af[mi][1] = lds32(&As[r + 8][ks + t4 * 2]);
-        af[mi][2] = lds32(&As[r][ks + t4 * 2 + 8]);
-        af[mi][3] = lds32(&As[r + 8][ks + t4 * 2 + 8]);
+    float acc[128];  // columns 8 j + 2 t (+ 1) of box 0 for j < 16, of box 1 for j >= 16
+    int s = 0, prev = 0;
+    uint32_t parity = 0;
+    auto advance = [&]() {
+      prev = s;
+      if (++s == stages) {
+        s = 0;
+        parity ^= 1;
       }
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int n = tc_boff<SWIGLU>(wn, ni) + g;
-        const uint32_t b0 = lds32(&Bs[n][ks + t4 * 2]);
-        const uint32_t b1 = lds32(&Bs[n][ks + t4 * 2 + 8]);
-#pragma unroll
-        for (int mi = 0; mi < 4; ++mi) mma_bf16(acc[mi][ni], af[mi], b0, b1);
-      }
-    }
-    __syncthreads();
-    if (kt + 1 < KT) {
-      store((kt + 1) * TC_BK);
-      __syncthreads();
-    }
-  }
+    };
+    auto release_prev = [&]() {
+      if (lane == 0) mbar_arrive(&empty[prev]);
+    };
 
-  // epilogue: accumulator e of an m16n8 tile sits at row g (+8 for e >= 2),
-  // columns 2*t4 and 2*t4 + 1
+    for (int tile = blockIdx.x; tile < out_tiles; tile += gridDim.x) {
+      const int n0 = tile % n_tiles * TILE_N, m0 = tile / n_tiles * TC_BM;
+      const int row_lo = m0 + wg * 64 + warp * 16 + g, row_hi = row_lo + 8;
+      if (PW1) {
+        float mu_lo = 0.f, rs_lo = 0.f, mu_hi = 0.f, rs_hi = 0.f;
+        if (row_lo < M) mu_lo = mean[row_lo], rs_lo = rstd[row_lo];
+        if (row_hi < M) mu_hi = mean[row_hi], rs_hi = rstd[row_hi];
+        // the four A fragments of k tile `it` (stage s), normalised
+        auto fragments = [&](uint32_t (&f)[4][4], int it) {
+          mbar_wait(&full[s], parity);
 #pragma unroll
-  for (int mi = 0; mi < 4; ++mi) {
+          for (int ks = 0; ks < TC_BK / 16; ++ks) {
+            uint32_t raw[4];
+            ldmatrix_x4(raw, tiles_u32 + s * TC_STAGE_BYTES + lm_row * 128 +
+                                 (((ks * 2 + lm_chunk) ^ (lm_row & 7)) << 4));
+            const int c = it * TC_BK + ks * 16 + 2 * t;
+            const float4 wb0 = ln_tab[c >> 1], wb1 = ln_tab[(c >> 1) + 4];
+            f[ks][0] = ln_pair(raw[0], mu_lo, rs_lo, wb0);
+            f[ks][1] = ln_pair(raw[1], mu_hi, rs_hi, wb0);
+            f[ks][2] = ln_pair(raw[2], mu_lo, rs_lo, wb1);
+            f[ks][3] = ln_pair(raw[3], mu_hi, rs_hi, wb1);
+          }
+        };
+        // the products of k tile `it` from `cur`; meanwhile the next tile's
+        // fragments into `next`, which the tile before this one has released
+        auto k_tile = [&](uint32_t (&cur)[4][4], uint32_t (&next)[4][4], int it) {
+          const uint64_t desc_b = desc0 + ((s * TC_STAGE_BYTES + TC_TILE_BYTES) >> 4);
+          wgmma_fence();
 #pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      const int m = m0 + wm * 64 + mi * 16 + g + hr * 8;
-      if (m >= M) continue;
-      bf16* orow = out + (size_t)m * N;
-      if (SWIGLU) {
-#pragma unroll
-        for (int ni = 0; ni < 2; ++ni) {
-          const int n = n0 + wn * 16 + ni * 8 + t4 * 2;
-          if (n >= N) continue;  // N is even, so n + 1 < N too
-          const float s0 = swiglu(acc[mi][ni][hr * 2] + to_f(bias[n]),
-                                  acc[mi][ni + 2][hr * 2] + to_f(bias[N + n]));
-          const float s1 = swiglu(acc[mi][ni][hr * 2 + 1] + to_f(bias[n + 1]),
-                                  acc[mi][ni + 2][hr * 2 + 1] + to_f(bias[N + n + 1]));
-          *reinterpret_cast<__nv_bfloat162*>(orow + n) = __floats2bfloat162_rn(s0, s1);
+          for (int ks = 0; ks < TC_BK / 16; ++ks)
+            wgmma_m64n256k16_rs(acc, cur[ks], desc_b + 2 * ks, (it | ks) != 0);
+          wgmma_commit();
+          wgmma_wait<1>();  // the k tile before this one is done
+          if (it > 0) release_prev();
+          advance();
+          if (it + 1 < k_tiles) fragments(next, it + 1);
+        };
+        uint32_t frag_a[4][4], frag_b[4][4];
+        fragments(frag_a, 0);
+        for (int it = 0; it < k_tiles; it += 2) {
+          k_tile(frag_a, frag_b, it);
+          if (it + 1 < k_tiles) k_tile(frag_b, frag_a, it + 1);
         }
       } else {
+        for (int it = 0; it < k_tiles; ++it) {
+          mbar_wait(&full[s], parity);
+          const uint32_t st_off = s * TC_STAGE_BYTES;
+          const uint64_t desc_a = desc0 + ((st_off + wg * 64 * 128) >> 4);
+          const uint64_t desc_b = desc0 + ((st_off + TC_TILE_BYTES) >> 4);
+          wgmma_fence();
 #pragma unroll
-        for (int ni = 0; ni < 4; ++ni) {
-          const int n = n0 + wn * 32 + ni * 8 + t4 * 2;
-          if (n >= N) continue;
-          *reinterpret_cast<__nv_bfloat162*>(orow + n) = __floats2bfloat162_rn(
-              acc[mi][ni][hr * 2] + to_f(bias[n]), acc[mi][ni][hr * 2 + 1] + to_f(bias[n + 1]));
+          for (int ks = 0; ks < TC_BK / 16; ++ks)
+            wgmma_m64n256k16_ss(acc, desc_a + 2 * ks, desc_b + 2 * ks, (it | ks) != 0);
+          wgmma_commit();
+          wgmma_wait<1>();  // the k tile before this one is done
+          if (it > 0) release_prev();
+          advance();
+        }
+      }
+      wgmma_wait<0>();
+      release_prev();  // the last k tile's stage
+
+      // epilogue: acc[4 j + e] is row_lo (e < 2) or row_hi, column 8 j + 2 t + (e & 1)
+      // of the 256 columns of the two boxes. Four column groups j at a time:
+      // bias (and SwiGLU), round to bf16 pairs, transpose the pairs among the
+      // four lanes that share the rows, so that lane t holds the 8 columns of
+      // group 4 q + t and a warp's store fills whole 32-byte sectors.
+#pragma unroll
+      for (int q = 0; q < (PW1 ? 4 : 8); ++q) {
+        uint32_t lo[4], hi[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int j = 4 * q + i;
+          const int n = n0 + j * 8 + 2 * t;
+          const bool in = n < N;  // N is even, so n + 1 < N too
+          const float2 zero = make_float2(0.f, 0.f);
+          const float2 b = in ? load_pair(bias + n) : zero;
+          if (PW1) {  // value in box 0, its gate 16 groups further, in box 1
+            const float2 bg = in ? load_pair(bias + N + n) : zero;
+            constexpr int G = 4 * 16;
+            lo[i] = pack_pair(swiglu_fast(acc[4 * j] + b.x, acc[4 * j + G] + bg.x),
+                              swiglu_fast(acc[4 * j + 1] + b.y, acc[4 * j + 1 + G] + bg.y));
+            hi[i] = pack_pair(swiglu_fast(acc[4 * j + 2] + b.x, acc[4 * j + 2 + G] + bg.x),
+                              swiglu_fast(acc[4 * j + 3] + b.y, acc[4 * j + 3 + G] + bg.y));
+          } else {
+            lo[i] = pack_pair(acc[4 * j] + b.x, acc[4 * j + 1] + b.y);
+            hi[i] = pack_pair(acc[4 * j + 2] + b.x, acc[4 * j + 3] + b.y);
+          }
+        }
+        quad_transpose(lo, t);
+        quad_transpose(hi, t);
+        const int n = n0 + (4 * q + t) * 8;
+        if (n < N) {  // N is a multiple of 8: the 8 columns are in or out together
+          if (row_lo < M)
+            *reinterpret_cast<uint4*>(out + (size_t)row_lo * N + n) =
+                make_uint4(lo[0], lo[1], lo[2], lo[3]);
+          if (row_hi < M)
+            *reinterpret_cast<uint4*>(out + (size_t)row_hi * N + n) =
+                make_uint4(hi[0], hi[1], hi[2], hi[3]);
         }
       }
     }
   }
+}
+
+// cuTensorMapEncodeTiled from the libcuda that the process has loaded
+using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+static EncodeTiledFn encode_tiled_fn() {
+  static EncodeTiledFn fn = [] {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_GLOBAL);
+    return lib ? reinterpret_cast<EncodeTiledFn>(dlsym(lib, "cuTensorMapEncodeTiled")) : nullptr;
+  }();
+  return fn;
+}
+
+// Tensor map of a row-major bf16 matrix [rows, cols] with boxes of
+// 128 rows x 64 columns under the 128-byte swizzle; reads past an edge give 0.
+static bool make_map(CUtensorMap* map, const void* ptr, int rows, int cols) {
+  EncodeTiledFn encode = encode_tiled_fn();
+  if (!encode) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * sizeof(bf16)};
+  const cuuint32_t box[2] = {TC_BK, 128};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
+}
+
+// streaming multiprocessors of the current device
+static int sm_count() {
+  static int count = [] {
+    int dev = 0, n = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    return n > 0 ? n : 1;
+  }();
+  return count;
+}
+
+template <bool PW1>
+int launch_gemm_bf16(const void* A, const float* mean, const float* rstd, const void* ln_w,
+                     const void* ln_b, const void* W, const void* bias, void* out, int M, int N,
+                     int K, cudaStream_t s) {
+  CUtensorMap map_a, map_w;
+  if (!make_map(&map_a, A, M, K) || !make_map(&map_w, W, PW1 ? 2 * N : N, K))
+    return (int)cudaErrorInvalidValue;
+  // alignment slack, barriers, and pw1's table of (ln_w, ln_b) pairs
+  const int k_tiles = (K + TC_BK - 1) / TC_BK;
+  const int fixed = 1024 + 2 * TC_MAX_STAGES * 8 + (PW1 ? k_tiles * TC_BK * 8 : 0);
+  int stages = TC_MAX_STAGES;
+  while (stages > 1 && fixed + stages * TC_STAGE_BYTES > TC_SMEM_LIMIT) --stages;
+  const int smem = fixed + stages * TC_STAGE_BYTES;
+  if (smem > TC_SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+  auto kernel = gemm_bf16_kernel<PW1>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int cols = PW1 ? TC_BOX : 2 * TC_BOX;
+  const int out_tiles = ((N + cols - 1) / cols) * ((M + TC_BM - 1) / TC_BM);
+  const dim3 grid(out_tiles < sm_count() ? out_tiles : sm_count());  // a block walks its tiles
+  kernel<<<grid, TC_THREADS, smem, s>>>(
+      map_a, map_w, mean, rstd, static_cast<const bf16*>(ln_w), static_cast<const bf16*>(ln_b),
+      static_cast<const bf16*>(bias), static_cast<bf16*>(out), M, N, K, stages);
+  return (int)cudaGetLastError();
 }
 
 // -------------------------------------------- float32: CUDA-core GEMM
@@ -343,26 +534,18 @@ template <bool SWIGLU>
 int launch_gemm(int dtype, const void* A, const void* mean, const void* rstd,
                 const void* ln_w, const void* ln_b, const void* W, const void* bias,
                 void* out, int M, int N, int K, cudaStream_t s) {
-  if (K % TC_BK != 0 || N % 2 != 0) return (int)cudaErrorInvalidValue;
+  if (K % 32 != 0 || N % 2 != 0) return (int)cudaErrorInvalidValue;
   const float* mu = static_cast<const float*>(mean);
   const float* rs = static_cast<const float*>(rstd);
-  if (dtype == 1) {
-    const int cols = SWIGLU ? TC_BN / 2 : TC_BN;
-    const dim3 grid((M + TC_BM - 1) / TC_BM, (N + cols - 1) / cols);
-    gemm_bf16_kernel<SWIGLU><<<grid, TC_THREADS, 0, s>>>(
-        static_cast<const bf16*>(A), mu, rs, static_cast<const bf16*>(ln_w),
-        static_cast<const bf16*>(ln_b), static_cast<const bf16*>(W),
-        static_cast<const bf16*>(bias), static_cast<bf16*>(out), M, N, K);
-  } else if (dtype == 0) {
-    const int cols = SWIGLU ? FP_BN / 2 : FP_BN;
-    const dim3 grid((M + FP_BM - 1) / FP_BM, (N + cols - 1) / cols);
-    gemm_f32_kernel<SWIGLU><<<grid, FP_THREADS, 0, s>>>(
-        static_cast<const float*>(A), mu, rs, static_cast<const float*>(ln_w),
-        static_cast<const float*>(ln_b), static_cast<const float*>(W),
-        static_cast<const float*>(bias), static_cast<float*>(out), M, N, K);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
+  if (dtype == 1)
+    return launch_gemm_bf16<SWIGLU>(A, mu, rs, ln_w, ln_b, W, bias, out, M, N, K, s);
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
+  const int cols = SWIGLU ? FP_BN / 2 : FP_BN;
+  const dim3 grid((M + FP_BM - 1) / FP_BM, (N + cols - 1) / cols);
+  gemm_f32_kernel<SWIGLU><<<grid, FP_THREADS, 0, s>>>(
+      static_cast<const float*>(A), mu, rs, static_cast<const float*>(ln_w),
+      static_cast<const float*>(ln_b), static_cast<const float*>(W),
+      static_cast<const float*>(bias), static_cast<float*>(out), M, N, K);
   return (int)cudaGetLastError();
 }
 

@@ -19,6 +19,24 @@ from diffsinger_tpu_torch.ops import native
 # launches of the CUDA kernel in this process
 launches = 0
 
+# query rows per block that the kernel is built for, largest first
+BQ_CHOICES = (128, 64, 32, 16)
+# a grid of at least this many blocks counts as filling the card's 132 SMs
+MIN_BLOCKS = 120
+
+
+def choose_bq(length: int, batch_heads: int) -> int:
+    """Query rows per block for q [.., length, D] over ``batch_heads`` (B * H).
+
+    The largest tile whose grid ``ceil(length / bq) * batch_heads`` still has
+    about a block for every SM, so that K and V are re-read as rarely as a full
+    card allows; the smallest tile where no tile fills the card.
+    """
+    for bq in BQ_CHOICES:
+        if -(-length // bq) * batch_heads >= MIN_BLOCKS:
+            return bq
+    return BQ_CHOICES[-1]
+
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           key_padding_mask: Optional[torch.Tensor] = None, *,
@@ -64,7 +82,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lib = native.load("flash_attention")
     rc = lib.ds_flash_attn_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), None if pad is None else pad.data_ptr(),
-        out.data_ptr(), b, h, l, d, float(sm_scale), native.stream_ptr(q))
+        out.data_ptr(), b, h, l, d, float(sm_scale), choose_bq(l, b * h), native.stream_ptr(q))
     native.check(rc, "flash_attention")
     global launches
     launches += 1

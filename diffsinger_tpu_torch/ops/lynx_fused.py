@@ -4,7 +4,8 @@ LN -> pw1 (C -> 2I) -> SwiGLU -> depthwise k-tap conv + bias -> PReLU -> pw2.
 Counterpart of diffsinger_tpu/ops/lynx_fused.py. The CUDA kernels are in
 ``csrc/lynx_fused.cu`` (its header note gives the bound and the design): LN
 statistics, pw1 with an LN prologue and a bias + SwiGLU epilogue, K1 for the
-depthwise stage, pw2 with a bias epilogue. :func:`fused_conv_module_plain` is
+depthwise stage, pw2 with a bias epilogue. In bfloat16 the two products run
+on the tensor cores (TMA loads, ``wgmma``); in float32 on the CUDA cores. :func:`fused_conv_module_plain` is
 the plain PyTorch version with the same arithmetic: LN statistics in float32,
 products of compute-dtype operands accumulated in float32, the normalised x,
 the SwiGLU output and the PReLU output rounded to the compute dtype (the dtype

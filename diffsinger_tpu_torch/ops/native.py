@@ -5,7 +5,10 @@ shared library with a plain C interface, loaded through ``ctypes``. A library
 is built at its first use into ``build/`` beside this file (git-ignored); its
 file name carries a hash of every source in ``csrc/`` and of the compiler
 flags, so an edited source builds anew. :func:`build` compiles several
-sources at once, one ``nvcc`` process each.
+sources at once, one ``nvcc`` process each. The libraries link against the
+CUDA runtime only; the one ``libcuda`` call they need
+(``cuTensorMapEncodeTiled``) is looked up at run time in the ``libcuda`` that
+PyTorch has loaded.
 
 Nothing here runs at import time: the CPU tests import every module on hosts
 without ``nvcc``.
@@ -44,7 +47,7 @@ SIGNATURES = {
     ("lynx_fused", "ds_lynx_ln_stats"): (_P, _P, _P, _I, _I, _F, _I, _P),
     ("lynx_fused", "ds_lynx_pw1_swiglu"): (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     ("lynx_fused", "ds_lynx_pw2"): (_P, _P, _P, _P, _I, _I, _I, _I, _P),
-    ("flash_attention", "ds_flash_attn_fwd"): (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
+    ("flash_attention", "ds_flash_attn_fwd"): (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P),
 }
 
 

@@ -62,6 +62,65 @@ def test_k2_kernel(dev, dtype):
     assert _max_err(got, want) <= tol
 
 
+def _k2_case(dev, b, t, c, inner, k, dtype, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*shape, scale=1.0, shift=0.0):
+        return (shift + scale * torch.randn(shape, generator=g, device=dev)).to(dtype)
+
+    args = dict(ln_scale=rnd(c, scale=0.2, shift=1.0), ln_bias=rnd(c, scale=0.1),
+                w1=rnd(2 * inner, c, scale=c ** -0.5), b1=rnd(2 * inner, scale=0.1),
+                dw_w=rnd(inner, k, scale=0.2), dw_b=rnd(inner, scale=0.1),
+                alpha=rnd(inner, scale=0.1, shift=0.25),
+                w2=rnd(c, inner, scale=inner ** -0.5), b2=rnd(c, scale=0.1))
+    return rnd(b, t, c), args
+
+
+@pytest.mark.parametrize("b,t,c,inner,k", [
+    (3, 333, 1024, 2048, 31),  # rows not a multiple of the 128-row tile
+    (5, 77, 96, 160, 7),       # widths that are multiples of 32 and of nothing larger
+    (1, 1, 32, 32, 3),         # a single row, a single k step
+])
+def test_k2_kernel_bf16_ragged(dev, b, t, c, inner, k):
+    x, args = _k2_case(dev, b, t, c, inner, k, torch.bfloat16)
+    n = lynx_fused.launches
+    got = lynx_fused.fused_conv_module(x, **args)
+    torch.cuda.synchronize()
+    assert lynx_fused.launches == n + 1
+    want = lynx_fused.fused_conv_module_plain(x, **args)
+    assert _max_err(got, want) <= 2 ** -6 * want.float().abs().max().item()
+
+
+def test_k2_bf16_raises_on_a_width_that_is_not_a_multiple_of_32(dev):
+    for c, inner in ((48, 96), (64, 80)):
+        x, args = _k2_case(dev, 1, 8, c, inner, 3, torch.bfloat16)
+        with pytest.raises(ValueError):
+            lynx_fused.fused_conv_module(x, **args)
+
+
+@pytest.mark.parametrize("b,length,d", [(4, 200, 128), (2, 513, 64), (40, 130, 32)])
+def test_k3_kernel_ragged_length_without_a_mask(dev, b, length, d):
+    g = torch.Generator(device=dev).manual_seed(2)
+    q, k, v = (torch.randn(b, 2, length, d, generator=g, device=dev) for _ in range(3))
+    n = flash_attention.launches
+    got = flash_attention.flash_attention(q, k, v)
+    assert flash_attention.launches == n + 1
+    assert _max_err(got, flash_attention.flash_attention_plain(q, k, v)) <= 1e-4
+
+
+def test_k3_kernel_row_that_sees_nothing_in_its_first_key_tiles(dev):
+    # only the last rows are padded: a padded query sees no key of the first
+    # tiles, so its running max stays -inf until the last one
+    g = torch.Generator(device=dev).manual_seed(3)
+    q, k, v = (torch.randn(2, 2, 300, 128, generator=g, device=dev) for _ in range(3))
+    pad = torch.zeros(2, 300, dtype=torch.bool, device=dev)
+    pad[0, 290:] = True
+    pad[1, 299:] = True
+    got = flash_attention.flash_attention(q, k, v, pad)
+    assert torch.isfinite(got).all()
+    assert _max_err(got, flash_attention.flash_attention_plain(q, k, v, pad)) <= 1e-4
+
+
 @pytest.mark.parametrize("d,length", [(128, 128), (64, 70)])
 def test_k3_kernel(dev, d, length):
     g = torch.Generator(device=dev).manual_seed(1)

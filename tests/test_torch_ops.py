@@ -142,6 +142,48 @@ def test_k3_plain_matches_library_flash_attention(L):
     np.testing.assert_allclose(got[1][:, pad[1]], want[1][:, pad[1]], atol=1e-5, rtol=1e-5)
 
 
+def _c_exports():
+    """{name: number of arguments} of every ``extern "C" int ds_*`` function in
+    ops/csrc/*.cu, read from the sources as text."""
+    import re
+
+    from diffsinger_tpu_torch.ops import native
+
+    found = {}
+    for src in sorted(native.CSRC.glob("*.cu")):
+        for name, args in re.findall(r'extern "C" int (ds_\w+)\(([^)]*)\)', src.read_text()):
+            found[(src.stem, name)] = len([a for a in args.split(",") if a.strip()])
+    return found
+
+
+def test_every_exported_c_function_has_its_signature_and_the_other_way_round():
+    from diffsinger_tpu_torch.ops import native
+
+    found = _c_exports()
+    assert found, "no exported function found"
+    assert set(found) == set(native.SIGNATURES)
+    for key, n_args in found.items():
+        assert len(native.SIGNATURES[key]) == n_args, key
+    assert {lib for lib, _ in found} == set(native.KERNEL_SOURCES)
+
+
+@pytest.mark.parametrize("length,batch_heads,bq", [
+    (128, 32, 32),    # the encoder at B=16: 64 rows would leave half the SMs idle
+    (512, 32, 128),   # long phrases in a batch: 128 blocks of 128 rows
+    (512, 2, 16),     # one long phrase: no tile fills the card
+    (200, 8, 16),
+    (4096, 32, 128),
+    (1, 1, 16),
+])
+def test_k3_tile_choice(length, batch_heads, bq):
+    assert flash_attention.choose_bq(length, batch_heads) == bq
+    blocks = -(-length // bq) * batch_heads
+    assert bq == 16 or blocks >= flash_attention.MIN_BLOCKS
+    # no larger tile would still fill the card
+    for bigger in (b for b in flash_attention.BQ_CHOICES if b > bq):
+        assert -(-length // bigger) * batch_heads < flash_attention.MIN_BLOCKS
+
+
 def test_wrappers_raise_on_a_device_without_a_kernel():
     x = torch.zeros(1, 8, 32, device="meta")
     with pytest.raises(ValueError):
