@@ -9,18 +9,25 @@ Phases, each printed as it ends; any failure exits non-zero:
    three CUDA kernels built from ``diffsinger_tpu_torch/ops/csrc`` at once;
 2. kernels: each kernel against its plain PyTorch version at main-path
    shapes in the working dtype (bf16; K3 float32), with the max abs error
-   beside its tolerance; K2 also in float32 at a small shape and in bf16 at
-   ragged shapes (rows not a multiple of the tile, widths that are multiples
-   of 32 and of nothing larger), K3 also at a ragged length without a mask;
+   beside its tolerance; K1 also at the shapes that break its tiles (ragged
+   lengths, a length under the halo, an even and a one-tap kernel, a width
+   that only the generic kernel takes), each with a large value in the last
+   row of sequence 0 that must not reach sequence 1; K2 also in float32 at a
+   small shape and in bf16 at ragged shapes (rows not a multiple of the tile,
+   widths that are multiples of 32 and of nothing larger), K3 also at a
+   ragged length without a mask;
 3. e2e: the acoustic model (configs/acoustic.yaml at full width, seeded
    random weights, 50 euler steps, bf16) and the mini-NSF vocoder, driven
    through ``DiffSingerAcoustic.forward_infer`` and ``Generator``: timed
-   requests at B=16, T_txt=128, T_mel=1024; one request with padding; one
+   requests at B=16, T_txt=128, T_mel=1024, with the host's own time in
+   ``forward_infer`` (call to return, before any wait for the device) beside
+   the acoustic seconds; one request with padding; one
    long phrase at T_txt=512. Launch counters, reset before each of these
    and read after it, show the kernels ran (per request: K2 and K1 6 x 50
    times, K3 4 times). A reduced-batch float32 run is compared with the same
    run on every kernel's plain version;
-4. times: K3 at the long shape [16, 2, 512, 128] and K2's two GEMMs alone
+4. times: K1 at the long phrase's shape [1, 4096, 2048], K3 at the long
+   shape [16, 2, 512, 128] and K2's two GEMMs alone
    (``[time]`` lines), then the ``kernels`` JSON line (launches, time, bound,
    plain and library times) and the last line ``{"ok": true, "device": {...}}``.
 
@@ -105,7 +112,7 @@ def seeded_weights(module, seed: int) -> None:
 
 # our kernels by the names nvcc gives them, for the profile's breakdown
 KERNEL_GROUPS = (("K2 GEMMs + LN stats", ("gemm_bf16_kernel", "gemm_f32_kernel", "ln_stats_kernel")),
-                 ("K1 depthwise", ("dwconv_prelu_kernel",)),
+                 ("K1 depthwise", ("dwconv_prelu_",)),
                  ("K3 attention", ("flash_fwd_kernel",)))
 
 
@@ -243,6 +250,35 @@ def main() -> None:
     k1_err = check("K1 bf16 [16,1024,2048] k=31", depthwise_conv.depthwise_conv1d_prelu(*k1_args),
                    want, 2 ** -7 * want.float().abs().max().item())
 
+    # K1 where its tiles break: T ragged against every tile, T under the halo,
+    # an even k (padding 2 left, 1 right), k = 1 and 61, C = 100 (not a multiple
+    # of 8: the generic kernel). A large value in the last row of sequence 0
+    # must not reach sequence 1, whose rows are held to a tolerance of their own.
+    def k1_case(dtype, b, t, c, k, with_bias=True):
+        xk = randn(b, t, c, dtype=dtype)
+        xk[0, -1] = 100.0
+        args = (xk, randn(c, k, dtype=dtype, scale=0.2),
+                (0.1 + 0.3 * torch.rand(c, generator=gen, device=dev)).to(dtype),
+                randn(c, dtype=dtype, scale=0.1) if with_bias else None)
+        before = depthwise_conv.launches
+        got = depthwise_conv.depthwise_conv1d_prelu(*args)
+        if depthwise_conv.launches != before + 1:
+            fail("K1's launch counter did not move")
+        want_k = depthwise_conv.depthwise_conv1d_prelu_plain(*args)
+
+        def tol(ref):  # float32: summation order; bf16: one ulp of the largest output
+            return 1e-4 if dtype == torch.float32 else 2 ** -7 * ref.float().abs().max().item()
+
+        name = "K1 %s [%d,%d,%d] k=%d%s" % ("f32" if dtype == torch.float32 else "bf16", b, t, c, k,
+                                           "" if with_bias else " no bias")
+        check(name, got, want_k, tol(want_k))
+        if b > 1:
+            check(name + ", sequences after the first", got[1:], want_k[1:], tol(want_k[1:]))
+
+    for case in ((bf, 3, 333, 2048, 31), (bf, 5, 77, 160, 7), (bf, 1, 17, 64, 31),
+                 (torch.float32, 2, 100, 100, 4, False), (bf, 2, 50, 64, 61), (bf, 2, 50, 64, 1)):
+        k1_case(*case)
+
     # K2 at the main path: x [16, 1024, 1024] bf16, C=1024, I=2048, k=31
     torch.manual_seed(1)
     conv_mod = LYNXConvModule(1024, 2, 31).to(dev)
@@ -341,12 +377,15 @@ def main() -> None:
         return (torch.from_numpy(tokens).to(dev), torch.from_numpy(mel2ph).to(dev),
                 torch.from_numpy(f0.astype(np.float32)).to(dev))
 
+    enqueue_s = []  # per request: the host's own time in forward_infer
+
     def run(m, voc, tokens, mel2ph, f0, noise_seed):
         """One request; returns mel, wav and the acoustic and vocoder seconds."""
         g = torch.Generator(device=dev).manual_seed(noise_seed)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = m.forward_infer(tokens, mel2ph, f0, steps=STEPS, generator=g)
+        enqueue_s.append(time.perf_counter() - t0)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         with torch.no_grad():
@@ -390,8 +429,14 @@ def main() -> None:
         f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     log(f"[e2e] split of the steady requests: acoustic "
         f"{['%.3f s' % a for a, _ in split[1:]]}, vocoder {['%.3f s' % v for _, v in split[1:]]}")
+    # how long the host needs for the acoustic part when it does not wait for
+    # the device at its end: forward_infer from its call to its return
+    host = enqueue_s[-REQUESTS:][1:]
+    log(f"[e2e] host's own time in forward_infer, steady requests: {['%.3f s' % h for h in host]} "
+        f"(acoustic with the wait for the device: {['%.3f s' % a for a, _ in split[1:]]})")
     report["phases"]["requests"] = {
-        "times_s": times, "acoustic_vocoder_s": split, "frames_per_s": fps,
+        "times_s": times, "acoustic_vocoder_s": split, "forward_infer_host_s": host,
+        "frames_per_s": fps,
         "frames_per_s_best": B * T_MEL / min(steady),
         "launches": counts, "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
 
@@ -417,8 +462,10 @@ def main() -> None:
     long_s = time.perf_counter() - t0
     expect_counts(read_counts(), 1, "long phrase T_txt=512 T_mel=4096")
     check_out(mel, wav, long_req[1], "long phrase")
-    log(f"[e2e] long phrase: {long_s:.3f} s, wav {tuple(wav.shape)}")
+    log(f"[e2e] long phrase: {long_s:.3f} s, wav {tuple(wav.shape)}; host's own time in "
+        f"forward_infer {enqueue_s[-1]:.3f} s")
     report["phases"]["long_phrase_s"] = long_s
+    report["phases"]["long_phrase_forward_infer_host_s"] = enqueue_s[-1]
 
     # reduced-batch float32: kernels against every kernel's plain version
     small_req = request(2, 64, 512, ragged=True)
@@ -470,6 +517,27 @@ def main() -> None:
         return 4 * pairs * q.shape[-1], 4 * 4 * q.numel() + pad.numel()
 
     k3_ops, k3_bytes = k3_bound(q, pad)
+
+    # K1 at the long phrase's shape (B=1, T_mel=4096), where the grid is thinnest
+    s_l = randn(1, 4096, I, dtype=bf)
+    k1_long_args = (s_l, dw_w, alpha, dw_b)
+    want_l = depthwise_conv.depthwise_conv1d_prelu_plain(*k1_long_args)
+    check("K1 bf16 [1,4096,2048] k=31", depthwise_conv.depthwise_conv1d_prelu(*k1_long_args),
+          want_l, 2 ** -7 * want_l.float().abs().max().item())
+    if not checks[-1]["ok"]:
+        fail("K1 disagrees with its plain version at the long phrase's shape")
+    x_tl = s_l.transpose(1, 2).contiguous()
+    k1_long = {
+        "ms": time_ms(lambda: depthwise_conv.depthwise_conv1d_prelu(*k1_long_args)),
+        "bound_ms": max((2 * (2 * s_l.numel()) + 2 * (I * 31 + 2 * I)) / PEAK_BYTES,
+                        2 * 31 * s_l.numel() / PEAK_F32) * 1e3,
+        "plain_ms": time_ms(lambda: depthwise_conv.depthwise_conv1d_prelu_plain(*k1_long_args), 5, 1),
+        "library_ms": time_ms(lambda: F.conv1d(x_tl, w_conv, dw_b, padding=15, groups=I)),
+    }
+    log("[time] K1 depthwise_conv1d_prelu at [1,4096,2048] k=31: %(ms).4f ms (bound %(bound_ms).4f "
+        "ms by bytes; plain %(plain_ms).4f ms; library %(library_ms).4f ms)" % k1_long
+        + " (tile %d x %d)" % depthwise_conv.choose_tile(1, 4096, I, 31) + f" on {card}")
+    report["k1_long"] = k1_long
 
     # K3 at the long shape, where arithmetic and not the launch bounds it
     ql, kl, vl, padl = long_args

@@ -1,7 +1,9 @@
 """K1: 'same'-padded depthwise 1-D conv + optional bias + per-channel PReLU.
 
 Counterpart of diffsinger_tpu/ops/depthwise_conv.py. The CUDA kernel is
-``csrc/depthwise_conv.cu`` (its header note gives the bound and the design);
+``csrc/depthwise_conv.cu`` (its header note gives the bound and the design: a
+tile kernel with the taps in registers for the kernel sizes of the shipped
+configs, a generic kernel for any other size or width);
 :func:`depthwise_conv1d_prelu_plain` is its plain PyTorch version with the same
 arithmetic: taps accumulated in float32 in tap order, then the bias, then
 PReLU, stored in the input dtype.
@@ -12,7 +14,7 @@ Weights use the torch layout: ``w`` is the depthwise Conv1d weight
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -21,6 +23,36 @@ from diffsinger_tpu_torch.ops import native
 
 # launches of the CUDA kernel in this process; tests and chip_smoke.py reset it
 launches = 0
+
+# kernel sizes the tile kernel is built for (configs/acoustic.yaml: LYNXNet 31,
+# ConvNeXt 7); any other size runs the generic kernel
+TILE_K = (7, 31)
+# output rows per tile that the tile kernel is built for, largest first
+TILE_ROWS = (128, 64)
+TILE_CHANNELS = 64
+# four blocks share an SM: a grid of this many fills the card's 132 SMs once
+MIN_BLOCKS = 4 * 132
+
+
+def choose_tile(b: int, t: int, c: int, k: int) -> Tuple[int, int]:
+    """(rows per tile, tiles per block) for x [b, t, c] with k taps; rows 0 =
+    the generic kernel.
+
+    The tile kernel takes k in ``TILE_K`` and c % 8 == 0 (16-byte copies). A
+    block walks ``span`` consecutive tiles of one sequence and one 64-channel
+    column with the next tile's copy in flight, so the longest span is the
+    best one that still leaves a block for every slot of the card: each
+    column is cut into as few blocks as make the grid reach ``MIN_BLOCKS``.
+    The 128-row tile re-reads the fewest halo rows; 64 rows are for sequences
+    that short.
+    """
+    if k not in TILE_K or c % 8:
+        return 0, 1
+    rows = TILE_ROWS[0] if t > TILE_ROWS[1] else TILE_ROWS[1]
+    tiles = -(-t // rows)
+    columns = -(-c // TILE_CHANNELS) * b
+    per_column = max(1, min(tiles, -(-MIN_BLOCKS // columns)))
+    return rows, -(-tiles // per_column)
 
 
 def depthwise_conv1d_prelu_plain(x: torch.Tensor, w: torch.Tensor, alpha: torch.Tensor,
@@ -61,12 +93,15 @@ def depthwise_conv1d_prelu(x: torch.Tensor, w: torch.Tensor, alpha: torch.Tensor
         native.require(bias, "bias", shape=(c,), **like)
     if not 1 <= k <= 61:
         raise ValueError(f"kernel size {k} outside 1..61")
+    if not 1 <= b <= 65535 or t < 1 or c < 1:
+        raise ValueError(f"no kernel for x of shape {tuple(x.shape)}")
     out = torch.empty_like(x)
+    rows, span = choose_tile(b, t, c, k)
     lib = native.load("depthwise_conv")
     rc = lib.ds_dwconv_prelu(
         x.data_ptr(), w.data_ptr(), None if bias is None else bias.data_ptr(),
         alpha.data_ptr(), out.data_ptr(), b, t, c, k, native.dtype_code(x.dtype),
-        native.stream_ptr(x))
+        rows, span, native.stream_ptr(x))
     native.check(rc, "depthwise_conv1d_prelu")
     global launches
     launches += 1

@@ -28,19 +28,59 @@ def _max_err(a, b):
     return (a.float() - b.float()).abs().max().item()
 
 
-@pytest.mark.parametrize("dtype,k,t", [(torch.float32, 31, 100), (torch.bfloat16, 7, 64)])
-def test_k1_kernel(dev, dtype, k, t):
+@pytest.mark.parametrize("dtype,b,t,c,k,with_bias", [
+    (torch.float32, 2, 100, 96, 31, True),
+    (torch.bfloat16, 2, 64, 96, 7, True),
+    (torch.bfloat16, 3, 333, 2048, 31, True),   # T ragged against every tile
+    (torch.bfloat16, 5, 77, 160, 7, True),      # C a multiple of 32 and of nothing larger
+    (torch.bfloat16, 1, 17, 64, 31, True),      # T shorter than the halo
+    (torch.float32, 2, 100, 100, 4, False),     # even k: pads 2 left, 1 right; C % 8 != 0
+    (torch.bfloat16, 2, 50, 64, 61, True),      # the largest k: the generic kernel
+    (torch.bfloat16, 2, 50, 64, 1, True),       # a single tap
+    (torch.float32, 2, 300, 2048, 31, True),    # the float32 slice's width, two tiles and a rest
+])
+def test_k1_kernel(dev, dtype, b, t, c, k, with_bias):
     g = torch.Generator(device=dev).manual_seed(0)
-    x = torch.randn(2, t, 96, generator=g, device=dev).to(dtype)
-    w = (0.2 * torch.randn(96, k, generator=g, device=dev)).to(dtype)
-    alpha = torch.full((96,), 0.25, device=dev, dtype=dtype)
-    bias = (0.1 * torch.randn(96, generator=g, device=dev)).to(dtype)
+    x = torch.randn(b, t, c, generator=g, device=dev).to(dtype)
+    x[0, -1] = 100.0  # must not leak into the first rows of sequence 1
+    w = (0.2 * torch.randn(c, k, generator=g, device=dev)).to(dtype)
+    alpha = torch.full((c,), 0.25, device=dev, dtype=dtype)
+    bias = (0.1 * torch.randn(c, generator=g, device=dev)).to(dtype) if with_bias else None
     n = depthwise_conv.launches
     got = depthwise_conv.depthwise_conv1d_prelu(x, w, alpha, bias)
+    torch.cuda.synchronize()
     assert depthwise_conv.launches == n + 1
     want = depthwise_conv.depthwise_conv1d_prelu_plain(x, w, alpha, bias)
-    tol = 1e-4 if dtype == torch.float32 else 2 ** -7 * want.float().abs().max().item()
-    assert _max_err(got, want) <= tol
+
+    def tol(ref):
+        return 1e-4 if dtype == torch.float32 else 2 ** -7 * ref.float().abs().max().item()
+
+    assert _max_err(got, want) <= tol(want)
+    if b > 1:  # the later sequences against a tolerance of their own
+        assert _max_err(got[1:], want[1:]) <= tol(want[1:])
+
+
+def test_k1_every_tile_choice_agrees(dev):
+    """The C function at each tile length and several spans, not only the
+    wrapper's choice: T = 333 leaves a ragged last tile and a ragged last span."""
+    from diffsinger_tpu_torch.ops import native
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    b, t, c, k = 2, 333, 160, 31
+    x = torch.randn(b, t, c, generator=g, device=dev).bfloat16()
+    x[0, -1] = 100.0
+    w = (0.2 * torch.randn(c, k, generator=g, device=dev)).bfloat16()
+    alpha = torch.full((c,), 0.25, device=dev).bfloat16()
+    want = depthwise_conv.depthwise_conv1d_prelu_plain(x, w, alpha)
+    lib = native.load("depthwise_conv")
+    for rows in (0, *depthwise_conv.TILE_ROWS):
+        for span in (1, 2, 100):
+            out = torch.full_like(x, float("nan"))
+            native.check(lib.ds_dwconv_prelu(
+                x.data_ptr(), w.data_ptr(), None, alpha.data_ptr(), out.data_ptr(), b, t, c, k,
+                1, rows, span, native.stream_ptr(x)), "depthwise_conv1d_prelu")
+            torch.cuda.synchronize()
+            assert _max_err(out, want) <= 2 ** -7 * want[1:].float().abs().max().item(), (rows, span)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

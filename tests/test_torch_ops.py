@@ -14,6 +14,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 from diffsinger_tpu.models.backbones.lynxnet import LYNXConvModule as JaxConvModule
 from diffsinger_tpu.ops.depthwise_conv import depthwise_conv1d_prelu as jax_dwconv
+from diffsinger_tpu.ops.depthwise_conv import depthwise_conv1d_prelu_xla as jax_dwconv_xla
 from diffsinger_tpu.ops.lynx_fused import conv_module_params_from_flax, fused_conv_module
 from diffsinger_tpu_torch.ops import depthwise_conv, flash_attention, lynx_fused
 from tests.torch_parity import assert_close
@@ -32,6 +33,56 @@ def test_k1_plain_matches_pallas_kernel(k, t_blk):
         torch.from_numpy(x), torch.from_numpy(w.T.copy()), torch.from_numpy(alpha))
     assert got.shape == (b, t, c)
     assert_close(got, want)
+
+
+@pytest.mark.parametrize("b,t,c,k", [
+    (2, 100, 100, 4),   # even k: pads 2 left and 1 right; C not a multiple of 8
+    (2, 50, 64, 1),     # a single tap
+    (1, 17, 64, 31),    # T shorter than the halo
+    (3, 77, 100, 7),
+    (2, 50, 24, 61),    # the largest k the kernels take
+    (2, 40, 16, 30),
+])
+def test_k1_plain_matches_jax_reference_at_the_shapes_that_break_tiles(b, t, c, k):
+    """The plain version against the JAX package's own reference (no bias),
+    where the Pallas kernel's interpret mode cannot go (it needs T % t_blk == 0)."""
+    rng = np.random.default_rng(1000 * k + t)
+    x = rng.standard_normal((b, t, c)).astype(np.float32)
+    x[0, -1] = 100.0  # sequence 0's last row must not reach sequence 1
+    w = (rng.standard_normal((k, c)) * 0.2).astype(np.float32)
+    alpha = rng.uniform(0.1, 0.4, (c,)).astype(np.float32)
+    want = jax_dwconv_xla(jnp.asarray(x), jnp.asarray(w), jnp.asarray(alpha), kernel_size=k)
+    got = depthwise_conv.depthwise_conv1d_prelu_plain(
+        torch.from_numpy(x), torch.from_numpy(w.T.copy()), torch.from_numpy(alpha))
+    assert got.shape == (b, t, c)
+    assert_close(got, want)
+
+
+@pytest.mark.parametrize("b,t,c,k,rows,span", [
+    (16, 1024, 2048, 31, 128, 4),  # K2's middle stage: 1024 blocks, two to a slot
+    (1, 4096, 2048, 31, 128, 2),   # one long phrase: 512 blocks
+    (16, 1024, 512, 7, 128, 2),    # the ConvNeXt width
+    (2, 512, 2048, 31, 128, 1),    # the float32 slice: too few tiles to share out
+    (3, 333, 2048, 31, 128, 1),
+    (64, 1024, 2048, 31, 128, 8),  # every column fills a slot by itself
+    (1, 17, 64, 31, 64, 1),        # shorter than the small tile
+    (1, 64, 2048, 31, 64, 1),
+    (2, 100, 100, 4, 0, 1),        # C % 8 != 0 and k not built: the generic kernel
+    (2, 100, 96, 5, 0, 1),
+    (2, 100, 100, 31, 0, 1),
+])
+def test_k1_tile_choice(b, t, c, k, rows, span):
+    assert depthwise_conv.choose_tile(b, t, c, k) == (rows, span)
+    if rows:
+        assert rows in depthwise_conv.TILE_ROWS and k in depthwise_conv.TILE_K and c % 8 == 0
+        tiles = -(-t // rows)
+        columns = -(-c // depthwise_conv.TILE_CHANNELS) * b
+        blocks = columns * -(-tiles // span)
+        # spans round up, so the grid may fall short of a block a slot, by less than half
+        assert 1 <= span <= tiles
+        assert span == 1 or 2 * blocks >= depthwise_conv.MIN_BLOCKS
+        # a grid with blocks to spare is cut no finer than a block a slot
+        assert span == tiles or blocks < 2 * depthwise_conv.MIN_BLOCKS or span == 1
 
 
 def test_k1_bias_added_before_prelu():

@@ -1,8 +1,16 @@
 #!/usr/bin/env python3
 """Kernel sweeps for the PyTorch/CUDA port on one NVIDIA GPU (H100).
 
-    python3 tools/perf_torch_kernels.py [k3] [k2]
+    python3 tools/perf_torch_kernels.py [k1] [k3] [k2] [k1probe]
 
+k1: the depthwise conv + PReLU kernel at the main path's shape, the long
+    phrase's and the ConvNeXt-like k = 7 shape in bf16: the generic kernel and
+    the tile kernel at each tile length it is built for and several spans
+    (tiles a block; direct calls of the C function), each checked against the
+    plain version, with the achieved GB/s (of the 2 x B x T x C x 2 bytes a
+    call must move), the wrapper's own choice, the bound, a plain copy of the
+    tensor (what the card's memory really gives) and ``F.conv1d(groups=C)``
+    beside it.
 k3: the flash-attention kernel at each tile size BQ it is built for (direct
     calls of the C function, so the wrapper's choice is not in the way) at the
     encoder's shapes, checked against the plain version, with the wrapper's
@@ -11,13 +19,25 @@ k2: the conv module's two bf16 GEMMs alone at the main shape, with
     ``torch.matmul`` on the same operands as a yardstick (it computes no LN,
     SwiGLU or bias, and the port never calls it).
 
+k1probe (only when named): where K1's time goes. Builds ``depthwise_conv.cu``
+    again with its probe macros (without the copies from device memory;
+    without the multiply-adds; with chunks of 8 and 32 rows; with three
+    blocks an SM), times each at the main shape, and counts the instructions
+    of the k = 31 tile kernel by opcode (``cuobjdump``, where the toolkit
+    has it). Probe builds compute nothing useful and are checked against
+    nothing.
+
 Times are CUDA-event means over 20 launches after 3 warm-ups. Exits non-zero
 if a kernel disagrees with its plain version.
 """
 
 from __future__ import annotations
 
+import collections
+import ctypes
 import math
+import re
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -27,11 +47,13 @@ import torch.nn.functional as F
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
+from diffsinger_tpu_torch.ops import depthwise_conv as dw  # noqa: E402
 from diffsinger_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from diffsinger_tpu_torch.ops import lynx_fused as lf  # noqa: E402
 from diffsinger_tpu_torch.ops import native  # noqa: E402
 
 PEAK_F32 = 67e12  # H100 SXM, CUDA cores
+PEAK_BYTES = 3.35e12  # H100 SXM, device memory
 
 
 def time_ms(fn, iters=20, warmup=3):
@@ -45,6 +67,122 @@ def time_ms(fn, iters=20, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def sweep_k1(dev, gen) -> int:
+    lib = native.load("depthwise_conv")
+    bf = torch.bfloat16
+    bad = 0
+    for b, t, c, k in ((16, 1024, 2048, 31), (1, 4096, 2048, 31), (16, 1024, 512, 7)):
+        x = torch.randn(b, t, c, generator=gen, device=dev).to(bf)
+        w = (0.2 * torch.randn(c, k, generator=gen, device=dev)).to(bf)
+        bias = (0.1 * torch.randn(c, generator=gen, device=dev)).to(bf)
+        alpha = (0.1 + 0.3 * torch.rand(c, generator=gen, device=dev)).to(bf)
+        want = dw.depthwise_conv1d_prelu_plain(x, w, alpha, bias)
+        tol = 2 ** -7 * want.float().abs().max().item()  # one bf16 ulp of the largest output
+        out = torch.empty_like(x)
+        moved = 2 * x.numel() * 2
+        bound = max((moved + 2 * (w.numel() + 2 * c)) / PEAK_BYTES,
+                    2 * k * x.numel() / PEAK_F32) * 1e3
+
+        def call(rows, span):
+            native.check(lib.ds_dwconv_prelu(
+                x.data_ptr(), w.data_ptr(), bias.data_ptr(), alpha.data_ptr(), out.data_ptr(),
+                b, t, c, k, 1, rows, span, native.stream_ptr(x)), "depthwise_conv1d_prelu")
+
+        choices = [(0, 1)] + [(rows, span) for rows in reversed(dw.TILE_ROWS)
+                              for span in (1, 2, 4, 8, 16, 64) if span == 1 or span < 2 * t // rows]
+        for rows, span in choices:
+            out.fill_(float("nan"))
+            call(rows, span)
+            err = (out.float() - want.float()).abs().max().item()
+            bad += not err <= tol
+            ms = time_ms(lambda: call(rows, span))
+            name = "generic" if rows == 0 else f"tile {rows} x {span}"
+            print(f"K1 [{b},{t},{c}] k={k} {name}: {ms:.4f} ms, {moved / ms / 1e6:.0f} GB/s, "
+                  f"max|err| {err:.2e} (tolerance {tol:.2e})")
+        x_t, w_conv = x.transpose(1, 2).contiguous(), w[:, None, :].contiguous()
+        print("   wrapper (tile %d x %d) " % dw.choose_tile(b, t, c, k) +
+              f"{time_ms(lambda: dw.depthwise_conv1d_prelu(x, w, alpha, bias)):.4f} ms; "
+              "F.conv1d(groups=C), channel-first, no PReLU "
+              f"{time_ms(lambda: F.conv1d(x_t, w_conv, bias, padding=k // 2, groups=c)):.4f} ms; "
+              f"a copy of x {time_ms(lambda: out.copy_(x)):.4f} ms; bound {bound:.4f} ms")
+    return bad
+
+
+def probe_k1(dev, gen) -> int:
+    src = native.CSRC / "depthwise_conv.cu"
+    out_dir = native.BUILD_DIR / "probe"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    builds = {
+        "as shipped": [],
+        "no copies from device memory": ["-DDW_PROBE_NO_LOAD"],
+        "one multiply-add a row": ["-DDW_PROBE_NO_FMA"],
+        "no staging at all": ["-DDW_PROBE_NO_STAGE"],
+        "no staging, no stores": ["-DDW_PROBE_NO_STAGE", "-DDW_PROBE_NO_STORE"],
+        "no stores": ["-DDW_PROBE_NO_STORE"],
+        "chunks of 8 rows": ["-DDW_PROBE_R=8"],
+        "chunks of 32 rows, 3 blocks an SM": ["-DDW_PROBE_R=32", "-DDW_PROBE_BLOCKS=3"],
+        "3 blocks an SM": ["-DDW_PROBE_BLOCKS=3"],
+    }
+    procs = {}
+    for n, (name, flags) in enumerate(builds.items()):
+        lib_path = out_dir / f"libk1_probe{n}.so"
+        procs[name] = (lib_path, subprocess.Popen(
+            [nvcc, *native.NVCC_FLAGS, *flags, "-o", str(lib_path), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    b, t, c, k = 16, 1024, 2048, 31
+    bf = torch.bfloat16
+    x = torch.randn(b, t, c, generator=gen, device=dev).to(bf)
+    w = (0.2 * torch.randn(c, k, generator=gen, device=dev)).to(bf)
+    bias = torch.zeros(c, device=dev, dtype=bf)
+    alpha = torch.full((c,), 0.25, device=dev, dtype=bf)
+    out = torch.empty_like(x)
+    rows, span = dw.choose_tile(b, t, c, k)
+    kernel = f"dwconv_prelu_tile_kernelI13__nv_bfloat16Li{k}ELi{rows}E"
+    for name, (lib_path, proc) in procs.items():
+        msg, _ = proc.communicate()
+        if proc.returncode:
+            print(msg)
+            return 1
+        lines = msg.splitlines()
+        used = next((" ".join(part.replace("ptxas info    :", "").strip()
+                              for part in lines[i + 2:i + 4])
+                     for i, line in enumerate(lines) if "Compiling" in line and kernel in line), "")
+        lib = ctypes.CDLL(str(lib_path))
+        lib.ds_dwconv_prelu.argtypes = list(native.SIGNATURES[("depthwise_conv", "ds_dwconv_prelu")])
+        ms = time_ms(lambda: native.check(lib.ds_dwconv_prelu(
+            x.data_ptr(), w.data_ptr(), bias.data_ptr(), alpha.data_ptr(), out.data_ptr(),
+            b, t, c, k, 1, rows, span, native.stream_ptr(x)), "probe"))
+        print(f"K1 probe [{b},{t},{c}] k={k} tile {rows} x {span}, {name}: {ms:.4f} ms ({used})")
+    print(f"   a copy of x: {time_ms(lambda: out.copy_(x)):.4f} ms")
+    # the SM clock and the power draw while the shipped kernel runs back to back
+    smi = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw",
+                            "--format=csv,noheader", "-lms", "250"],
+                           stdout=subprocess.PIPE, text=True)
+    for _ in range(30000):
+        dw.depthwise_conv1d_prelu(x, w, alpha, bias)
+    torch.cuda.synchronize()
+    smi.terminate()
+    samples = smi.communicate()[0].strip().splitlines()
+    print(f"   under load (clocks.sm, clocks.max.sm, power.draw): {samples[1:-1][:8]}")
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(cuobjdump).exists():
+        print("   no cuobjdump: instructions not counted")
+        return 0
+    sass = subprocess.run([cuobjdump, "-sass", str(procs["as shipped"][0])],
+                          capture_output=True, text=True).stdout
+    counts, inside = collections.Counter(), False
+    for line in sass.splitlines():
+        if "Function :" in line:
+            inside = kernel in line
+        m = re.match(r"\s+/\*[0-9a-f]+\*/\s+(?:@!?U?P\d+\s+)?([A-Z0-9_]+)", line)
+        if inside and m:
+            counts[m.group(1)] += 1
+    print(f"   instructions of the k={k} {rows}-row bf16 tile kernel (whole kernel, the chunk is "
+          f"unrolled once): {sum(counts.values())}: {dict(counts.most_common(12))}")
+    return 0
 
 
 def sweep_k3(dev, gen) -> int:
@@ -114,13 +252,17 @@ def sweep_k2(dev, gen) -> int:
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA card")
-    which = sys.argv[1:] or ["k3", "k2"]
+    which = sys.argv[1:] or ["k1", "k3", "k2"]
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip())
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     bad = 0
+    if "k1" in which:
+        bad += sweep_k1(dev, gen)
+    if "k1probe" in which:
+        bad += probe_k1(dev, gen)
     if "k3" in which:
         bad += sweep_k3(dev, gen)
     if "k2" in which:
