@@ -26,7 +26,26 @@ Phases, each printed as it ends; any failure exits non-zero:
    and read after it, show the kernels ran (per request: K2 and K1 6 x 50
    times, K3 4 times). A reduced-batch float32 run is compared with the same
    run on every kernel's plain version;
-4. times: K1 at the long phrase's shape [1, 4096, 2048], K3 at the long
+4. serve: a temporary experiment folder in the formats a user's files have
+   (``config.yaml`` at full width with ``infer_precision: bf16``, the
+   dictionary, the acoustic weights as ``model_ckpt_steps_1000.ckpt``, a
+   full-NSF vocoder ``model.ckpt`` + ``config.json``; seeded random weights),
+   loaded through ``utils/ckpt.py`` and ``NsfHifiGAN`` (a loader's warning of
+   random weights fails the run, and every loaded tensor is held against the
+   saved one). ``AcousticServer``
+   with batches of 16 serves samples/09_xing_he.ds and samples/08_qiu_yu.ds
+   together (17 segments of 423-793 frames): per chunk its batch, buckets and
+   the host's split, then seconds, true mel frames/s, audio seconds per second
+   and the padded share; the same call under the profiler; samples/00 through
+   the entry point ``diffsinger_tpu_torch.cli.infer`` (a wav file) and the
+   seconds per segment at B=1; three segments in float32 at 8 steps, kernels
+   against plain versions, as served (after the 16-bit step: one step plus a
+   thousandth of the signal's rms) and through ``forward_wav`` (a thousandth
+   of the rms). Then K1, K2 and K3 against their plain versions at every
+   (batch, token bucket, frame bucket) that the served chunks and the entry
+   point's segments had, in the dtype they ran in. The folder is removed at
+   the end;
+5. times: K1 at the long phrase's shape [1, 4096, 2048], K3 at the long
    shape [16, 2, 512, 128] and K2's two GEMMs alone
    (``[time]`` lines), then the ``kernels`` JSON line (launches, time, bound,
    plain and library times) and the last line ``{"ok": true, "device": {...}}``.
@@ -40,11 +59,17 @@ number to chiprun_out/chip_smoke.json.
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
+import warnings
+import wave
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -116,7 +141,7 @@ KERNEL_GROUPS = (("K2 GEMMs + LN stats", ("gemm_bf16_kernel", "gemm_f32_kernel",
                  ("K3 attention", ("flash_fwd_kernel",)))
 
 
-def profile_request(fn) -> dict:
+def profile_request(fn, what: str = "one request", table: str = "chip_smoke_profile.txt") -> dict:
     """Run fn under torch.profiler; device time by kernel group and the share
     of the request's wall time in which the device ran no kernel."""
     import torch
@@ -143,7 +168,7 @@ def profile_request(fn) -> dict:
               for name, pats in KERNEL_GROUPS}
     groups["stock PyTorch kernels"] = busy - sum(groups.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
-    log(f"[profile] one request under the profiler: wall {wall_us / 1e3:.1f} ms, device busy "
+    log(f"[profile] {what} under the profiler: wall {wall_us / 1e3:.1f} ms, device busy "
         f"{busy / 1e3:.1f} ms, idle share {1 - busy / wall_us:.3f}")
     for name, us in groups.items():
         log(f"[profile]   {name}: {us / 1e3:.1f} ms ({us / busy:.3f} of device time)")
@@ -151,7 +176,7 @@ def profile_request(fn) -> dict:
     averages = prof.key_averages()
     sort_key = ("self_device_time_total" if hasattr(averages[0], "self_device_time_total")
                 else "self_cuda_time_total")
-    (OUT_DIR / "chip_smoke_profile.txt").write_text(averages.table(sort_by=sort_key, row_limit=40))
+    (OUT_DIR / table).write_text(averages.table(sort_by=sort_key, row_limit=40))
     return {"measured": True, "wall_ms": wall_us / 1e3, "busy_ms": busy / 1e3,
             "idle_share": 1 - busy / wall_us,
             "groups_ms": {k: v / 1e3 for k, v in groups.items()},
@@ -172,6 +197,291 @@ def plain_kernels():
         yield
     finally:
         lynxnet.fused_conv_module, commons.flash_attention = saved
+
+
+SERVE_SCORES = ("09_xing_he.ds", "08_qiu_yu.ds")
+SERVE_BATCH = 16
+VOCODER_CHANNELS = 512  # upsample_initial_channel of the released full-NSF vocoders
+
+
+def write_experiment(root: Path, hp: dict) -> str:
+    """An experiment folder and a vocoder folder under ``root`` as a user has
+    them, with seeded random weights; returns the experiment's name and the two
+    saved state dicts (acoustic without the ``model.`` prefix, vocoder)."""
+    import torch
+    import yaml
+
+    from diffsinger_tpu_torch.models.toplevel import DiffSingerAcoustic
+    from diffsinger_tpu_torch.utils.ckpt import checkpoint_path
+    from diffsinger_tpu_torch.utils.text import load_phoneme_dictionary
+    from diffsinger_tpu_torch.vocoders.nsf_hifigan_model import Generator, NsfHifiGanConfig
+
+    name = "smoke_acoustic"
+    work_dir = root / "checkpoints" / name
+    work_dir.mkdir(parents=True)
+    voc_dir = root / "vocoder"
+    voc_dir.mkdir()
+    cfg = {k: v for k, v in hp.items() if k not in ("base_config", "dictionaries", "work_dir")}
+    cfg.update(infer_precision="bf16", sampling_steps=STEPS,
+               dictionary=str(ROOT / "dictionaries" / "opencpop-extension.txt"),
+               vocoder_ckpt=str(voc_dir / "model.ckpt"))
+    with open(work_dir / "config.yaml", "w", encoding="utf-8") as f:
+        yaml.safe_dump(cfg, f, allow_unicode=True)
+    shutil.copy(ROOT / "dictionaries" / "opencpop-extension.txt", work_dir / "dictionary.txt")
+
+    # the acoustic weights as phase 3 makes them, at the dictionary's vocabulary
+    vocab = len(load_phoneme_dictionary(dict(cfg, work_dir=str(work_dir))))
+    torch.manual_seed(5)
+    model = DiffSingerAcoustic(cfg, vocab_size=vocab, out_dims=cfg["audio_num_mel_bins"],
+                               dtype=torch.float32)
+    seeded_weights(model.module, 6)
+    acoustic_state = {k: v.cpu() for k, v in model.module.state_dict().items()}
+    torch.save({"state_dict": {"model." + k: v for k, v in acoustic_state.items()},
+                "category": "acoustic", "global_step": 1000}, checkpoint_path(work_dir, 1000))
+
+    # the default full-NSF vocoder (hop 512, 512 channels), seeded
+    voc_cfg = dict(num_mels=cfg["audio_num_mel_bins"], sampling_rate=cfg["audio_sample_rate"],
+                   upsample_rates=[8, 8, 2, 2, 2], upsample_kernel_sizes=[16, 16, 4, 4, 4],
+                   upsample_initial_channel=VOCODER_CHANNELS, resblock="1",
+                   resblock_kernel_sizes=[3, 7, 11],
+                   resblock_dilation_sizes=[[1, 3, 5], [1, 3, 5], [1, 3, 5]],
+                   mini_nsf=False, noise_sigma=0.0)
+    (voc_dir / "config.json").write_text(json.dumps(voc_cfg))
+    torch.manual_seed(7)
+    gen = Generator(NsfHifiGanConfig.from_json(voc_cfg), dtype=torch.float32)
+    vocoder_state = {k: v.cpu() for k, v in gen.state_dict().items()}
+    torch.save({"generator": vocoder_state}, voc_dir / "model.ckpt")
+    return name, acoustic_state, vocoder_state
+
+
+def serve_phase(hp, card, reset_counts, read_counts, request_profile):
+    """Phase 4: scores through the port's runtime. ``request_profile`` is the
+    B=16 request's profile, printed beside the served scores'. Returns the
+    phase's report and the launch counts of the timed serving call."""
+    import numpy as np
+    import torch
+
+    from diffsinger_tpu_torch.cli import infer as cli
+    from diffsinger_tpu_torch.config import load_config
+    from diffsinger_tpu_torch.inference.ds_acoustic import DiffSingerAcousticInfer
+    from diffsinger_tpu_torch.inference.serving import AcousticServer
+
+    n_layers, n_enc = hp["backbone_args"]["num_layers"], hp["enc_layers"]
+    hop, sr = hp["hop_size"], hp["audio_sample_rate"]
+    out = {}
+
+    def quiet(fn, *args, **kwargs):
+        """Run fn without its per-segment summaries on standard output."""
+        with contextlib.redirect_stdout(io.StringIO()):
+            return fn(*args, **kwargs)
+
+    def expect(counts, chunks, what):
+        want = {"K1": n_layers * STEPS * chunks, "K2": n_layers * STEPS * chunks,
+                "K3": n_enc * chunks}
+        log(f"[serve] {what}: launches {counts} (expected {want})")
+        if counts != want:
+            fail(f"{what}: launch counts {counts} != {want}")
+
+    def load_score(name):
+        with open(ROOT / "samples" / name, encoding="utf-8") as f:
+            return json.load(f)
+
+    def loaded(what, fn, *args, **kwargs):
+        """Build a runtime; a loader that fell back to random weights warns, and
+        that warning is a failure here."""
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            made = quiet(fn, *args, **kwargs)
+        for w in caught:
+            if "RANDOM weights" in str(w.message):
+                fail(f"{what}: {w.message}")
+        return made
+
+    def holds(what, module, state):
+        """The module's parameters are the saved ones (rounded to its dtype)."""
+        got = module.state_dict()
+        if set(got) != set(state):
+            fail(f"{what}: keys differ from the saved checkpoint's")
+        for key, saved in state.items():
+            if not torch.equal(got[key].cpu(), saved.to(got[key].dtype)):
+                fail(f"{what}: {key} is not the saved tensor")
+
+    def typical(wavs):
+        flat = np.concatenate([np.asarray(w, np.float64).ravel() for w in wavs])
+        return float(np.sqrt(np.mean(flat ** 2))), float(np.median(np.abs(flat)))
+
+    root = Path(tempfile.mkdtemp(prefix="ds_smoke_"))
+    saved_root = os.environ.get("DS_CKPT_ROOT")
+    os.environ.pop("DS_SERVING_PROFILE", None)
+    try:
+        exp, acoustic_state, vocoder_state = write_experiment(root, hp)
+        os.environ["DS_CKPT_ROOT"] = str(root / "checkpoints")
+        shp = cli.migrate_legacy_hparams(
+            load_config(exp_name=cli.find_exp(exp[:5]), infer=True, ckpt_root=cli.ckpt_root_dir()))
+        t0 = time.perf_counter()
+        server = loaded("server", AcousticServer, shp, max_batch_size=SERVE_BATCH)
+        holds("server, acoustic model", server.model.module, acoustic_state)
+        holds("server, vocoder", server.vocoder.model, vocoder_state)
+        log(f"[serve] server built from the experiment folder in {time.perf_counter() - t0:.2f} s "
+            f"(acoustic {next(server.model.module.parameters()).dtype}, vocoder "
+            f"{type(server.vocoder).__name__}, mini_nsf={server.vocoder.config.mini_nsf}); "
+            f"{len(acoustic_state)} + {len(vocoder_state)} tensors equal the saved files'")
+        segments = [seg for name in SERVE_SCORES for seg in load_score(name)]
+
+        # ---- the two scores together: once to warm up, once timed
+        quiet(server.synthesize_batch, segments, seed=1)
+        if any(st["compute_s"] is not None for st in server.last_stats):
+            fail("compute_s was read without DS_SERVING_PROFILE")
+        os.environ["DS_SERVING_PROFILE"] = "1"
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        wavs = quiet(server.synthesize_batch, segments, seed=1)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        serve_counts = read_counts()
+        del os.environ["DS_SERVING_PROFILE"]
+        stats = server.last_stats
+        expect(serve_counts, len(stats), f"{len(segments)} segments in {len(stats)} chunks")
+        lengths = [quiet(server.preprocess_input, seg)["mel2ph"].shape[1] for seg in segments]
+        if len(wavs) != 17 or not (400 <= min(lengths) and max(lengths) <= 800):
+            fail(f"served {len(wavs)} segments of {min(lengths)}-{max(lengths)} frames")
+        for i, (wav, n) in enumerate(zip(wavs, lengths)):
+            if wav.shape != (n * hop,) or not np.isfinite(wav).all():
+                fail(f"segment {i}: wav {wav.shape} for {n} frames, or not finite")
+            if not np.abs(wav).max() > 1e-3:
+                fail(f"segment {i}: silence")
+        rms, median = typical(wavs)
+        log(f"[serve] served wavs: rms {rms:.4f}, median |value| {median:.4f} (full scale 1)")
+        shapes = {(st["batch"], st["t_txt"], st["t_mel"]) for st in stats}
+        for st in stats:
+            log("[serve]   chunk B=%(batch)d buckets %(t_txt)d x %(t_mel)d: dispatch_s "
+                "%(dispatch_s).4f compute_s %(compute_s).4f fetch_s %(fetch_s).4f "
+                "(%(wire_mb).1f MB)" % st)
+        true_frames = sum(lengths)
+        padded_frames = sum(st["batch"] * st["t_mel"] for st in stats)
+        out["scores"] = {
+            "segments": len(segments), "frames": lengths, "chunks": stats, "seconds": seconds,
+            "frames_per_s": true_frames / seconds,
+            "audio_s_per_s": true_frames * hop / sr / seconds,
+            "padded_share": 1 - true_frames / padded_frames, "launches": serve_counts,
+            "wav_rms": rms, "wav_median_abs": median}
+        log(f"[serve] {len(segments)} segments ({min(lengths)}-{max(lengths)} frames) of "
+            f"{' + '.join(SERVE_SCORES)}: {seconds:.3f} s, {true_frames / seconds:.1f} true mel "
+            f"frames/s, {true_frames * hop / sr / seconds:.1f} audio s/s, padded share "
+            f"{1 - true_frames / padded_frames:.3f} on {card}")
+
+        # ---- the same call under the profiler
+        reset_counts()
+        out["profile"] = profile_request(
+            lambda: quiet(server.synthesize_batch, segments, seed=1),
+            what=f"the served scores ({len(segments)} segments)",
+            table="chip_smoke_profile_serve.txt")
+        expect(read_counts(), len(stats), "profiled serving call")
+        if out["profile"]["measured"] and request_profile["measured"]:
+            log(f"[serve] idle share: served scores {out['profile']['idle_share']:.3f} (device "
+                f"busy {out['profile']['busy_ms']:.1f} of {out['profile']['wall_ms']:.1f} ms), "
+                f"B={B} request {request_profile['idle_share']:.3f} "
+                f"({request_profile['busy_ms']:.1f} of {request_profile['wall_ms']:.1f} ms)")
+
+        # ---- one score through the entry point, segment by segment
+        score = load_score("00_xiao_xing_xing.ds")
+        out_dir = root / "out"
+        reset_counts()
+        t0 = time.perf_counter()
+        loaded("entry point", cli.main,
+               ["acoustic", str(ROOT / "samples" / "00_xiao_xing_xing.ds"),
+                "--exp", exp, "--seed", "1", "--out", str(out_dir)])
+        cli_s = time.perf_counter() - t0
+        expect(read_counts(), len(score), "entry point, samples/00 segment by segment")
+        with wave.open(str(out_dir / "00_xiao_xing_xing.wav")) as f:
+            rate, n_samples = f.getframerate(), f.getnframes()
+            pcm = np.frombuffer(f.readframes(n_samples), np.int16)
+        runner = loaded("runtime", DiffSingerAcousticInfer, shp)
+        holds("runtime, acoustic model", runner.model.module, acoustic_state)
+        batches = [quiet(runner.preprocess_input, seg) for seg in score]
+        for batch in batches:
+            padded, _ = runner._pad_batch(batch)
+            shapes.add((1, padded["tokens"].shape[1], padded["mel2ph"].shape[1]))
+        out["shapes"] = sorted(shapes)
+        want_samples = round(score[-1]["offset"] * sr) + batches[-1]["mel2ph"].shape[1] * hop
+        if rate != sr or abs(n_samples - want_samples) > hop or not np.abs(pcm).max() > 30:
+            fail(f"entry point: wav of {n_samples} samples at {rate} Hz, expected {want_samples}")
+        latency = []
+        for _ in range(2):  # the second round is warm
+            latency = []
+            for batch in batches:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                runner.forward_wav(batch, runner._generator(1))
+                latency.append(time.perf_counter() - t0)
+        out["entry_point"] = {"seconds_with_load": cli_s, "samples": n_samples,
+                              "segment_frames": [b["mel2ph"].shape[1] for b in batches],
+                              "segment_s": latency}
+        log(f"[serve] entry point: {cli_s:.2f} s with loading, wav of {n_samples} samples at "
+            f"{rate} Hz; B=1 latency per segment ({batches[0]['mel2ph'].shape[1]} frames, bucket "
+            f"512): {['%.3f s' % t for t in latency]} on {card}")
+
+        # ---- float32, reduced: kernels against their plain versions
+        hp32 = dict(shp, infer_precision="32")
+        server32 = loaded("float32 server", AcousticServer, hp32, max_batch_size=SERVE_BATCH)
+        three = load_score("08_qiu_yu.ds")[:3]
+        want = {"K1": n_layers * 8, "K2": n_layers * 8, "K3": n_enc}
+        none = {"K1": 0, "K2": 0, "K3": 0}
+        reset_counts()
+        wav_k = quiet(server32.synthesize_batch, three, seed=2, steps=8)
+        counts = read_counts()
+        if counts != want:
+            fail(f"float32 serving: launch counts {counts} != {want}")
+        reset_counts()
+        with plain_kernels():
+            wav_p = quiet(server32.synthesize_batch, three, seed=2, steps=8)
+        if read_counts() != none:
+            fail("the plain serving run launched a kernel")
+        err = max(float(np.abs(a - b).max()) for a, b in zip(wav_k, wav_p))
+        # the served wavs went through the 16-bit step: one step of it, and
+        # beside that a thousandth of the signal's rms (sums in another order)
+        rms, median = typical(wav_p)
+        tol = 1 / 32767 + 1e-3 * rms
+        log(f"[serve] f32, 3 segments of samples/08 at 8 steps, kernels vs plain: max|wav err| "
+            f"{err:.3e} (tolerance {tol:.3e} = one 16-bit step + 1e-3 of the rms {rms:.4f}; "
+            f"median |value| {median:.4f})")
+        out["f32_vs_plain_wav"] = {"err": err, "tol": tol, "rms": rms, "median_abs": median}
+        if not err <= tol:
+            fail("the served float32 wavs disagree with their plain-version run")
+        # the same three segments before the 16-bit step, one by one
+        batches3 = [quiet(server32.preprocess_input, seg) for seg in three]
+
+        def raw_wavs():
+            return [server32.forward_wav(b, server32._generator(2), steps=8) for b in batches3]
+
+        reset_counts()
+        raw_k = raw_wavs()
+        counts = read_counts()
+        if counts != {k: 3 * v for k, v in want.items()}:
+            fail(f"float32 forward_wav: launch counts {counts}")
+        reset_counts()
+        with plain_kernels():
+            raw_p = raw_wavs()
+        if read_counts() != none:
+            fail("the plain forward_wav run launched a kernel")
+        err = max(float(np.abs(a - b).max()) for a, b in zip(raw_k, raw_p))
+        rms, median = typical(raw_p)
+        tol = 1e-3 * rms
+        log(f"[serve] f32, the same segments through forward_wav (no 16-bit step), kernels vs "
+            f"plain: max|wav err| {err:.3e} (tolerance {tol:.3e} = 1e-3 of the rms {rms:.4f}; "
+            f"median |value| {median:.4f})")
+        out["f32_vs_plain_wav_float"] = {"err": err, "tol": tol, "rms": rms, "median_abs": median}
+        if not err <= tol:
+            fail("forward_wav in float32 disagrees with its plain-version run")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        os.environ.pop("DS_SERVING_PROFILE", None)
+        if saved_root is None:
+            os.environ.pop("DS_CKPT_ROOT", None)
+        else:
+            os.environ["DS_CKPT_ROOT"] = saved_root
+    return out, serve_counts
 
 
 def main() -> None:
@@ -339,6 +649,19 @@ def main() -> None:
     q2, k2, v2, _ = attn_case(4, 200)  # ragged against every tile, no mask
     check("K3 f32 [4,2,200,128] no mask", flash_attention.flash_attention(q2, k2, v2),
           flash_attention.flash_attention_plain(q2, k2, v2), 1e-4)
+    # K3 at a token bucket of 48, the third length a server's chunks can have
+    # (the scores of phase 4 give 16 and 32), with every row's tail padded
+    def k3_served_case(b, length):
+        q_s, k_s, v_s = (randn(b, 2, length, 128) for _ in range(3))
+        pad_s = torch.zeros(b, length, dtype=torch.bool, device=dev)
+        for i in range(b):  # every row's tail padded, by another amount
+            pad_s[i, length - (3 + 5 * i) % 16:] = True
+        return q_s, k_s, v_s, pad_s
+
+    for b_s in (1, 16):
+        served_args = k3_served_case(b_s, 48)
+        check(f"K3 f32 [{b_s},2,48,128] padded", flash_attention.flash_attention(*served_args),
+              flash_attention.flash_attention_plain(*served_args), 1e-4)
     torch.cuda.synchronize()
     report["phases"]["kernels"] = checks
     if not all(c["ok"] for c in checks):
@@ -495,7 +818,39 @@ def main() -> None:
         f"max {diff.max().item():.3e} (log-mel units)")
     report["phases"]["bf16_vs_f32_mel"] = {"mae": diff.mean().item(), "max": diff.max().item()}
 
-    # ------------------------------------------------------------ 4. kernel line
+    # ------------------------------------------------------------ 4. serve
+    report["phases"]["serve"], serve_counts = serve_phase(
+        hp, card, reset_counts, read_counts, report["phases"]["profile"])
+
+    # every kernel once more, at the shapes that the served chunks and the
+    # entry point's segments gave it, in the dtype they ran in
+    n_before = len(checks)
+    for b_s, t_txt_s, t_mel_s in report["phases"]["serve"]["shapes"]:
+        before = read_counts()
+        s_s = randn(b_s, t_mel_s, I, dtype=bf)
+        want_s = depthwise_conv.depthwise_conv1d_prelu_plain(s_s, dw_w, alpha, dw_b)
+        check(f"K1 bf16 [{b_s},{t_mel_s},{I}] k=31 (served)",
+              depthwise_conv.depthwise_conv1d_prelu(s_s, dw_w, alpha, dw_b), want_s,
+              2 ** -7 * want_s.float().abs().max().item())
+        x_s = randn(b_s, t_mel_s, 1024, dtype=bf)
+        want_s = lynx_fused.fused_conv_module_plain(x_s, **k2_params)
+        check(f"K2 bf16 [{b_s},{t_mel_s},1024] I={I} k=31 (served)",
+              lynx_fused.fused_conv_module(x_s, **k2_params), want_s,
+              2 ** -6 * want_s.float().abs().max().item())
+        served_args = k3_served_case(b_s, t_txt_s)
+        check(f"K3 f32 [{b_s},2,{t_txt_s},128] padded (served)",
+              flash_attention.flash_attention(*served_args),
+              flash_attention.flash_attention_plain(*served_args), 1e-4)
+        # K2's wrapper launches K1 as its middle stage
+        if read_counts() != {"K1": before["K1"] + 2, "K2": before["K2"] + 1,
+                             "K3": before["K3"] + 1}:
+            fail(f"a launch counter did not move at the served shape {(b_s, t_txt_s, t_mel_s)}")
+    if len(checks) == n_before:
+        fail("the serve phase reported no chunk shape")
+    if not all(c["ok"] for c in checks):
+        fail("a kernel disagrees with its plain version at a served shape")
+
+    # ------------------------------------------------------------ 5. kernel line
     x_t = s.transpose(1, 2).contiguous()
     w_conv = dw_w[:, None, :].contiguous()
     q, k, v, pad = k3_args
@@ -604,6 +959,7 @@ def main() -> None:
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": main_counts[key],
             "launches_per_request": main_counts[key] // REQUESTS,
+            "launches_served_score": serve_counts[key],
             "max_abs_err": err,
             "ms": time_ms(fn),
             "plain_ms": time_ms(plain, iters=5, warmup=1),

@@ -4,6 +4,7 @@ from __future__ import annotations
 
 import inspect
 
+import numpy as np
 import torch
 
 
@@ -18,6 +19,23 @@ def filter_kwargs(dict_to_filter: dict, kwarg_obj) -> dict:
         if p.kind in (inspect.Parameter.POSITIONAL_OR_KEYWORD, inspect.Parameter.KEYWORD_ONLY)
     ]
     return {k: v for k, v in dict_to_filter.items() if k in keys}
+
+
+def pad_to(x: np.ndarray, length: int, pad_value=0, axis: int = 0) -> np.ndarray:
+    """Pad one array along ``axis`` to a static length."""
+    if x.shape[axis] == length:
+        return x
+    assert x.shape[axis] < length, f"array dim {x.shape[axis]} exceeds target {length}"
+    widths = [(0, 0)] * x.ndim
+    widths[axis] = (0, length - x.shape[axis])
+    return np.pad(x, widths, constant_values=pad_value)
+
+
+def resolve_precision(precision) -> torch.dtype:
+    """``infer_precision`` -> the dtype a model is built in: any 16-bit
+    spelling ('bf16', '16-mixed', 'bf16-mixed', 16) gives bfloat16, anything
+    else (None, '32', '32-true') float32."""
+    return torch.bfloat16 if "16" in str(precision) else torch.float32
 
 
 def resolve_device(device=None) -> torch.device:

@@ -1,0 +1,90 @@
+"""Checkpoint discovery and loading for inference
+(counterpart of diffsinger_tpu/utils/ckpt.py::load_params_for_inference).
+
+The port's native format is the reference's: ``model_ckpt_steps_<N>.ckpt``
+under the experiment folder, a ``torch.save``d dict with ``state_dict`` (keys
+with or without Lightning's ``model.`` prefix) and ``category`` ('acoustic' or
+'variance'). The port's modules carry the reference's parameter names, so the
+state dict loads strictly, without conversion. The JAX package's msgpack
+``.dsckpt`` files are not read here.
+"""
+
+from __future__ import annotations
+
+import pathlib
+import re
+from typing import Dict, List, Optional, Tuple
+
+import torch
+
+CKPT_PREFIX = "model_ckpt_steps_"
+_STEP_RE = re.compile(rf"{CKPT_PREFIX}(\d+)\.ckpt")
+
+# legacy parameters the reference itself ignores at load
+LEGACY_IGNORES = ("fs2.encoder.embed_tokens",)
+# buffers of the reference's diffusion wrappers; the port reads them from hparams
+BUFFER_KEYS = ("diffusion.spec_min", "diffusion.spec_max")
+
+
+def checkpoint_path(work_dir, steps: int) -> pathlib.Path:
+    return pathlib.Path(work_dir) / f"{CKPT_PREFIX}{steps}.ckpt"
+
+
+def list_checkpoints(work_dir) -> List[Tuple[int, pathlib.Path]]:
+    """All (steps, path) under work_dir, sorted ascending by step."""
+    work_dir = pathlib.Path(work_dir)
+    if not work_dir.exists():
+        return []
+    found = []
+    for p in work_dir.iterdir():
+        m = _STEP_RE.fullmatch(p.name)
+        if m:
+            found.append((int(m.group(1)), p))
+    return sorted(found)
+
+
+def find_checkpoint(work_dir, ckpt_steps: Optional[int] = None) -> Tuple[int, pathlib.Path]:
+    """The latest checkpoint, or the newest at or before ``ckpt_steps``.
+
+    Raises ``FileNotFoundError`` when the folder holds none that qualifies.
+    """
+    ckpts = list_checkpoints(work_dir)
+    if not ckpts:
+        raise FileNotFoundError(f"No checkpoints found in {work_dir}")
+    if ckpt_steps is not None:
+        ckpts = [(s, p) for s, p in ckpts if s <= ckpt_steps]
+        if not ckpts:
+            raise FileNotFoundError(
+                f"No checkpoint at or before step {ckpt_steps} in {work_dir}")
+    return ckpts[-1]
+
+
+def strip_model_prefix(state: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Drop Lightning's ``model.`` prefix, the legacy keys and the buffers."""
+    out = {}
+    for k, v in state.items():
+        k2 = k[len("model."):] if k.startswith("model.") else k
+        if k2.startswith(LEGACY_IGNORES) or k2 in BUFFER_KEYS:
+            continue
+        out[k2] = v
+    return out
+
+
+def load_state_dict_for_inference(module: torch.nn.Module, work_dir, *, category: str,
+                                  ckpt_steps: Optional[int] = None) -> dict:
+    """Find a checkpoint in ``work_dir`` and load it strictly into ``module``.
+
+    Returns ``{"category", "global_step", "path"}``. Raises
+    ``FileNotFoundError`` if there is no checkpoint, ``RuntimeError`` if the
+    checkpoint's category is another one or its keys do not match the module.
+    """
+    step, path = find_checkpoint(work_dir, ckpt_steps)
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    found = ckpt.get("category")
+    if found is not None and found != category:
+        raise RuntimeError(
+            f"Category mismatches: checkpoint is '{found}' but a "
+            f"'{category}' checkpoint is required.")
+    module.load_state_dict(strip_model_prefix(ckpt.get("state_dict", ckpt)), strict=True)
+    print(f"| load '{path}' (step {step})")
+    return {"category": category, "global_step": step, "path": path}

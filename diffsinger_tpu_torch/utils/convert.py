@@ -129,8 +129,8 @@ def acoustic_state_dict_from_flax(params_np: dict, hp: dict) -> StateDict:
 
 
 def nsf_hifigan_state_dict_from_flax(params_np: dict, cfg) -> StateDict:
-    """JAX ``Generator`` parameters (mini-NSF, canonical names) -> the port's
-    ``Generator.state_dict()`` (weight norm already fused)."""
+    """JAX ``Generator`` parameters (full-NSF or mini-NSF, canonical names) -> the
+    port's ``Generator.state_dict()`` (weight norm already fused)."""
     p = params_np.get("params", params_np)
     sd: StateDict = {}
     _conv(sd, "conv_pre", p["conv_pre"])
@@ -139,7 +139,12 @@ def nsf_hifigan_state_dict_from_flax(params_np: dict, cfg) -> StateDict:
         up = p[f"ups_{i}"]
         sd[f"ups.{i}.weight"] = _t(np.transpose(np.asarray(up["kernel"]), (1, 2, 0)))
         sd[f"ups.{i}.bias"] = _t(up["bias"])
-    _conv(sd, "source_conv", p["source_conv"])
+        if not cfg.mini_nsf:
+            _conv(sd, f"noise_convs.{i}", p[f"noise_convs_{i}"])
+    if cfg.mini_nsf:
+        _conv(sd, "source_conv", p["source_conv"])
+    else:
+        _dense(sd, "m_source.l_linear", p["m_source_linear"])
     names = ("convs1", "convs2") if cfg.resblock == "1" else ("convs",)
     n_res = 3 if cfg.resblock == "1" else 2
     for idx in range(len(cfg.upsample_rates) * len(cfg.resblock_kernel_sizes)):

@@ -188,3 +188,95 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     q = torch.randn(1, 1, 8, 48, device=dev)
     with pytest.raises(ValueError):
         flash_attention.flash_attention(q, q, q)
+
+
+# ---------------------------------------------------------------- the shapes serving sends
+# The server pads tokens to multiples of 16 and frames to multiples of 128 and
+# packs 1-16 segments into a chunk, so K3 sees lengths 16, 32, 48 and K1/K2
+# see B * T_mel rows for any such pair; B=1, T_txt=16, T_mel=128 is the smallest.
+
+@pytest.mark.parametrize("b,length", [(1, 16), (1, 32), (16, 16), (5, 48), (16, 32)])
+def test_k3_at_served_token_buckets(dev, b, length):
+    g = torch.Generator(device=dev).manual_seed(5)
+    q, k, v = (torch.randn(b, 2, length, 128, generator=g, device=dev) for _ in range(3))
+    pad = torch.zeros(b, length, dtype=torch.bool, device=dev)
+    pad[0, length - 5:] = True  # the bucket's padding
+    pad[-1, length // 2:] = True
+    n = flash_attention.launches
+    got = flash_attention.flash_attention(q, k, v, pad)
+    assert flash_attention.launches == n + 1
+    assert _max_err(got, flash_attention.flash_attention_plain(q, k, v, pad)) <= 1e-4
+
+
+@pytest.mark.parametrize("b,t", [(1, 128), (1, 896), (2, 384), (3, 640), (7, 768), (16, 768),
+                                 (13, 256), (16, 128)])
+def test_k1_and_k2_at_served_chunk_shapes(dev, b, t):
+    x, args = _k2_case(dev, b, t, 1024, 2048, 31, torch.bfloat16, seed=b * 1000 + t)
+    n1, n2 = depthwise_conv.launches, lynx_fused.launches
+    got = lynx_fused.fused_conv_module(x, **args)
+    torch.cuda.synchronize()
+    assert (depthwise_conv.launches, lynx_fused.launches) == (n1 + 1, n2 + 1)
+    want = lynx_fused.fused_conv_module_plain(x, **args)
+    assert _max_err(got, want) <= 2 ** -6 * want.float().abs().max().item()
+    s = torch.randn(b, t, 2048, device=dev).bfloat16()
+    got1 = depthwise_conv.depthwise_conv1d_prelu(s, args["dw_w"], args["alpha"], args["dw_b"])
+    want1 = depthwise_conv.depthwise_conv1d_prelu_plain(s, args["dw_w"], args["alpha"], args["dw_b"])
+    assert _max_err(got1, want1) <= 2 ** -7 * want1.float().abs().max().item()
+
+
+def test_server_kernels_against_plain_float32(dev, tmp_path, monkeypatch):
+    """Three segments of a shipped score through ``AcousticServer`` in float32, at
+    widths the kernels take (multiples of 32): the run on the kernels against the
+    same run on every kernel's plain version, same seed, max |wav diff| <= 1e-3."""
+    import json
+    import pathlib
+    import shutil
+
+    import numpy as np
+    import yaml
+
+    from diffsinger_tpu_torch.config import load_config
+    from diffsinger_tpu_torch.inference.serving import AcousticServer
+    from diffsinger_tpu_torch.models import commons
+    from diffsinger_tpu_torch.models.backbones import lynxnet
+
+    repo = pathlib.Path(__file__).resolve().parents[1]
+    work_dir = tmp_path / "checkpoints" / "card"
+    work_dir.mkdir(parents=True)
+    hp = load_config(repo / "configs" / "acoustic.yaml", "sampling_steps=4")
+    hp.pop("dictionaries", None)
+    hp.update(hidden_size=64, enc_layers=2, infer_precision="32",
+              dictionary=str(repo / "dictionaries" / "opencpop-extension.txt"),
+              vocoder_ckpt=str(tmp_path / "vocoder" / "model.ckpt"),
+              backbone_args=dict(num_channels=64, num_layers=2, kernel_size=31,
+                                 dropout_rate=0.0, strong_cond=True))
+    with open(work_dir / "config.yaml", "w") as f:
+        yaml.safe_dump(hp, f)
+    shutil.copy(repo / "dictionaries" / "opencpop-extension.txt", work_dir / "dictionary.txt")
+    (tmp_path / "vocoder").mkdir()
+    (tmp_path / "vocoder" / "config.json").write_text(json.dumps(
+        dict(num_mels=128, upsample_initial_channel=64, mini_nsf=False)))
+    with pytest.warns(UserWarning):  # no checkpoint files: seeded random weights
+        server = AcousticServer(load_config(exp_name="card", infer=True,
+                                            ckpt_root=tmp_path / "checkpoints"), max_batch_size=2)
+    g = torch.Generator(device=dev).manual_seed(0)
+    with torch.no_grad():  # the zero-initialised output projection would mute the sampler
+        for name, p in server.model.module.named_parameters():
+            if name.endswith("output_projection.weight") or name.endswith(".bias"):
+                p.add_(0.05 * torch.randn(p.shape, generator=g, device=dev))
+    with open(repo / "samples" / "08_qiu_yu.ds", encoding="utf-8") as f:
+        segments = json.load(f)[:3]
+    counts = lambda: (depthwise_conv.launches, lynx_fused.launches, flash_attention.launches)
+    before = counts()
+    wav_k = server.synthesize_batch(segments, seed=3)
+    after = counts()
+    # two chunks (B=2 and B=1): 2 layers x 4 steps and 2 encoder layers each
+    assert tuple(a - b for a, b in zip(after, before)) == (16, 16, 4)
+    monkeypatch.setattr(lynxnet, "fused_conv_module", lynx_fused.fused_conv_module_plain)
+    monkeypatch.setattr(commons, "flash_attention", flash_attention.flash_attention_plain)
+    wav_p = server.synthesize_batch(segments, seed=3)
+    assert counts() == after
+    for a, b in zip(wav_k, wav_p):
+        assert np.isfinite(a).all() and np.abs(a).max() > 1e-3
+        assert np.abs(a - b).max() <= 1e-3
+

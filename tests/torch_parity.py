@@ -131,3 +131,154 @@ def port_kwargs(inp):
 def assert_close(got, want, atol=1e-5, rtol=1e-5):
     got = got.detach().cpu().numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
     np.testing.assert_allclose(got, np.asarray(want), atol=atol, rtol=rtol)
+
+
+# ---------------------------------------------------------------------------
+# a shared experiment folder for the inference-runtime tests
+# ---------------------------------------------------------------------------
+
+import json  # noqa: E402
+import pathlib  # noqa: E402
+import shutil  # noqa: E402
+
+import yaml  # noqa: E402
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+DICT = REPO / "dictionaries" / "opencpop-extension.txt"
+
+# configs/acoustic.yaml cut to a few narrow layers; two sampler steps
+TINY_EXP = dict(
+    hidden_size=32, enc_layers=2, sampling_steps=2, audio_num_mel_bins=MELS,
+    backbone_args=dict(num_channels=32, num_layers=2, kernel_size=31,
+                       dropout_rate=0.0, strong_cond=True),
+    shallow_diffusion_args=dict(
+        train_aux_decoder=True, train_diffusion=True, val_gt_start=False,
+        aux_decoder_arch="convnext",
+        aux_decoder_args=dict(num_channels=24, num_layers=2, kernel_size=7, dropout_rate=0.1),
+        aux_decoder_grad=0.1,
+    ),
+)
+# a full-NSF vocoder at narrow widths (hop 512, as the shipped one)
+TINY_VOCODER = dict(num_mels=MELS, sampling_rate=44100, upsample_rates=[8, 8, 2, 2, 2],
+                    upsample_kernel_sizes=[16, 16, 4, 4, 4], upsample_initial_channel=32,
+                    resblock="1", resblock_kernel_sizes=[3, 7, 11],
+                    resblock_dilation_sizes=[[1, 3, 5], [1, 3, 5], [1, 3, 5]],
+                    mini_nsf=False, noise_sigma=0.0)
+
+
+def load_ds(name: str):
+    with open(REPO / "samples" / name, encoding="utf-8") as f:
+        return json.load(f)
+
+
+def make_exp(root: pathlib.Path, name: str, overrides: dict | None = None, *,
+             acoustic_steps: int | None = 10, vocoder: dict | None = TINY_VOCODER,
+             seed: int = 0) -> pathlib.Path:
+    """Write ``<root>/checkpoints/<name>`` the way a user's experiment folder
+    looks: ``config.yaml``, ``dictionary.txt`` (or, with ``dictionaries`` in the
+    overrides, a ``lang_map.json``), ``spk_map.json`` with ``use_spk_id``, and (unless ``acoustic_steps`` is
+    None) ``model_ckpt_steps_<N>.ckpt`` in the reference layout, a ``torch.save``d
+    dict with Lightning's ``model.`` prefix, the diffusion wrapper's buffers and
+    ``category``. With ``vocoder``, ``<root>/vocoder/{config.json,model.ckpt}``
+    holds a generator state dict under ``generator`` with weight norm unfused, as
+    the released vocoders have it. All weights are seeded random values, none
+    left at zero. Returns the checkpoints root; both packages then load the
+    folder with their own ``load_config(exp_name=name, infer=True, ckpt_root=...)``.
+    """
+    from diffsinger_tpu.config import load_config as jax_load_config
+    from diffsinger_tpu_torch.models.toplevel import DiffSingerAcoustic
+    from diffsinger_tpu_torch.utils.ckpt import checkpoint_path
+    from diffsinger_tpu_torch.utils.text import load_phoneme_dictionary
+    from diffsinger_tpu_torch.vocoders.nsf_hifigan_model import Generator, NsfHifiGanConfig
+
+    ckpt_root = root / "checkpoints"
+    work_dir = ckpt_root / name
+    work_dir.mkdir(parents=True)
+    hp = dict(jax_load_config(str(REPO / "configs" / "acoustic.yaml"), save_snapshot=False))
+    hp.update(TINY_EXP)
+    hp.update(overrides or {})
+    hp.pop("work_dir", None)
+    if hp.get("dictionaries"):  # lang -> file name under dictionaries/
+        hp["dictionaries"] = {k: str(REPO / "dictionaries" / v)
+                              for k, v in hp["dictionaries"].items()}
+        (work_dir / "lang_map.json").write_text(json.dumps(
+            {lang: i + 1 for i, lang in enumerate(sorted(hp["dictionaries"]))}))
+    else:
+        hp["dictionary"] = str(DICT)
+        hp.pop("dictionaries", None)
+        shutil.copy(DICT, work_dir / "dictionary.txt")
+    hp["vocoder_ckpt"] = str(root / "vocoder" / "model.ckpt")
+    with open(work_dir / "config.yaml", "w") as f:
+        yaml.safe_dump(hp, f, allow_unicode=True)
+    if hp.get("use_spk_id"):
+        (work_dir / "spk_map.json").write_text(json.dumps(
+            {f"spk{i}": i for i in range(hp["num_spk"])}))
+
+    g = torch.Generator().manual_seed(seed)
+
+    def randomized(module):
+        state = {}
+        for k, v in module.state_dict().items():
+            if k.endswith(("net.5.weight", "alpha")):  # PReLU slopes stay in (0, 1)
+                state[k] = 0.1 + 0.4 * torch.rand(v.shape, generator=g)
+            else:
+                scale = 0.3 if v.ndim == 1 else 0.02 + (0.5 * float(v.std()) if v.numel() > 1 else 0.3)
+                state[k] = v + scale * torch.randn(v.shape, generator=g)
+        return state
+
+    if acoustic_steps is not None:
+        vocab = len(load_phoneme_dictionary(dict(hp, work_dir=str(work_dir))))
+        torch.manual_seed(seed)
+        model = DiffSingerAcoustic(hp, vocab_size=vocab, out_dims=hp["audio_num_mel_bins"],
+                                   device="cpu")
+        state = {"model." + k: v for k, v in randomized(model.module).items()}
+        # buffers of the reference's diffusion wrapper, which neither package's loader wants
+        state["model.diffusion.spec_min"] = torch.tensor(hp["spec_min"])[None, None]
+        state["model.diffusion.spec_max"] = torch.tensor(hp["spec_max"])[None, None]
+        torch.save({"state_dict": state, "category": "acoustic", "global_step": acoustic_steps},
+                   checkpoint_path(work_dir, acoustic_steps))
+
+    if vocoder is not None:
+        voc_dir = root / "vocoder"
+        voc_dir.mkdir()
+        (voc_dir / "config.json").write_text(json.dumps(dict(vocoder, discriminator_periods=[3, 5])))
+        torch.manual_seed(seed + 1)
+        gen = Generator(NsfHifiGanConfig.from_json(vocoder), device="cpu")
+        state = {}
+        for k, v in randomized(gen).items():
+            normed = k.endswith(".weight") and v.ndim == 3 and not k.startswith(
+                ("noise_convs", "source_conv"))
+            if normed:  # weight_norm(dim=0): g holds the norm over the other dims
+                state[k + "_v"] = v
+                state[k + "_g"] = v.pow(2).sum(dim=(1, 2), keepdim=True).sqrt() * (
+                    1 + 0.1 * torch.rand(v.shape[0], 1, 1, generator=g))
+            else:
+                state[k] = v
+        torch.save({"generator": state}, voc_dir / "model.ckpt")
+    return ckpt_root
+
+
+def jax_sampler_noise(seed: int, shape) -> np.ndarray:
+    """The draw the JAX sampler makes from ``PRNGKey(seed)`` for a batch of ``shape``."""
+    return np.array(jax.random.normal(jax.random.PRNGKey(seed & 0xFFFF_FFFF), tuple(shape),
+                                        dtype=jnp.float32))
+
+
+def jax_vocoder_noise(batch: int, frames: int, hop: int = 512, channels: int = 0,
+                      sigma: bool = False):
+    """The draws the JAX generator makes from its fixed ``PRNGKey(0)``: the
+    initial phases and the source noise of ``sine_source_full`` and, with
+    ``sigma``, the noise added after ``conv_pre`` [batch, frames, channels]."""
+    from diffsinger_tpu_torch.vocoders.nsf_hifigan_model import VocoderNoise
+
+    rng = jax.random.PRNGKey(0)
+    rng_phase, rng_noise = jax.random.split(rng)
+    out = VocoderNoise(
+        rand_ini=torch.from_numpy(np.array(jax.random.uniform(rng_phase, (1, 1, 9)))),
+        source=torch.from_numpy(np.array(
+            jax.random.normal(rng_noise, (batch, frames * hop, 9)))))
+    if sigma:
+        _, sub = jax.random.split(rng)
+        out.sigma = torch.from_numpy(np.array(
+            jax.random.normal(sub, (batch, frames, channels), jnp.float32)))
+    return out
