@@ -45,13 +45,31 @@ Phases, each printed as it ends; any failure exits non-zero:
    (batch, token bucket, frame bucket) that the served chunks and the entry
    point's segments had, in the dtype they ran in. The folder is removed at
    the end;
-5. times: K1 at the long phrase's shape [1, 4096, 2048], K3 at the long
+5. variance: ``configs/variance.yaml`` at full width with all four variances
+   on, float32, seeded random weights saved as a reference-format checkpoint
+   in a temporary experiment folder; ``VarianceServer(max_batch_size=16)``
+   over the 16 segments of samples 01-07 and 10: the chunks and their
+   buckets, the call's seconds, the host's enqueue alone, predicted frames/s,
+   the profile (idle share, kernel launches), K3's launches against 4 per
+   chunk, K3 against plain at the chunks' shapes (and at the melody encoder's
+   head dim 64), the first chunk in float32 on the kernels against the plain
+   versions (durations before rounding, pitch, variances; 1e-3); then the
+   chain (the predicted .ds through ``AcousticServer`` to wavs, true mel
+   frames/s) and ``cli.infer variance`` on samples/01 (seconds with loading);
+6. ddpm: the acoustic config with ``diffusion_type: ddpm`` (K_step 400,
+   speedup 10) at B=16, T_mel=1024, bf16 under ddim, pndm, dpm-solver and
+   unipc: mel frames/s of the acoustic part, K1 and K2 launches against 6 x
+   the denoiser calls, and a float32 B=2, T_mel=512 request against the
+   plain versions (mel 1e-3);
+7. times: K1 at the long phrase's shape [1, 4096, 2048], K3 at the long
    shape [16, 2, 512, 128] and K2's two GEMMs alone
-   (``[time]`` lines), then the ``kernels`` JSON line (launches, time, bound,
-   plain and library times) and the last line ``{"ok": true, "device": {...}}``.
+   (``[time]`` lines), the whole script's seconds, then the ``kernels`` JSON
+   line (launches of every path, time, bound, plain and library times) and
+   the last line ``{"ok": true, "device": {...}}``.
 
-Float32 products run in full float32 here: TF32 is off for both matmuls and
-cuDNN convolutions. The script imports nothing of JAX or the JAX package.
+The models switch TF32 off for their own calls (``utils.no_tf32``), so the
+float32 phases run as the entry points do, with no setting of this script's.
+The script imports nothing of JAX or the JAX package.
 The compiler's messages go to chiprun_out/chip_smoke_build.log and every
 number to chiprun_out/chip_smoke.json.
 """
@@ -154,12 +172,14 @@ def profile_request(fn, what: str = "one request", table: str = "chip_smoke_prof
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = {}
+    n_launches = 0
     for ev in prof.key_averages():
         us = getattr(ev, "self_device_time_total", None)
         if us is None:
             us = getattr(ev, "self_cuda_time_total", 0.0)
         if us and getattr(ev, "device_type", None) == torch.autograd.DeviceType.CUDA:
             kernels[ev.key] = kernels.get(ev.key, 0.0) + us
+            n_launches += ev.count
     busy = sum(kernels.values())
     if not busy:
         log("[profile] the profiler saw no device time: not measured")
@@ -169,7 +189,7 @@ def profile_request(fn, what: str = "one request", table: str = "chip_smoke_prof
     groups["stock PyTorch kernels"] = busy - sum(groups.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
     log(f"[profile] {what} under the profiler: wall {wall_us / 1e3:.1f} ms, device busy "
-        f"{busy / 1e3:.1f} ms, idle share {1 - busy / wall_us:.3f}")
+        f"{busy / 1e3:.1f} ms, idle share {1 - busy / wall_us:.3f}, {n_launches} kernel launches")
     for name, us in groups.items():
         log(f"[profile]   {name}: {us / 1e3:.1f} ms ({us / busy:.3f} of device time)")
     OUT_DIR.mkdir(exist_ok=True)
@@ -178,7 +198,7 @@ def profile_request(fn, what: str = "one request", table: str = "chip_smoke_prof
                 else "self_cuda_time_total")
     (OUT_DIR / table).write_text(averages.table(sort_by=sort_key, row_limit=40))
     return {"measured": True, "wall_ms": wall_us / 1e3, "busy_ms": busy / 1e3,
-            "idle_share": 1 - busy / wall_us,
+            "idle_share": 1 - busy / wall_us, "kernel_launches": n_launches,
             "groups_ms": {k: v / 1e3 for k, v in groups.items()},
             "top_kernels_ms": {k: v / 1e3 for k, v in top}}
 
@@ -197,6 +217,29 @@ def plain_kernels():
         yield
     finally:
         lynxnet.fused_conv_module, commons.flash_attention = saved
+
+
+def load_score(name):
+    with open(ROOT / "samples" / name, encoding="utf-8") as f:
+        return json.load(f)
+
+
+def quiet(fn, *args, **kwargs):
+    """Run fn without its per-segment summaries on standard output."""
+    with contextlib.redirect_stdout(io.StringIO()):
+        return fn(*args, **kwargs)
+
+
+def loaded(what, fn, *args, **kwargs):
+    """Build a runtime; a loader that fell back to random weights warns, and
+    that warning is a failure here."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        made = quiet(fn, *args, **kwargs)
+    for w in caught:
+        if "RANDOM weights" in str(w.message):
+            fail(f"{what}: {w.message}")
+    return made
 
 
 SERVE_SCORES = ("09_xing_he.ds", "08_qiu_yu.ds")
@@ -270,32 +313,12 @@ def serve_phase(hp, card, reset_counts, read_counts, request_profile):
     hop, sr = hp["hop_size"], hp["audio_sample_rate"]
     out = {}
 
-    def quiet(fn, *args, **kwargs):
-        """Run fn without its per-segment summaries on standard output."""
-        with contextlib.redirect_stdout(io.StringIO()):
-            return fn(*args, **kwargs)
-
     def expect(counts, chunks, what):
         want = {"K1": n_layers * STEPS * chunks, "K2": n_layers * STEPS * chunks,
                 "K3": n_enc * chunks}
         log(f"[serve] {what}: launches {counts} (expected {want})")
         if counts != want:
             fail(f"{what}: launch counts {counts} != {want}")
-
-    def load_score(name):
-        with open(ROOT / "samples" / name, encoding="utf-8") as f:
-            return json.load(f)
-
-    def loaded(what, fn, *args, **kwargs):
-        """Build a runtime; a loader that fell back to random weights warns, and
-        that warning is a failure here."""
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            made = quiet(fn, *args, **kwargs)
-        for w in caught:
-            if "RANDOM weights" in str(w.message):
-                fail(f"{what}: {w.message}")
-        return made
 
     def holds(what, module, state):
         """The module's parameters are the saved ones (rounded to its dtype)."""
@@ -484,7 +507,310 @@ def serve_phase(hp, card, reset_counts, read_counts, request_profile):
     return out, serve_counts
 
 
+
+VARIANCE_SCORES = ("01_score_only.ds", "02_chun_feng.ds", "03_ye_se.ds", "04_xiao_niao.ds",
+                   "05_yue_liang.ds", "06_lv_ye.ds", "07_dong_xue.ds", "10_shan_lu.ds")
+VARIANCES = ("energy", "breathiness", "voicing", "tension")
+
+
+def write_variance_experiment(root: Path) -> tuple:
+    """configs/variance.yaml at full width with all four variances on, float32,
+    as an experiment folder under ``root`` with seeded random weights in the
+    reference's checkpoint layout; returns its name, hparams and saved state."""
+    import torch
+    import yaml
+
+    from diffsinger_tpu_torch.config import load_config
+    from diffsinger_tpu_torch.models.toplevel import DiffSingerVariance
+    from diffsinger_tpu_torch.utils.ckpt import checkpoint_path
+    from diffsinger_tpu_torch.utils.text import load_phoneme_dictionary
+
+    name = "smoke_variance"
+    work_dir = root / "checkpoints" / name
+    work_dir.mkdir(parents=True)
+    hp = load_config(ROOT / "configs" / "variance.yaml")
+    cfg = {k: v for k, v in hp.items() if k not in ("base_config", "dictionaries", "work_dir")}
+    cfg.update({f"predict_{v}": True for v in VARIANCES})
+    cfg["dictionary"] = str(ROOT / "dictionaries" / "opencpop-extension.txt")
+    with open(work_dir / "config.yaml", "w", encoding="utf-8") as f:
+        yaml.safe_dump(cfg, f, allow_unicode=True)
+    shutil.copy(ROOT / "dictionaries" / "opencpop-extension.txt", work_dir / "dictionary.txt")
+    vocab = len(load_phoneme_dictionary(dict(cfg, work_dir=str(work_dir))))
+    torch.manual_seed(8)
+    model = DiffSingerVariance(cfg, vocab_size=vocab, dtype=torch.float32)
+    seeded_weights(model.module, 9)
+    state = {k: v.cpu() for k, v in model.module.state_dict().items()}
+    blob = {"model." + k: v for k, v in state.items()}
+    for wrapper in ("pitch_predictor", "variance_predictor"):  # the reference's buffers
+        blob[f"model.{wrapper}.spec_min"] = torch.zeros(1, 1, 1, 1)
+        blob[f"model.{wrapper}.spec_max"] = torch.ones(1, 1, 1, 1)
+    torch.save({"state_dict": blob, "category": "variance", "global_step": 1000},
+               checkpoint_path(work_dir, 1000))
+    return name, cfg, state
+
+
+def variance_phase(acoustic_hp, card, reset_counts, read_counts, check, k3_case):
+    """[variance]: the variance model at full width through VarianceServer,
+    the chain into AcousticServer, and cli.infer variance. Returns the phase's
+    report and the K3 launches of the timed serving call."""
+    import numpy as np
+    import torch
+
+    from diffsinger_tpu_torch.cli import infer as cli
+    from diffsinger_tpu_torch.config import load_config
+    from diffsinger_tpu_torch.inference.serving import AcousticServer, VarianceServer
+    from diffsinger_tpu_torch.ops import flash_attention
+    from diffsinger_tpu_torch.utils.seq import length_regulator
+
+    out = {}
+    root = Path(tempfile.mkdtemp(prefix="ds_smoke_var_"))
+    saved_root = os.environ.get("DS_CKPT_ROOT")
+    try:
+        exp, cfg, state = write_variance_experiment(root)
+        os.environ["DS_CKPT_ROOT"] = str(root / "checkpoints")
+        vhp = cli.migrate_legacy_hparams(load_config(exp_name=exp, infer=True,
+                                                     ckpt_root=cli.ckpt_root_dir()),
+                                         infer_acoustic=False)
+        t0 = time.perf_counter()
+        server = loaded("variance server", VarianceServer, vhp, max_batch_size=SERVE_BATCH)
+        got = server.model.module.state_dict()
+        if set(got) != set(state) or any(not torch.equal(got[k].cpu(), v) for k, v in state.items()):
+            fail("variance server: the loaded tensors are not the saved ones")
+        n_enc = cfg["enc_layers"]
+        pitch_args = cfg["pitch_prediction_args"]["backbone_args"]
+        var_args = cfg["variances_prediction_args"]["backbone_args"]
+        log(f"[variance] server built in {time.perf_counter() - t0:.2f} s: encoder "
+            f"{n_enc} x {cfg['hidden_size']}, pitch WaveNet {pitch_args['num_layers']} x "
+            f"{pitch_args['num_channels']} ({cfg['pitch_prediction_args']['repeat_bins']} bins), "
+            f"variance WaveNet {var_args['num_layers']} x {var_args['num_channels']} "
+            f"(4 x {cfg['variances_prediction_args']['total_repeat_bins'] // 4} bins), "
+            f"{cfg['sampling_algorithm']} {cfg['sampling_steps']} steps, "
+            f"{next(server.model.module.parameters()).dtype}; {len(state)} tensors equal the saved")
+        segments = [seg for name in VARIANCE_SCORES for seg in load_score(name)]
+        flags_list, batches = quiet(server._preprocess_all, segments)
+        chunks = server.chunks(batches, flags_list)
+        frames = [b["base_pitch"].shape[1] for b in batches]
+        for flags, chunk, buckets in chunks:
+            log(f"[variance]   chunk B={len(chunk)} flags {flags} buckets (tokens, words, notes, "
+                f"frames) {buckets}")
+
+        # once to warm up, once timed, once timed for the host's enqueue alone
+        quiet(server.predict_batch, segments, seed=1)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        preds = quiet(server.predict_batch, segments, seed=1)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = read_counts()
+        want = {"K1": 0, "K2": 0, "K3": n_enc * len(chunks)}
+        log(f"[variance] launches {counts} (expected {want})")
+        if counts != want:
+            fail(f"variance serving: launch counts {counts} != {want}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, pending = quiet(server.enqueue, segments, seed=1)
+        enqueue_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        for (dur, pitch, var), batch, n in zip(preds, batches, frames):
+            if (dur is None or dur.shape != (batch["tokens"].shape[1],) or (dur < 0).any()
+                    or pitch.shape != (n,) or sorted(var) != sorted(VARIANCES)
+                    or any(v.shape != (n,) for v in var.values())):
+                fail("variance serving: a segment's predictions have the wrong shapes")
+            if not (np.isfinite(pitch).all() and all(np.isfinite(v).all() for v in var.values())):
+                fail("variance serving: non-finite predictions")
+        padded = sum(len(c[1]) * c[2][3] for c in chunks)
+        out["served"] = {"segments": len(segments), "frames": frames, "seconds": seconds,
+                         "enqueue_s": enqueue_s, "frames_per_s": sum(frames) / seconds,
+                         "padded_share": 1 - sum(frames) / padded, "launches": counts,
+                         "chunks": [(len(c[1]), list(c[0]), list(c[2])) for c in chunks]}
+        log(f"[variance] {len(segments)} segments ({min(frames)}-{max(frames)} frames, "
+            f"{sum(frames)} in all) of samples/{{01-07,10}}: {seconds:.3f} s, "
+            f"{sum(frames) / seconds:.1f} predicted frames/s, host's enqueue alone "
+            f"{enqueue_s:.3f} s, padded share {1 - sum(frames) / padded:.3f} on {card}")
+        reset_counts()
+        out["profile"] = profile_request(lambda: quiet(server.predict_batch, segments, seed=1),
+                                         what=f"the variance call ({len(segments)} segments)",
+                                         table="chip_smoke_profile_variance.txt")
+        if read_counts() != want:
+            fail("the profiled variance call launched other counts")
+
+        # K3 at every shape the chunks sent (the encoder's [B, 2, T_ph, 128])
+        shapes = sorted({(len(c), b[0]) for _, c, b in chunks})
+        head = cfg["hidden_size"] // cfg["num_heads"]
+        for b_s, t_ph in shapes:
+            args = k3_case(b_s, t_ph, head)
+            check(f"K3 f32 [{b_s},{cfg['num_heads']},{t_ph},{head}] padded (variance)",
+                  flash_attention.flash_attention(*args), flash_attention.flash_attention_plain(*args),
+                  1e-4)
+        # the melody encoder's width (128, two heads of 64) at the note buckets
+        for b_s, t_n in sorted({(len(c), b[2]) for _, c, b in chunks}):
+            args = k3_case(b_s, t_n, 64)
+            check(f"K3 f32 [{b_s},2,{t_n},64] padded (melody encoder)",
+                  flash_attention.flash_attention(*args), flash_attention.flash_attention_plain(*args),
+                  1e-4)
+
+        # float32, kernels against plain on the first chunk: durations (before
+        # rounding), then pitch and variances on the kernel run's alignment
+        flags, chunk, buckets = chunks[0]
+        stacked = list(server.stack_chunk(batches, chunk, buckets))
+        shapes_noise = server.noise_shapes(len(chunk), buckets[3])
+        g = torch.Generator().manual_seed(3)
+        noise = {k: torch.randn(s, generator=g) for k, s in shapes_noise.items()}
+
+        def run(kw, flags_run):
+            stacked[4] = kw
+            return server._run_padded(*stacked, flags_run, None, None, **noise)
+
+        def raw_durations(kw):
+            return server.model.forward_infer(
+                *(server._to_device(a) for a in stacked[:4]), predict_pitch=False,
+                predict_variances=False, **{k: server._to_device(v) for k, v in kw.items()})[0]
+
+        kw = dict(stacked[4])
+        raw_k = raw_durations(kw)
+        dur_k = run(kw, (True, False, False))[0]
+        kw_aligned = dict(kw, mel2ph=length_regulator(dur_k, buckets[3]).cpu().numpy())
+        _, pitch_k, var_k = run(kw_aligned, (False, True, True))
+        reset_counts()
+        with plain_kernels():
+            raw_p = raw_durations(kw)
+            dur_p = run(kw, (True, False, False))[0]
+            _, pitch_p, var_p = run(kw_aligned, (False, True, True))
+        if read_counts()["K3"] != 0:
+            fail("the plain variance runs launched a kernel")
+        errs = {"durations": max_err(raw_k, raw_p), "pitch": max_err(pitch_k, pitch_p),
+                **{v: max_err(var_k[v], var_p[v]) for v in VARIANCES}}
+        rounded_equal = bool(torch.equal(dur_k, dur_p))
+        log(f"[variance] f32 chunk B={len(chunk)}, kernels vs plain: max|err| " + ", ".join(
+            f"{k} {e:.3e}" for k, e in errs.items()) + f" (tolerance 1e-3: frames, semitones, "
+            f"dB / logit); rounded durations equal: {rounded_equal}")
+        out["f32_vs_plain"] = dict(errs, rounded_durations_equal=rounded_equal)
+        if not all(e <= 1e-3 for e in errs.values()):
+            fail("the variance model disagrees with its plain-version run")
+
+        # the chain: the predicted .ds through AcousticServer to wavs
+        name_ac, _, _ = write_experiment(root, acoustic_hp)
+        ahp = cli.migrate_legacy_hparams(load_config(exp_name=name_ac, infer=True,
+                                                     ckpt_root=cli.ckpt_root_dir()))
+        acoustic = loaded("acoustic server", AcousticServer, ahp, max_batch_size=SERVE_BATCH)
+
+        def chain():
+            t0 = time.perf_counter()
+            ds = [server._apply_predictions(p, *pred) for p, pred in
+                  zip(segments, quiet(server.predict_batch, segments, seed=1))]
+            t1 = time.perf_counter()
+            wavs = quiet(acoustic.synthesize_batch, ds, seed=1)
+            return ds, wavs, t1 - t0, time.perf_counter() - t1
+
+        chain()
+        ds, wavs, var_s, ac_s = chain()
+        hop = ahp["hop_size"]
+        mel_frames = [quiet(acoustic.preprocess_input, seg)["mel2ph"].shape[1] for seg in ds]
+        for wav, n in zip(wavs, mel_frames):
+            if wav.shape != (n * hop,) or not np.isfinite(wav).all() or not np.abs(wav).max() > 1e-3:
+                fail("chain: a wav of the wrong length, non-finite or silent")
+        out["chain"] = {"variance_s": var_s, "acoustic_s": ac_s, "mel_frames": sum(mel_frames),
+                        "frames_per_s": sum(mel_frames) / (var_s + ac_s),
+                        "acoustic_chunks": acoustic.last_stats}
+        log(f"[variance] chain: {len(ds)} predicted segments -> AcousticServer -> wavs: variance "
+            f"{var_s:.3f} s + acoustic {ac_s:.3f} s, {sum(mel_frames) / (var_s + ac_s):.1f} true mel "
+            f"frames/s of the chain ({sum(mel_frames)} frames) on {card}")
+
+        # one score through the entry point, segment by segment
+        score = "01_score_only.ds"
+        out_dir = root / "out"
+        reset_counts()
+        t0 = time.perf_counter()
+        loaded("entry point", cli.main, ["variance", str(ROOT / "samples" / score), "--exp", exp,
+                                         "--seed", "1", "--out", str(out_dir)])
+        cli_s = time.perf_counter() - t0
+        counts = read_counts()
+        if counts != {"K1": 0, "K2": 0, "K3": n_enc * len(load_score(score))}:
+            fail(f"variance entry point: launch counts {counts}")
+        with open(out_dir / "01_score_only.ds", encoding="utf-8") as f:
+            written = json.load(f)
+        if not all(k in written[0] for k in ("ph_dur", "f0_seq", *VARIANCES)):
+            fail("variance entry point: the written .ds lacks a prediction")
+        out["entry_point"] = {"seconds_with_load": cli_s, "launches": counts}
+        log(f"[variance] entry point: samples/{score} in {cli_s:.2f} s with loading; "
+            f"launches {counts}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        if saved_root is None:
+            os.environ.pop("DS_CKPT_ROOT", None)
+        else:
+            os.environ["DS_CKPT_ROOT"] = saved_root
+    return out, out["served"]["launches"]
+
+
+DDPM_ACCELERATORS = (("ddim", 0), ("pndm", 1), ("dpm-solver", 0), ("unipc", 0))
+
+
+def ddpm_phase(hp, card, reset_counts, read_counts, request):
+    """[ddpm]: the shipped acoustic config under DDPM (K_step 400, speedup 10:
+    40 steps), B=16 T_mel=1024 bf16 under each accelerator, then a float32
+    B=2 T_mel=512 request against the plain versions. Returns the report and
+    the launch counts by accelerator."""
+    import torch
+
+    from diffsinger_tpu_torch.models.toplevel import DiffSingerAcoustic
+
+    hp = dict(hp, diffusion_type="ddpm")
+    n_mels, n_layers, n_enc = hp["audio_num_mel_bins"], hp["backbone_args"]["num_layers"], hp["enc_layers"]
+    steps = hp["K_step_infer"] // hp["diff_speedup"]
+    torch.manual_seed(5)
+    model32 = DiffSingerAcoustic(hp, vocab_size=VOCAB, out_dims=n_mels, dtype=torch.float32)
+    seeded_weights(model32.module, 6)
+    model = DiffSingerAcoustic(hp, vocab_size=VOCAB, out_dims=n_mels, dtype=torch.bfloat16)
+    model.module.load_state_dict(model32.module.state_dict())
+    inputs = request(B, T_TXT, T_MEL)
+    small = request(2, 64, 512, ragged=True)
+    out, launches = {}, {}
+    for acc, extra in DDPM_ACCELERATORS:
+        calls = steps + extra
+        want = {"K1": n_layers * calls, "K2": n_layers * calls, "K3": n_enc}
+        for m in (model, model32):
+            m.hp["diff_accelerator"] = acc
+        times = []
+        for r in range(3):  # the first warms up
+            g = torch.Generator(device=model.device).manual_seed(r)
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mel = model.forward_infer(*inputs, generator=g).diff_out
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            counts = read_counts()
+            if counts != want:
+                fail(f"ddpm {acc}: launch counts {counts} != {want}")
+        if mel.shape != (B, T_MEL, n_mels) or not torch.isfinite(mel).all():
+            fail(f"ddpm {acc}: mel {tuple(mel.shape)} or not finite")
+        launches[acc] = counts
+        fps = B * T_MEL / (sum(times[1:]) / len(times[1:]))
+        # float32, reduced: kernels against their plain versions
+        noise = torch.randn((2, 512, n_mels), generator=torch.Generator().manual_seed(4))
+        noise = noise.to(model32.device)
+        mel_k = model32.forward_infer(*small, noise=noise).diff_out
+        reset_counts()
+        with plain_kernels():
+            mel_p = model32.forward_infer(*small, noise=noise).diff_out
+        if read_counts() != {"K1": 0, "K2": 0, "K3": 0}:
+            fail(f"ddpm {acc}: the plain run launched a kernel")
+        err = max_err(mel_k, mel_p)
+        out[acc] = {"denoiser_calls": calls, "times_s": times, "frames_per_s": fps,
+                    "launches": counts, "f32_vs_plain_mel": err}
+        log(f"[ddpm] {acc}: {calls} denoiser calls, request times "
+            f"{['%.3f s' % t for t in times]}, {fps:.1f} mel frames/s (acoustic only) at B={B} "
+            f"T_mel={T_MEL} bf16 on {card}; launches {counts}; f32 B=2 T_mel=512 kernels vs plain "
+            f"max|mel err| {err:.3e} (tolerance 1e-3)")
+        if not err <= 1e-3:
+            fail(f"ddpm {acc}: the float32 request disagrees with its plain-version run")
+    return out, launches
+
+
 def main() -> None:
+    t_script = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -501,8 +827,6 @@ def main() -> None:
     from diffsinger_tpu_torch.ops import depthwise_conv, flash_attention, lynx_fused, native
     from diffsinger_tpu_torch.vocoders.nsf_hifigan_model import Generator, NsfHifiGanConfig
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     report = {"phases": {}}
     counters = {"K1": depthwise_conv, "K2": lynx_fused, "K3": flash_attention}
@@ -651,8 +975,8 @@ def main() -> None:
           flash_attention.flash_attention_plain(q2, k2, v2), 1e-4)
     # K3 at a token bucket of 48, the third length a server's chunks can have
     # (the scores of phase 4 give 16 and 32), with every row's tail padded
-    def k3_served_case(b, length):
-        q_s, k_s, v_s = (randn(b, 2, length, 128) for _ in range(3))
+    def k3_served_case(b, length, d=128):
+        q_s, k_s, v_s = (randn(b, 2, length, d) for _ in range(3))
         pad_s = torch.zeros(b, length, dtype=torch.bool, device=dev)
         for i in range(b):  # every row's tail padded, by another amount
             pad_s[i, length - (3 + 5 * i) % 16:] = True
@@ -850,7 +1174,14 @@ def main() -> None:
     if not all(c["ok"] for c in checks):
         fail("a kernel disagrees with its plain version at a served shape")
 
-    # ------------------------------------------------------------ 5. kernel line
+    # ------------------------------------------------------------ 5. variance, ddpm
+    report["phases"]["variance"], var_counts = variance_phase(
+        hp, card, reset_counts, read_counts, check, k3_served_case)
+    if not all(c["ok"] for c in checks):
+        fail("K3 disagrees with its plain version at a variance shape")
+    report["phases"]["ddpm"], ddpm_counts = ddpm_phase(hp, card, reset_counts, read_counts, request)
+
+    # ------------------------------------------------------------ 6. kernel line
     x_t = s.transpose(1, 2).contiguous()
     w_conv = dw_w[:, None, :].contiguous()
     q, k, v, pad = k3_args
@@ -960,6 +1291,8 @@ def main() -> None:
             "launches": main_counts[key],
             "launches_per_request": main_counts[key] // REQUESTS,
             "launches_served_score": serve_counts[key],
+            "launches_variance_score": var_counts[key],
+            "launches_ddpm_request": {acc: c[key] for acc, c in ddpm_counts.items()},
             "max_abs_err": err,
             "ms": time_ms(fn),
             "plain_ms": time_ms(plain, iters=5, warmup=1),
@@ -974,6 +1307,8 @@ def main() -> None:
             f"on {card}")
     report["kernels"] = kernels
 
+    report["script_s"] = time.perf_counter() - t_script
+    log(f"[time] the whole script: {report['script_s']:.1f} s")
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

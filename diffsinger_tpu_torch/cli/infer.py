@@ -1,6 +1,7 @@
 """Inference entry point of the port (counterpart of scripts/infer.py):
 
     python -m diffsinger_tpu_torch.cli.infer acoustic DS_FILE --exp EXP [options]
+    python -m diffsinger_tpu_torch.cli.infer variance DS_FILE --exp EXP [options]
 
 The same flags, checkpoint discovery (``checkpoints/<EXP>`` by name or prefix,
 root overridable through ``DS_CKPT_ROOT``), key transposition and legacy
@@ -16,6 +17,7 @@ import os
 import pathlib
 import sys
 from pathlib import Path
+from collections import OrderedDict
 from typing import List, Optional
 
 root_dir = Path(__file__).resolve().parents[2]
@@ -137,7 +139,23 @@ def build_parser() -> argparse.ArgumentParser:
                     help="'cpu' to run without a card; default: the card")
 
     var = sub.add_parser("variance", help="Run DiffSinger variance model inference")
-    var.add_argument("rest", nargs=argparse.REMAINDER)
+    var.add_argument("proj", type=_ds_file, metavar="DS_FILE")
+    var.add_argument("--exp", type=str, required=True, metavar="EXP")
+    var.add_argument("--ckpt", type=_ranged(int, 0), metavar="STEPS")
+    var.add_argument("--predict", type=str, action="append", default=[], metavar="TAGS")
+    var.add_argument("--spk", type=str)
+    var.add_argument("--lang", type=str)
+    var.add_argument("--out", type=pathlib.Path)
+    var.add_argument("--title", type=str)
+    var.add_argument("--num", type=_ranged(int, 1), default=1)
+    var.add_argument("--key", type=int, default=0)
+    var.add_argument("--expr", type=_ranged(float, 0, 1))
+    var.add_argument("--seed", type=int, default=-1)
+    var.add_argument("--steps", type=_ranged(int, 1))
+    var.add_argument("--batch_size", type=_ranged(int, 1), default=1,
+                     help="serve segments in flag/bucket-grouped batches of up to this size")
+    var.add_argument("--device", type=str, default=None,
+                     help="'cpu' to run without a card; default: the card")
     return parser
 
 
@@ -192,14 +210,63 @@ def acoustic(args) -> None:
         sys.exit(-1)
 
 
+def variance(args) -> None:
+    proj = args.proj
+    name = proj.stem if not args.title else args.title
+    out = proj.parent if args.out is None else args.out
+    if (not out or out.resolve() == proj.parent.resolve()) and not args.title:
+        name += "_variance"
+    params = [OrderedDict(p) for p in _load_ds(proj)]
+
+    from diffsinger_tpu_torch.utils.infer_utils import parse_commandline_spk_mix, trans_key
+
+    if args.key != 0:
+        params = trans_key(params, args.key)
+        if not args.title:
+            name += "%+dkey" % args.key
+        print(f"| key transition: {args.key:+d}")
+
+    from diffsinger_tpu_torch.config import load_config
+
+    hp = load_config(exp_name=find_exp(args.exp), infer=True, ckpt_root=ckpt_root_dir())
+    hp = migrate_legacy_hparams(hp, infer_acoustic=False)
+    hp = apply_depth_steps_overrides(hp, None, args.steps, acoustic=False)
+
+    spk_mix = (parse_commandline_spk_mix(args.spk)
+               if hp["use_spk_id"] and args.spk is not None else None)
+    for param in params:
+        if args.expr is not None:
+            param["expr"] = args.expr
+        if spk_mix is not None:
+            param["ph_spk_mix_backup"] = param.get("ph_spk_mix")
+            param["spk_mix_backup"] = param.get("spk_mix")
+            param["ph_spk_mix"] = param["spk_mix"] = spk_mix
+        if args.lang is not None:
+            param["lang"] = args.lang
+
+    kwargs = dict(ckpt_steps=args.ckpt, predictions=set(args.predict), device=args.device)
+    if args.batch_size > 1:
+        from diffsinger_tpu_torch.inference.serving import VarianceServer
+
+        infer_ins = VarianceServer(hp, max_batch_size=args.batch_size, **kwargs)
+    else:
+        from diffsinger_tpu_torch.inference.ds_variance import DiffSingerVarianceInfer
+
+        infer_ins = DiffSingerVarianceInfer(hp, **kwargs)
+    print(f"| Model: {type(infer_ins.model)}")
+    try:
+        infer_ins.run_inference(params, out_dir=out, title=name, num_runs=args.num,
+                                seed=args.seed)
+    except KeyboardInterrupt:
+        sys.exit(-1)
+
+
 def main(argv: Optional[List[str]] = None) -> None:
     args = build_parser().parse_args(argv)
     if args.command == "variance":
-        raise NotImplementedError(
-            "the variance command comes with the variance slice of the port "
-            "(DiffSingerVariance, inference/ds_variance.py, VarianceServer); "
-            "use scripts/infer.py variance until then")
-    acoustic(args)
+        variance(args)
+    else:
+        acoustic(args)
 
 
 if __name__ == "__main__":

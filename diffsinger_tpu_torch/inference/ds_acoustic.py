@@ -212,7 +212,7 @@ class DiffSingerAcousticInfer(BaseSVSInfer):
     def _generator(self, seed: int) -> torch.Generator:
         return torch.Generator(device=self.device).manual_seed(seed & 0xFFFF_FFFF)
 
-    def _run_model(self, arrays: Dict[str, np.ndarray], generator, steps, noise):
+    def _run_model(self, arrays: Dict[str, np.ndarray], generator, steps, noise, depth=None):
         """Padded (or stacked) arrays [B, ...] -> (mel [B, T_mel, M], f0 [B, T_mel]) on the device."""
         kwargs = {key: self._to_device(arrays[key])
                   for key in ("languages", "key_shift", "speed") if key in arrays}
@@ -227,37 +227,39 @@ class DiffSingerAcousticInfer(BaseSVSInfer):
         f0 = self._to_device(arrays["f0"])
         out = self.model.forward_infer(
             self._to_device(arrays["tokens"]), self._to_device(arrays["mel2ph"]), f0,
-            steps=steps, generator=generator, noise=noise, **kwargs)
+            steps=steps, depth=depth, generator=generator, noise=noise, **kwargs)
         return out.diff_out, f0
 
-    def _run_wav(self, arrays, generator, steps, noise, vocoder_noise) -> torch.Tensor:
+    def _run_wav(self, arrays, generator, steps, noise, vocoder_noise, depth=None) -> torch.Tensor:
         """Sampler then vocoder on the device -> wav [B, T_mel * hop]."""
-        mel, f0 = self._run_model(arrays, generator, steps, noise)
+        mel, f0 = self._run_model(arrays, generator, steps, noise, depth)
         return self.vocoder.spec2wav_torch(mel, f0, noise=vocoder_noise)
 
     def forward_model(self, batch: Dict[str, np.ndarray],
                       generator: Optional[torch.Generator] = None,
                       steps: Optional[int] = None, *,
-                      noise=None):
+                      noise=None, depth: Optional[int] = None):
         """One segment, padded to its buckets -> (mel [1, T, M] numpy, f0 [1, T]).
 
-        ``noise`` [1, T_mel_bucket, M] replaces the draw from ``generator``.
+        ``noise`` [1, T_mel_bucket, M] replaces the draw from ``generator``;
+        ``depth`` (DDPM) overrides ``K_step_infer``.
         """
         padded, length = self._pad_batch(batch)
-        mel, _ = self._run_model(padded, generator, steps, noise)
+        mel, _ = self._run_model(padded, generator, steps, noise, depth)
         return mel[:, :length].float().cpu().numpy(), padded["f0"][:, :length]
 
     def forward_wav(self, batch: Dict[str, np.ndarray],
                     generator: Optional[torch.Generator] = None,
                     steps: Optional[int] = None, *,
-                    noise=None, vocoder_noise: Optional[VocoderNoise] = None) -> np.ndarray:
+                    noise=None, vocoder_noise: Optional[VocoderNoise] = None,
+                    depth: Optional[int] = None) -> np.ndarray:
         """Sampler and vocoder on the padded segment -> wav [T * hop] numpy.
 
         The vocoder runs on the bucket-padded mel and the waveform is cut to
         the true length on the host (see :meth:`_pad_batch`).
         """
         padded, length = self._pad_batch(batch)
-        wav = self._run_wav(padded, generator, steps, noise, vocoder_noise)
+        wav = self._run_wav(padded, generator, steps, noise, vocoder_noise, depth)
         return wav[0, : length * self.hparams["hop_size"]].float().cpu().numpy()
 
     def run_vocoder(self, mel, f0) -> np.ndarray:
@@ -292,6 +294,7 @@ class DiffSingerAcousticInfer(BaseSVSInfer):
         seed: int = -1,
         save_mel: bool = False,
         steps: Optional[int] = None,
+        depth: Optional[int] = None,
         *,
         noise_fn: Optional[NoiseFn] = None,
         vocoder_noise_fn: Optional[VocoderNoiseFn] = None,
@@ -322,7 +325,8 @@ class DiffSingerAcousticInfer(BaseSVSInfer):
                 if noise_fn is not None:
                     noise = noise_fn(i, (1, t_mel, hp["audio_num_mel_bins"]))
                 if save_mel:
-                    mel_pred, f0 = self.forward_model(batch, generator, steps=steps, noise=noise)
+                    mel_pred, f0 = self.forward_model(batch, generator, steps=steps, noise=noise,
+                                                      depth=depth)
                     result.append({
                         "offset": param.get("offset", 0.0),
                         "mel": mel_pred[0],
@@ -332,7 +336,7 @@ class DiffSingerAcousticInfer(BaseSVSInfer):
                     vocoder_noise = (vocoder_noise_fn(i, 1, t_mel)
                                      if vocoder_noise_fn is not None else None)
                     wavs.append(self.forward_wav(batch, generator, steps=steps, noise=noise,
-                                                 vocoder_noise=vocoder_noise))
+                                                 vocoder_noise=vocoder_noise, depth=depth))
             if not save_mel:
                 result = self._concat_segments(params, wavs)
             filename = (

@@ -1,0 +1,93 @@
+"""WaveNet denoiser backbone (counterpart of diffsinger_tpu/models/backbones/wavenet.py).
+
+Residual blocks of a dilated gated conv (k=3, dilation 2^(i mod cycle)) with
+the diffusion step and the condition added per block, and a skip sum.
+Activations are channel-last [B, T, C]; the parameters carry the reference
+torch names (``input_projection``, ``mlp.0``/``mlp.2``,
+``residual_layers.{i}.{dilated_conv,diffusion_projection,
+conditioner_projection,output_projection}``, ``skip_projection``,
+``output_projection``). The JAX package computes the dilated conv outside any
+Pallas kernel, so it is a stock ``F.conv1d`` here.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from diffsinger_tpu_torch.models.backbones.lynxnet import pointwise_conv
+from diffsinger_tpu_torch.models.commons import sinusoidal_pos_emb
+
+
+def mish(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.tanh(F.softplus(x))
+
+
+class ResidualBlock(nn.Module):
+    def __init__(self, cond_dims: int, residual_channels: int, dilation: int):
+        super().__init__()
+        c = residual_channels
+        self.dilation = dilation
+        self.dilated_conv = nn.Conv1d(c, 2 * c, 3, padding=dilation, dilation=dilation)
+        self.diffusion_projection = nn.Linear(c, c)
+        self.conditioner_projection = nn.Conv1d(cond_dims, 2 * c, 1)
+        self.output_projection = nn.Conv1d(c, 2 * c, 1)
+
+    def forward(self, x: torch.Tensor, conditioner: torch.Tensor, diffusion_step: torch.Tensor,
+                cond_proj: Optional[torch.Tensor] = None):
+        """x [B, T, C]; conditioner [B, T, H]; diffusion_step [B, C]; cond_proj,
+        the hoisted conditioner projection [B, T, 2C], replaces the projection.
+        Returns (residual output [B, T, C], skip [B, T, C])."""
+        y = x + self.diffusion_projection(diffusion_step)[:, None, :]
+        y = F.conv1d(y.transpose(1, 2), self.dilated_conv.weight, self.dilated_conv.bias,
+                     padding=self.dilation, dilation=self.dilation).transpose(1, 2)
+        if cond_proj is None:
+            cond_proj = pointwise_conv(self.conditioner_projection, conditioner)
+        gate, filt = (y + cond_proj).chunk(2, dim=-1)
+        y = pointwise_conv(self.output_projection, torch.sigmoid(gate) * torch.tanh(filt))
+        residual, skip = y.chunk(2, dim=-1)
+        return (x + residual) / math.sqrt(2.0), skip
+
+
+class WaveNet(nn.Module):
+    """Denoiser: spec [B, T, F*M] + step [B] + cond [B, T, H] -> [B, T, F*M]."""
+
+    def __init__(self, in_dims: int, n_feats: int, cond_dims: int, num_layers: int = 20,
+                 num_channels: int = 256, dilation_cycle_length: int = 4):
+        super().__init__()
+        c = num_channels
+        self.num_channels = c
+        self.input_projection = nn.Conv1d(in_dims * n_feats, c, 1)
+        nn.init.kaiming_normal_(self.input_projection.weight)
+        # slot 1 of the reference's Sequential is the Mish: a placeholder here
+        self.mlp = nn.ModuleList([nn.Linear(c, c * 4), nn.Identity(), nn.Linear(c * 4, c)])
+        self.residual_layers = nn.ModuleList([
+            ResidualBlock(cond_dims, c, 2 ** (i % dilation_cycle_length))
+            for i in range(num_layers)
+        ])
+        self.skip_projection = nn.Conv1d(c, c, 1)
+        nn.init.kaiming_normal_(self.skip_projection.weight)
+        self.output_projection = nn.Conv1d(c, in_dims * n_feats, 1)
+        nn.init.zeros_(self.output_projection.weight)
+
+    def forward(self, spec: torch.Tensor, diffusion_step: torch.Tensor, cond: torch.Tensor,
+                cond_proj: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``diffusion_step`` [B], int (DDPM) or float (reflow, fast solvers);
+        ``cond_proj`` [L, B, T, 2C] holds the hoisted per-layer conditioner
+        projections (see ``backbones.precompute_cond_projections``)."""
+        dtype = self.input_projection.weight.dtype
+        cond = cond.to(dtype)
+        x = F.relu(pointwise_conv(self.input_projection, spec.to(dtype)))
+        step = sinusoidal_pos_emb(diffusion_step, self.num_channels).to(dtype)
+        step = self.mlp[2](mish(self.mlp[0](step)))
+        skip_sum = torch.zeros_like(x)
+        for i, layer in enumerate(self.residual_layers):
+            x, skip = layer(x, cond, step, None if cond_proj is None else cond_proj[i])
+            skip_sum = skip_sum + skip
+        x = skip_sum / math.sqrt(len(self.residual_layers))
+        x = F.relu(pointwise_conv(self.skip_projection, x))
+        return pointwise_conv(self.output_projection, x)

@@ -1,28 +1,105 @@
-"""Top-level acoustic model (counterpart of diffsinger_tpu/models/toplevel.py).
+"""Top-level models (counterpart of diffsinger_tpu/models/toplevel.py, inference).
 
-:class:`AcousticModule` holds the parameters under the reference torch names
-(``fs2``, ``aux_decoder.decoder``, ``diffusion.velocity_fn``);
-:class:`DiffSingerAcoustic` is the entry point that runs the inference
-forward: encoder -> ConvNeXt aux draft -> shallow rectified flow over LYNXNet
--> spec denorm. The training forward and the dynamic (export) forward wait
-for later slices, as do DDPM and the variance model.
+:class:`AcousticModule` holds the acoustic parameters under the reference
+torch names (``fs2``, ``aux_decoder.decoder``, and the backbone as
+``diffusion.velocity_fn`` under rectified flow or ``diffusion.denoise_fn``
+under DDPM); :class:`DiffSingerAcoustic` runs its inference forward: encoder
+-> ConvNeXt aux draft -> shallow sampler -> spec denorm.
+
+:class:`VarianceModule` holds the variance model's parameters (``fs2``,
+``spk_embed``, ``melody_encoder``, the pitch and variance embeds, and the
+backbones under ``pitch_predictor`` and ``variance_predictor``);
+:class:`DiffSingerVariance` predicts phoneme durations, then the pitch delta
+and the variance curves with a sampler each.
+
+Both cores run rectified flow (``core/reflow.py``) or DDPM (``core/ddpm.py``
+with the fast solvers). The training forwards and the dynamic (export)
+forwards wait for their slices.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+import warnings
+from typing import Dict, Optional
 
 import torch
 import torch.nn as nn
 
+from diffsinger_tpu_torch.core import ddpm as ddpm_core
 from diffsinger_tpu_torch.core import reflow as reflow_core
-from diffsinger_tpu_torch.core.spec_transform import SpecTransform
+from diffsinger_tpu_torch.core.schedule import DiffusionSchedule
+from diffsinger_tpu_torch.core.spec_transform import (
+    MultiVarianceTransform, PitchTransform, SpecTransform)
 from diffsinger_tpu_torch.models import compat
 from diffsinger_tpu_torch.models.acoustic_encoder import FastSpeech2Acoustic
 from diffsinger_tpu_torch.models.aux_decoder import AuxDecoderAdaptor
 from diffsinger_tpu_torch.models.backbones import build_backbone, precompute_cond_projections
-from diffsinger_tpu_torch.utils import resolve_device
+from diffsinger_tpu_torch.models.commons import Embedding, Linear
+from diffsinger_tpu_torch.models.variance_encoder import (
+    FastSpeech2Variance, MelodyEncoder, embed_curve)
+from diffsinger_tpu_torch.utils import no_tf32, resolve_device
+from diffsinger_tpu_torch.utils.seq import gather_frames, length_regulator, rhythm_regulator
+
+VARIANCE_CHECKLIST = ["energy", "breathiness", "voicing", "tension"]
+
+_warned_max_beta = False
+
+
+def _warn_unread_max_beta(hp: dict) -> None:
+    """Once per process: ``max_beta`` is read by neither package. The
+    reference never forwards it into its beta schedule, so the linear schedule
+    always ends at 0.01, and a checkpoint's schedule is that one."""
+    global _warned_max_beta
+    mb = hp.get("max_beta")
+    if (_warned_max_beta or mb is None
+            or hp.get("schedule_type", "linear") != "linear"
+            or abs(float(mb) - 0.01) < 1e-12):
+        return
+    _warned_max_beta = True
+    warnings.warn(
+        f"max_beta={mb} is accepted but UNREAD: the reference never forwards "
+        "it into its beta schedule, so for checkpoint/sample parity the "
+        "linear schedule always ends at 0.01.")
+
+
+def _schedule(hp: dict, diffusion_type: str, timesteps: int) -> Optional[DiffusionSchedule]:
+    if diffusion_type == "ddpm":
+        _warn_unread_max_beta(hp)  # not forwarded, as in the reference
+        return DiffusionSchedule.create(hp.get("schedule_type", "linear"), timesteps)
+    if diffusion_type == "reflow":
+        return None
+    raise NotImplementedError(diffusion_type)
+
+
+def variance_prediction_list(hp: dict) -> list:
+    return [v for v in VARIANCE_CHECKLIST if hp.get(f"predict_{v}", False)]
+
+
+def sample(hp: dict, schedule: Optional[DiffusionSchedule], denoise, shape: tuple, *,
+           k_step: int, device, generator: Optional[torch.Generator] = None,
+           noise: Optional[torch.Tensor] = None,
+           noise_fn: Optional[ddpm_core.StepNoiseFn] = None,
+           x_start: Optional[torch.Tensor] = None, use_shallow_diffusion: bool = False,
+           depth: Optional[int] = None, steps: Optional[int] = None,
+           t_start: float = 0.0) -> torch.Tensor:
+    """Both families' sampler dispatch: DDPM with ``schedule`` (``depth``
+    defaults to ``K_step_infer``), else rectified flow (``steps`` defaults to
+    ``sampling_steps``), each reading its algorithm from ``hp``."""
+    if schedule is not None:
+        return ddpm_core.inference(
+            denoise, schedule, shape, k_step=k_step,
+            depth=depth if depth is not None else hp.get("K_step_infer", k_step),
+            speedup=hp.get("diff_speedup", 10), algorithm=hp.get("diff_accelerator", "ddim"),
+            device=device, generator=generator, x_start=x_start,
+            use_shallow_diffusion=use_shallow_diffusion, noise=noise, noise_fn=noise_fn)
+    return reflow_core.inference(
+        denoise, shape, t_start=t_start,
+        steps=steps if steps is not None else hp.get("sampling_steps", 20),
+        algorithm=hp.get("sampling_algorithm", "euler"),
+        time_scale_factor=hp.get("time_scale_factor", 1000), device=device,
+        generator=generator, x_end=x_start, use_shallow_diffusion=use_shallow_diffusion,
+        noise=noise)
 
 
 @dataclasses.dataclass
@@ -31,12 +108,23 @@ class ShallowDiffusionOutput:
     diff_out: Optional[torch.Tensor] = None
 
 
-class ReflowCore(nn.Module):
-    """Holds the backbone as ``velocity_fn``, the reference's name for it."""
+class DiffusionCore(nn.Module):
+    """Holds a backbone under the reference's name for it: ``denoise_fn`` in
+    a DDPM model, ``velocity_fn`` in a rectified-flow one."""
 
-    def __init__(self, velocity_fn: nn.Module):
+    def __init__(self, backbone: nn.Module, diffusion_type: str):
         super().__init__()
-        self.velocity_fn = velocity_fn
+        self.fn_name = "denoise_fn" if diffusion_type == "ddpm" else "velocity_fn"
+        setattr(self, self.fn_name, backbone)
+
+    @property
+    def backbone(self) -> nn.Module:
+        return getattr(self, self.fn_name)
+
+
+# ---------------------------------------------------------------------------
+# Acoustic
+# ---------------------------------------------------------------------------
 
 
 class AcousticModule(nn.Module):
@@ -56,12 +144,13 @@ class AcousticModule(nn.Module):
             )
         backbone_type = compat.get_backbone_type(hp)
         backbone_args = compat.get_backbone_args(hp, backbone_type)
-        self.diffusion = ReflowCore(build_backbone(
-            out_dims, 1, backbone_type, backbone_args, cond_dims=hp["hidden_size"]))
+        self.diffusion = DiffusionCore(build_backbone(
+            out_dims, 1, backbone_type, backbone_args, cond_dims=hp["hidden_size"]),
+            hp.get("diffusion_type", "ddpm"))
 
     @property
     def denoiser(self) -> nn.Module:
-        return self.diffusion.velocity_fn
+        return self.diffusion.backbone
 
     def encode(self, txt_tokens, mel2ph, f0, **kwargs) -> torch.Tensor:
         return self.fs2(txt_tokens, mel2ph, f0, **kwargs)
@@ -88,26 +177,32 @@ class DiffSingerAcoustic:
         self.device = resolve_device(device)
         self.dtype = dtype or torch.float32
         self.diffusion_type = hp.get("diffusion_type", "ddpm")
-        if self.diffusion_type != "reflow":
-            raise NotImplementedError(
-                f"diffusion_type {self.diffusion_type!r}: only reflow is ported so far")
+        self.use_shallow_diffusion = hp.get("use_shallow_diffusion", False)
+        self.timesteps = hp.get("timesteps", 1000)
+        self.k_step = (hp.get("K_step", self.timesteps) if self.use_shallow_diffusion
+                       else self.timesteps)
+        self.schedule = _schedule(hp, self.diffusion_type, self.timesteps)
         self.module = AcousticModule(hp, vocab_size, out_dims).to(
             device=self.device, dtype=self.dtype).eval()
         self.spec_transform = SpecTransform(hp["spec_min"], hp["spec_max"], out_dims)
-        self.use_shallow_diffusion = hp.get("use_shallow_diffusion", False)
         self.t_start = hp.get("T_start", 0.0) if self.use_shallow_diffusion else 0.0
-        self.time_scale_factor = hp.get("time_scale_factor", 1000)
 
     @torch.no_grad()
+    @no_tf32()
     def forward_infer(self, txt_tokens, mel2ph, f0, *, steps: Optional[int] = None,
+                      depth: Optional[int] = None,
                       t_start_infer: Optional[float] = None,
                       noise: Optional[torch.Tensor] = None,
                       generator: Optional[torch.Generator] = None,
+                      noise_fn: Optional[ddpm_core.StepNoiseFn] = None,
                       **kwargs) -> ShallowDiffusionOutput:
         """Aux draft + sampler. txt_tokens [B, T_txt], mel2ph [B, T_mel] (1-based,
         0 = padded frame), f0 [B, T_mel] Hz; mel out [B, T_mel, M] float32.
 
-        ``noise`` [B, T_mel, M] float32 replaces the draw from ``generator``.
+        ``noise`` [B, T_mel, M] float32 replaces the first draw from
+        ``generator``; ``noise_fn(i)`` the DDPM ancestral sampler's draw at
+        step i. ``depth`` (DDPM: steps of the shallow trajectory) defaults to
+        ``K_step_infer``; ``steps`` and ``t_start_infer`` are rectified flow's.
         """
         hp = self.hp
         m = self.module
@@ -126,15 +221,247 @@ class DiffSingerAcoustic:
         def denoise(x, t):
             return m.denoise(x, t, cond, cond_proj=cond_projs)
 
-        t0 = t_start_infer if t_start_infer is not None else hp.get("T_start_infer", self.t_start)
-        x = reflow_core.inference(
-            denoise, tuple(cond.shape[:2]) + (self.out_dims,),
-            t_start=t0,
-            steps=steps if steps is not None else hp.get("sampling_steps", 20),
-            algorithm=hp.get("sampling_algorithm", "euler"),
-            time_scale_factor=self.time_scale_factor,
-            device=cond.device, generator=generator,
-            x_end=src_spec, use_shallow_diffusion=self.use_shallow_diffusion, noise=noise,
-        )
+        shape = tuple(cond.shape[:2]) + (self.out_dims,)
+        x = sample(hp, self.schedule, denoise, shape, k_step=self.k_step, device=cond.device,
+                   generator=generator, noise=noise, noise_fn=noise_fn, x_start=src_spec,
+                   use_shallow_diffusion=self.use_shallow_diffusion, depth=depth, steps=steps,
+                   t_start=(t_start_infer if t_start_infer is not None
+                            else hp.get("T_start_infer", self.t_start)))
         mel = self.spec_transform.denorm(x) * frame_mask
         return ShallowDiffusionOutput(aux_out=aux_mel, diff_out=mel)
+
+
+# ---------------------------------------------------------------------------
+# Variance
+# ---------------------------------------------------------------------------
+
+
+class VarianceModule(nn.Module):
+    """Parameter container of the variance model, with its pieces as methods."""
+
+    def __init__(self, hp: dict, vocab_size: int):
+        super().__init__()
+        h = hp["hidden_size"]
+        diffusion_type = hp.get("diffusion_type", "ddpm")
+        self.use_spk_id = hp["use_spk_id"]
+        self.predict_pitch = hp["predict_pitch"]
+        self.var_list = variance_prediction_list(hp)
+        self.spk_embed = Embedding(hp["num_spk"], h) if self.use_spk_id else None
+        self.fs2 = FastSpeech2Variance.from_hparams(hp, vocab_size)
+
+        self.use_melody_encoder = False
+        if self.predict_pitch:
+            pitch_hp = hp["pitch_prediction_args"]
+            self.use_melody_encoder = hp.get("use_melody_encoder", False)
+            if self.use_melody_encoder:
+                self.melody_encoder = MelodyEncoder.from_hparams(hp)
+                self.delta_pitch_embed = Linear(1, h)
+            else:
+                self.base_pitch_embed = Linear(1, h)
+            self.pitch_retake_embed = Embedding(2, h)
+            backbone_type = compat.get_backbone_type(hp, nested_config=pitch_hp)
+            backbone_args = compat.get_backbone_args(pitch_hp, backbone_type)
+            self.pitch_predictor = DiffusionCore(build_backbone(
+                pitch_hp["repeat_bins"], 1, backbone_type, backbone_args, cond_dims=h),
+                diffusion_type)
+        if self.var_list:
+            self.pitch_embed = Linear(1, h)
+            self.variance_embeds = nn.ModuleDict({v: Linear(1, h) for v in self.var_list})
+            var_hp = hp["variances_prediction_args"]
+            backbone_type = compat.get_backbone_type(hp, nested_config=var_hp)
+            backbone_args = compat.get_backbone_args(var_hp, backbone_type)
+            self.variance_predictor = DiffusionCore(build_backbone(
+                var_hp["total_repeat_bins"] // len(self.var_list), len(self.var_list),
+                backbone_type, backbone_args, cond_dims=h), diffusion_type)
+
+    @property
+    def pitch_denoiser(self) -> nn.Module:
+        return self.pitch_predictor.backbone
+
+    @property
+    def variance_denoiser(self) -> nn.Module:
+        return self.variance_predictor.backbone
+
+    def encode(self, txt_tokens, midi, ph2word, ph_dur=None, word_dur=None, spk_id=None,
+               ph_spk_mix_embed=None, languages=None):
+        """fs2 encoder (+ token-level speaker embed) -> (encoder_out, dur_pred)."""
+        ph_spk = None
+        if self.use_spk_id:
+            ph_spk = (ph_spk_mix_embed if ph_spk_mix_embed is not None
+                      else self.spk_embed(spk_id)[:, None, :])
+        return self.fs2(txt_tokens, midi, ph2word, ph_dur=ph_dur, word_dur=word_dur,
+                        spk_embed=ph_spk, languages=languages)
+
+    def frame_condition(self, encoder_out, mel2ph, spk_id=None, spk_mix_embed=None):
+        condition = gather_frames(encoder_out, mel2ph)
+        if self.use_spk_id:
+            spk = spk_mix_embed if spk_mix_embed is not None else self.spk_embed(spk_id)[:, None, :]
+            condition = condition + spk
+        return condition
+
+    def melody_encode(self, note_midi, note_rest, note_dur, note_glide=None):
+        return self.melody_encoder(note_midi, note_rest, note_dur, glide=note_glide)
+
+    def pitch_condition(self, condition, mel2ph, base_pitch, pitch=None, pitch_expr=None,
+                        pitch_retake=None, melody_frame=None, delta_pitch_in=None):
+        """Pitch-branch condition -> (pitch_cond, base_pitch). ``pitch_retake``
+        None means all frames are retaken. With ``pitch_expr`` the retake
+        embedding is interpolated between its two rows; without the melody
+        encoder, frames not retaken take the given ``pitch`` as base pitch."""
+        pitch_cond = condition
+        if melody_frame is not None:
+            pitch_cond = pitch_cond + melody_frame
+        retake_unset = pitch_retake is None
+        if retake_unset:
+            pitch_retake = torch.ones_like(mel2ph, dtype=torch.bool)
+        if pitch_expr is None:
+            retake_embed = self.pitch_retake_embed(pitch_retake.long())
+        else:
+            table = self.pitch_retake_embed.weight
+            expr = (pitch_expr * pitch_retake)[:, :, None]
+            retake_embed = expr * table[1] + (1.0 - expr) * table[0]
+        pitch_cond = pitch_cond + retake_embed
+        if self.use_melody_encoder:
+            if delta_pitch_in is None:
+                delta_pitch_in = torch.zeros_like(base_pitch)
+            pitch_cond = pitch_cond + embed_curve(self.delta_pitch_embed, delta_pitch_in)
+        else:
+            if not retake_unset:
+                base_pitch = base_pitch * pitch_retake + pitch * (~pitch_retake)
+            pitch_cond = pitch_cond + embed_curve(self.base_pitch_embed, base_pitch)
+        return pitch_cond, base_pitch
+
+    def variance_condition(self, condition, pitch, variances: Dict,
+                           variance_retake: Optional[Dict]):
+        """Variance-branch condition: the pitch embed, and the given curves
+        where they are not retaken."""
+        var_cond = condition + embed_curve(self.pitch_embed, pitch)
+        if variance_retake is not None:
+            for v_name in self.var_list:
+                keep = (~variance_retake[v_name])[:, :, None]
+                var_cond = var_cond + embed_curve(
+                    self.variance_embeds[v_name], variances[v_name]) * keep
+        return var_cond
+
+
+class DiffSingerVariance:
+    """The variance model's inference entry point.
+
+    Builds :class:`VarianceModule` (``self.module``) in ``dtype`` on
+    ``device``: the card unless the caller asks for another, and an error if
+    there is no card.
+    """
+
+    def __init__(self, hp: dict, vocab_size: int, dtype=None, device=None):
+        self.hp = dict(hp)
+        self.device = resolve_device(device)
+        self.dtype = dtype or torch.float32
+        self.predict_dur = hp["predict_dur"]
+        self.predict_pitch = hp["predict_pitch"]
+        self.var_list = variance_prediction_list(hp)
+        self.use_melody_encoder = hp.get("use_melody_encoder", False)
+        self.diffusion_type = hp.get("diffusion_type", "ddpm")
+        self.timesteps = hp.get("timesteps", 1000)
+        self.k_step = hp.get("K_step", self.timesteps)
+        self.schedule = _schedule(hp, self.diffusion_type, self.timesteps)
+        self.module = VarianceModule(hp, vocab_size).to(device=self.device, dtype=self.dtype).eval()
+
+        if self.predict_pitch:
+            p = hp["pitch_prediction_args"]
+            self.pitch_transform = PitchTransform(
+                vmin=p["pitd_norm_min"], vmax=p["pitd_norm_max"],
+                cmin=p["pitd_clip_min"], cmax=p["pitd_clip_max"],
+                repeat_bins=p["repeat_bins"])
+        if self.var_list:
+            ranges, clamps = [], []
+            for v in self.var_list:
+                if v == "tension":
+                    ranges.append((hp["tension_logit_min"], hp["tension_logit_max"]))
+                    clamps.append((hp["tension_logit_min"], hp["tension_logit_max"]))
+                else:
+                    ranges.append((hp[f"{v}_db_min"], hp[f"{v}_db_max"]))
+                    clamps.append((hp[f"{v}_db_min"], 0.0))
+            total_rb = hp["variances_prediction_args"]["total_repeat_bins"]
+            self.variance_transform = MultiVarianceTransform(
+                ranges=ranges, clamps=clamps, repeat_bins=total_rb // len(self.var_list))
+
+    @torch.no_grad()
+    @no_tf32()
+    def forward_infer(
+        self, txt_tokens, midi, ph2word, base_pitch, *, ph_dur=None, word_dur=None,
+        mel2ph=None, pitch=None, pitch_expr=None, pitch_retake=None,
+        variances: Optional[Dict] = None, variance_retake: Optional[Dict] = None,
+        spk_id=None, spk_mix_embed=None, ph_spk_mix_embed=None, languages=None,
+        note_midi=None, note_rest=None, note_dur=None, note_glide=None, mel2note=None,
+        steps: Optional[int] = None,
+        predict_pitch: Optional[bool] = None, predict_variances: Optional[bool] = None,
+        generator: Optional[torch.Generator] = None,
+        noise_pitch: Optional[torch.Tensor] = None,
+        noise_variances: Optional[torch.Tensor] = None,
+        noise_fn_pitch: Optional[ddpm_core.StepNoiseFn] = None,
+        noise_fn_variances: Optional[ddpm_core.StepNoiseFn] = None,
+    ):
+        """Returns (dur_pred [B, T_ph] | None, pitch_pred [B, T] delta | None,
+        {variance name: [B, T]}).
+
+        ``predict_pitch`` / ``predict_variances`` switch a branch off for the
+        call. The pitch branch draws from ``generator`` first, then the
+        variance branch; ``noise_pitch`` / ``noise_variances`` [B, T, F*R]
+        replace their first draws and ``noise_fn_pitch`` /
+        ``noise_fn_variances`` the DDPM ancestral sampler's per-step draws.
+        """
+        m = self.module
+        do_pitch = self.predict_pitch and (predict_pitch is not False)
+        do_vars = bool(self.var_list) and (predict_variances is not False)
+        encoder_out, dur_pred = m.encode(
+            txt_tokens, midi, ph2word, ph_dur=ph_dur, word_dur=word_dur, spk_id=spk_id,
+            ph_spk_mix_embed=ph_spk_mix_embed, languages=languages)
+        if not do_pitch and not do_vars:
+            return dur_pred, None, {}
+
+        if mel2ph is None and word_dur is not None:
+            dur_align = rhythm_regulator(dur_pred, ph2word, word_dur)
+            mel2ph = length_regulator(dur_align, base_pitch.shape[1])
+        condition = m.frame_condition(encoder_out, mel2ph, spk_id=spk_id,
+                                      spk_mix_embed=spk_mix_embed)
+
+        pitch_pred = None
+        if do_pitch:
+            melody_frame = None
+            delta_pitch_in = None
+            if self.use_melody_encoder:
+                mel_out = m.melody_encode(note_midi, note_rest, note_dur, note_glide=note_glide)
+                melody_frame = gather_frames(mel_out, mel2note)
+                if pitch_retake is not None:
+                    delta_pitch_in = (pitch - base_pitch) * (~pitch_retake)
+            pitch_cond, base_pitch = m.pitch_condition(
+                condition, mel2ph, base_pitch, pitch=pitch, pitch_expr=pitch_expr,
+                pitch_retake=pitch_retake, melody_frame=melody_frame,
+                delta_pitch_in=delta_pitch_in)
+            x = self._infer_core(m.pitch_denoiser, pitch_cond, self.pitch_transform.repeat_bins,
+                                 steps, generator, noise_pitch, noise_fn_pitch)
+            pitch_pred = self.pitch_transform.denorm(x)
+
+        variances_pred = {}
+        if do_vars:
+            if pitch is None:
+                pitch = base_pitch + pitch_pred
+            var_cond = m.variance_condition(condition, pitch, variances or {}, variance_retake)
+            width = len(self.var_list) * self.variance_transform.repeat_bins
+            x = self._infer_core(m.variance_denoiser, var_cond, width, steps, generator,
+                                 noise_variances, noise_fn_variances)
+            outs = self.variance_transform.denorm(self.variance_transform.unflatten(x))
+            variances_pred = dict(zip(self.var_list, outs))
+        return dur_pred, pitch_pred, variances_pred
+
+    def _infer_core(self, denoiser: nn.Module, cond: torch.Tensor, width: int,
+                    steps: Optional[int], generator, noise, noise_fn) -> torch.Tensor:
+        """Sample a flat [B, T, width] tensor from noise with the configured core."""
+        proj = precompute_cond_projections(denoiser, cond)
+
+        def denoise(x, t):
+            return denoiser(x, t, cond, cond_proj=proj)
+
+        return sample(self.hp, self.schedule, denoise, tuple(cond.shape[:2]) + (width,),
+                      k_step=self.k_step, device=cond.device, generator=generator,
+                      noise=noise, noise_fn=noise_fn, steps=steps)

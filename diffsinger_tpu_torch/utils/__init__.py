@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import contextlib
 import inspect
 
 import numpy as np
@@ -49,3 +50,20 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError(
             "CUDA is not available; pass device='cpu' to run on the CPU")
     return dev
+
+
+@contextlib.contextmanager
+def no_tf32():
+    """Run float32 products in full float32 (also usable as a decorator).
+
+    PyTorch lets cuDNN round float32 convolution inputs to TF32 by default;
+    the port's float32 models and plain versions are float32 throughout, so
+    their entry points switch TF32 off for cuDNN and cuBLAS for the call and
+    restore the caller's settings after it.
+    """
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved

@@ -22,8 +22,17 @@ _STEP_RE = re.compile(rf"{CKPT_PREFIX}(\d+)\.ckpt")
 
 # legacy parameters the reference itself ignores at load
 LEGACY_IGNORES = ("fs2.encoder.embed_tokens",)
-# buffers of the reference's diffusion wrappers; the port reads them from hparams
-BUFFER_KEYS = ("diffusion.spec_min", "diffusion.spec_max")
+# the reference's diffusion wrappers: their buffers (spec_min / spec_max, the
+# DDPM schedule tables) sit directly under them, the backbone one level deeper;
+# the port computes the buffers from the hparams
+WRAPPERS = ("diffusion", "pitch_predictor", "variance_predictor")
+
+
+def is_buffer_key(key: str) -> bool:
+    """A buffer of a diffusion wrapper, e.g. ``diffusion.spec_min`` or
+    ``pitch_predictor.alphas_cumprod`` (not ``diffusion.denoise_fn.*``)."""
+    head, _, rest = key.partition(".")
+    return head in WRAPPERS and bool(rest) and "." not in rest
 
 
 def checkpoint_path(work_dir, steps: int) -> pathlib.Path:
@@ -64,7 +73,7 @@ def strip_model_prefix(state: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor
     out = {}
     for k, v in state.items():
         k2 = k[len("model."):] if k.startswith("model.") else k
-        if k2.startswith(LEGACY_IGNORES) or k2 in BUFFER_KEYS:
+        if k2.startswith(LEGACY_IGNORES) or is_buffer_key(k2):
             continue
         out[k2] = v
     return out

@@ -1,7 +1,7 @@
 """JAX (flax) parameters -> the port's ``state_dict``s.
 
 The inverse of the JAX package's torch -> flax converters
-(``utils/torch_model_convert.py::convert_acoustic`` and
+(``utils/torch_model_convert.py::convert_acoustic`` / ``convert_variance`` and
 ``utils/torch_convert.py::convert_nsf_hifigan``), so weights move both ways.
 The parameters come as nested dicts of numpy arrays, with or without the
 top-level ``"params"`` key. Layout rules:
@@ -99,6 +99,36 @@ def _lynxnet(sd: StateDict, prefix: str, p: dict, num_layers: int) -> None:
         _conv(sd, f"{q}.convmodule.net.6", cm["pw_conv2"])
 
 
+def _wavenet(sd: StateDict, prefix: str, p: dict, num_layers: int) -> None:
+    _dense(sd, f"{prefix}.input_projection", p["input_projection"], as_conv1x1=True)
+    _dense(sd, f"{prefix}.mlp.0", p["mlp_0"])
+    _dense(sd, f"{prefix}.mlp.2", p["mlp_2"])
+    _dense(sd, f"{prefix}.skip_projection", p["skip_projection"], as_conv1x1=True)
+    _dense(sd, f"{prefix}.output_projection", p["output_projection"], as_conv1x1=True)
+    for i in range(num_layers):
+        q, lp = f"{prefix}.residual_layers.{i}", p[f"residual_layers_{i}"]
+        _conv(sd, f"{q}.dilated_conv", lp["dilated_conv"])
+        _dense(sd, f"{q}.diffusion_projection", lp["diffusion_projection"])
+        _dense(sd, f"{q}.conditioner_projection", lp["conditioner_projection"], as_conv1x1=True)
+        _dense(sd, f"{q}.output_projection", lp["output_projection"], as_conv1x1=True)
+
+
+def _backbone(sd: StateDict, prefix: str, p: dict, backbone_type: str,
+              backbone_args: dict) -> None:
+    if backbone_type == "wavenet":
+        _wavenet(sd, prefix, p, backbone_args.get("num_layers", 20))
+    elif backbone_type == "lynxnet":
+        _lynxnet(sd, prefix, p, backbone_args.get("num_layers", 6))
+    else:
+        raise NotImplementedError(backbone_type)
+
+
+def _core_prefix(outer: str, hp: dict) -> str:
+    """DDPM names its backbone ``denoise_fn``, rectified flow ``velocity_fn``."""
+    fn = "denoise_fn" if hp.get("diffusion_type", "ddpm") == "ddpm" else "velocity_fn"
+    return f"{outer}.{fn}"
+
+
 def _convnext_decoder(sd: StateDict, prefix: str, p: dict, num_layers: int) -> None:
     _conv(sd, f"{prefix}.inconv", p["inconv"])
     _conv(sd, f"{prefix}.outconv", p["outconv"])
@@ -117,14 +147,69 @@ def acoustic_state_dict_from_flax(params_np: dict, hp: dict) -> StateDict:
     sd: StateDict = {}
     _fs2_acoustic(sd, p["fs2"], hp)
     backbone_type = compat.get_backbone_type(hp)
-    if backbone_type != "lynxnet":
-        raise NotImplementedError(f"backbone {backbone_type!r} is not ported yet")
-    backbone_args = compat.get_backbone_args(hp, backbone_type) or {}
-    _lynxnet(sd, "diffusion.velocity_fn", p["denoiser"], backbone_args.get("num_layers", 6))
+    _backbone(sd, _core_prefix("diffusion", hp), p["denoiser"], backbone_type,
+              compat.get_backbone_args(hp, backbone_type) or {})
     if hp.get("use_shallow_diffusion", False):
         aux_args = hp["shallow_diffusion_args"]["aux_decoder_args"]
         _convnext_decoder(sd, "aux_decoder.decoder", p["aux_decoder"]["decoder"],
                           aux_args.get("num_layers", 6))
+    return sd
+
+
+def variance_state_dict_from_flax(params_np: dict, hp: dict) -> StateDict:
+    """JAX ``VarianceModule`` parameters -> ``VarianceModule.state_dict()`` of the port."""
+    from diffsinger_tpu_torch.models.toplevel import variance_prediction_list
+
+    p = params_np.get("params", params_np)
+    sd: StateDict = {}
+    fs2 = p["fs2"]
+    sd["fs2.txt_embed.weight"] = _t(fs2["txt_embed"]["embedding"])
+    _fs2_encoder(sd, "fs2.encoder", fs2["encoder"], hp["enc_layers"])
+    if hp.get("use_lang_id", False):
+        sd["fs2.lang_embed.weight"] = _t(fs2["lang_embed"]["embedding"])
+    if hp["predict_dur"]:
+        sd["fs2.onset_embed.weight"] = _t(fs2["onset_embed"]["embedding"])
+        _linear(sd, "fs2.word_dur_embed", fs2["word_dur_embed"])
+        sd["fs2.midi_embed.weight"] = _t(fs2["midi_embed"]["embedding"])
+        dp = fs2["dur_predictor"]
+        _linear(sd, "fs2.dur_predictor.linear", dp["linear"])
+        for i in range(hp["dur_prediction_args"]["num_layers"]):
+            _conv(sd, f"fs2.dur_predictor.conv.{i}.1", dp[f"conv_{i}"])
+            _layernorm(sd, f"fs2.dur_predictor.conv.{i}.3", dp[f"norm_{i}"])
+    else:
+        _linear(sd, "fs2.ph_dur_embed", fs2["ph_dur_embed"])
+    if hp.get("use_spk_id", False):
+        sd["spk_embed.weight"] = _t(p["spk_embed"]["embedding"])
+
+    if hp["predict_pitch"]:
+        pitch_hp = hp["pitch_prediction_args"]
+        if hp.get("use_melody_encoder", False):
+            me, me_hp = p["melody_encoder"], hp.get("melody_encoder_args", {})
+            _linear(sd, "melody_encoder.note_midi_embed", me["note_midi_embed"])
+            _linear(sd, "melody_encoder.note_dur_embed", me["note_dur_embed"])
+            _fs2_encoder(sd, "melody_encoder.encoder", me["encoder"],
+                         me_hp.get("enc_layers", hp["enc_layers"]))
+            _linear(sd, "melody_encoder.out_proj", me["out_proj"])
+            if hp.get("use_glide_embed", False):
+                sd["melody_encoder.note_glide_embed.weight"] = _t(
+                    me["note_glide_embed"]["embedding"])
+            _linear(sd, "delta_pitch_embed", p["delta_pitch_embed"])
+        else:
+            _linear(sd, "base_pitch_embed", p["base_pitch_embed"])
+        sd["pitch_retake_embed.weight"] = _t(p["pitch_retake_embed"]["embedding"])
+        bt = compat.get_backbone_type(hp, nested_config=pitch_hp)
+        _backbone(sd, _core_prefix("pitch_predictor", hp), p["pitch_denoiser"], bt,
+                  compat.get_backbone_args(pitch_hp, bt) or {})
+
+    var_list = variance_prediction_list(hp)
+    if var_list:
+        _linear(sd, "pitch_embed", p["pitch_embed"])
+        for v in var_list:
+            _linear(sd, f"variance_embeds.{v}", p[f"variance_embeds_{v}"])
+        var_hp = hp["variances_prediction_args"]
+        bt = compat.get_backbone_type(hp, nested_config=var_hp)
+        _backbone(sd, _core_prefix("variance_predictor", hp), p["variance_denoiser"], bt,
+                  compat.get_backbone_args(var_hp, bt) or {})
     return sd
 
 

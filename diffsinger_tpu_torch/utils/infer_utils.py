@@ -1,5 +1,5 @@
-"""Host-side inference helpers (numpy): curve resampling, cross-fade, wav
-output, speaker-mix parsing, key transposition.
+"""Host-side inference helpers (numpy): note and pitch conversions, curve
+resampling, cross-fade, wav output, speaker-mix parsing, key transposition.
 
 Own copy of the helpers of diffsinger_tpu/utils/infer_utils.py that the
 inference runtime uses; the arithmetic is the same line for line, so both
@@ -37,6 +37,14 @@ def note_to_midi(note: str) -> int:
 
 def midi_to_note(midi: int) -> str:
     return f"{_NOTE_NAMES[midi % 12]}{midi // 12 - 1}"
+
+
+def midi_to_hz(midi) -> np.ndarray:
+    return 440.0 * (2.0 ** ((np.asarray(midi, dtype=np.float64) - 69.0) / 12.0))
+
+
+def hz_to_midi(hz) -> np.ndarray:
+    return 12.0 * (np.log2(np.asarray(hz, dtype=np.float64)) - np.log2(440.0)) + 69.0
 
 
 def trans_f0_seq(feature_pit, transform):

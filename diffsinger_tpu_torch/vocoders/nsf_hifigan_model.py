@@ -26,7 +26,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from diffsinger_tpu_torch.utils import resolve_device
+from diffsinger_tpu_torch.utils import no_tf32, resolve_device
 
 LRELU_SLOPE = 0.1
 
@@ -223,6 +223,7 @@ class Generator(nn.Module):
         if not h.mini_nsf:
             self.m_source.float()
 
+    @no_tf32()
     def forward(self, mel: torch.Tensor, f0: torch.Tensor, *,
                 generator: Optional[torch.Generator] = None,
                 noise: Optional[VocoderNoise] = None) -> torch.Tensor:

@@ -20,7 +20,6 @@ pytestmark = pytest.mark.cuda
 def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -280,3 +279,78 @@ def test_server_kernels_against_plain_float32(dev, tmp_path, monkeypatch):
         assert np.isfinite(a).all() and np.abs(a).max() > 1e-3
         assert np.abs(a - b).max() <= 1e-3
 
+
+
+# The variance encoder is 2 heads of 128 (hidden 256) over token buckets of 16
+# to 48 with B 1-16; the melody encoder 2 heads of 64 (hidden 128) over note
+# buckets.
+@pytest.mark.parametrize("b,length,d", [(16, 32, 128), (1, 16, 128), (7, 48, 128), (16, 64, 128),
+                                        (16, 32, 64), (1, 16, 64), (3, 48, 64)])
+def test_k3_at_variance_encoder_shapes(dev, b, length, d):
+    g = torch.Generator(device=dev).manual_seed(b * 100 + length + d)
+    q, k, v = (torch.randn(b, 2, length, d, generator=g, device=dev) for _ in range(3))
+    pad = torch.zeros(b, length, dtype=torch.bool, device=dev)
+    for i in range(b):  # every row's tail padded, by another amount
+        pad[i, length - (3 + 5 * i) % 16:] = True
+    n = flash_attention.launches
+    got = flash_attention.flash_attention(q, k, v, pad)
+    assert flash_attention.launches == n + 1
+    assert _max_err(got, flash_attention.flash_attention_plain(q, k, v, pad)) <= 1e-4
+
+
+def test_variance_model_kernels_against_plain_float32(dev, monkeypatch):
+    """The variance model (melody encoder and all four variances on, reduced
+    widths that K3 takes) in float32 on the card: its forward on the kernels
+    against the same forward on the plain versions, same noise; durations,
+    pitch and variances max |diff| <= 1e-3."""
+    import pathlib
+
+    import numpy as np
+
+    from diffsinger_tpu_torch.config import load_config
+    from diffsinger_tpu_torch.models import commons
+    from diffsinger_tpu_torch.models.toplevel import DiffSingerVariance
+
+    # PyTorch's default lets cuDNN round float32 to TF32: the model itself
+    # must switch that off, or the duration predictor's convs flip with the
+    # attention's last bits
+    assert torch.backends.cudnn.allow_tf32
+    repo = pathlib.Path(__file__).resolve().parents[1]
+    hp = load_config(repo / "configs" / "variance.yaml")
+    hp.update(hidden_size=64, enc_layers=2, use_melody_encoder=True, use_glide_embed=True,
+              melody_encoder_args=dict(hidden_size=64, enc_layers=2), sampling_steps=4,
+              **{f"predict_{v}": True for v in ("energy", "breathiness", "voicing", "tension")})
+    torch.manual_seed(0)
+    model = DiffSingerVariance(hp, vocab_size=40, device=dev)
+    g = torch.Generator(device=dev).manual_seed(1)
+    with torch.no_grad():  # the zero-initialised output projections would mute the samplers
+        for name, p in model.module.named_parameters():
+            if name.endswith("output_projection.weight") or name.endswith(".bias"):
+                p.add_(0.05 * torch.randn(p.shape, generator=g, device=dev))
+    rng = np.random.default_rng(2)
+    b, t_ph, t_n, t_s = 3, 32, 16, 256
+    tokens = torch.from_numpy(rng.integers(1, 40, (b, t_ph))).to(dev)
+    tokens[1, 20:] = 0
+    ph2word = torch.arange(1, t_ph + 1, device=dev).div(2, rounding_mode="floor").add(1)
+    ph2word = ph2word[None].repeat(b, 1) * (tokens > 0)
+    word_dur = torch.full((b, t_ph), 14, device=dev)
+    note_dur = torch.full((b, t_n), t_s // t_n, device=dev)
+    mel2note = torch.arange(t_s, device=dev).div(t_s // t_n, rounding_mode="floor").add(1)[None]
+    kw = dict(word_dur=word_dur, note_midi=60 + 5 * torch.rand(b, t_n, device=dev),
+              note_rest=torch.zeros(b, t_n, dtype=torch.bool, device=dev), note_dur=note_dur,
+              note_glide=torch.randint(0, 3, (b, t_n), device=dev),
+              mel2note=mel2note.repeat(b, 1), pitch_expr=torch.rand(b, t_s, device=dev),
+              noise_pitch=torch.randn(b, t_s, 64, device=dev),
+              noise_variances=torch.randn(b, t_s, 48, device=dev))
+    args = (tokens, torch.full((b, t_ph), 60, device=dev), ph2word,
+            60 + torch.randn(b, 1, device=dev).repeat(1, t_s))
+    n = flash_attention.launches
+    dur_k, pitch_k, var_k = model.forward_infer(*args, **kw)
+    assert flash_attention.launches == n + 4  # two encoders of two layers
+    monkeypatch.setattr(commons, "flash_attention", flash_attention.flash_attention_plain)
+    dur_p, pitch_p, var_p = model.forward_infer(*args, **kw)
+    assert flash_attention.launches == n + 4
+    assert _max_err(dur_k, dur_p) <= 1e-3 and _max_err(pitch_k, pitch_p) <= 1e-3
+    assert sorted(var_k) == ["breathiness", "energy", "tension", "voicing"]
+    for v in var_k:
+        assert torch.isfinite(var_k[v]).all() and _max_err(var_k[v], var_p[v]) <= 1e-3

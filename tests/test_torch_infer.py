@@ -334,8 +334,18 @@ def test_entry_point_raises_without_a_card_unless_the_cpu_is_asked_for(exp, monk
 
 
 def test_variance_command_names_its_slice():
-    with pytest.raises(NotImplementedError, match="variance slice"):
-        cli.main(["variance", "x.ds", "--exp", "e"])
+    """The variance command is ported: it takes the flags of
+    ``scripts/infer.py variance`` (plus --device) and, like every entry point,
+    refuses to run without a card unless the CPU is asked for."""
+    args = cli.build_parser().parse_args(
+        ["variance", SAMPLE, "--exp", "e", "--ckpt", "3", "--predict", "dur", "--predict",
+         "pitch", "--spk", "a", "--lang", "zh", "--out", "o", "--title", "t", "--num", "2",
+         "--key", "-1", "--expr", "0.5", "--seed", "4", "--steps", "8", "--batch_size", "16",
+         "--device", "cpu"])
+    assert (args.command, args.predict, args.expr, args.steps, args.batch_size) == (
+        "variance", ["dur", "pitch"], 0.5, 8, 16)
+    with pytest.raises(SystemExit):
+        cli.build_parser().parse_args(["variance", SAMPLE, "--exp", "e", "--expr", "1.5"])
 
 
 def test_category_mismatch_raises(tmp_path):

@@ -101,6 +101,61 @@ def acoustic_pair(hp=None, seed: int = 0):
     return jmodel, params, port
 
 
+def jax_ddpm_step_noises(key, n_steps: int, shape) -> list:
+    """The per-step draws of the JAX ancestral sampler from ``key``: at each
+    step it splits its key and draws from the second half."""
+    out = []
+    for _ in range(n_steps):
+        key, sub = jax.random.split(key)
+        out.append(torch.from_numpy(np.array(jax.random.normal(sub, tuple(shape), jnp.float32))))
+    return out
+
+
+# a variance model at narrow widths: word-mode durations, pitch on WaveNet,
+# three of the four variances on another WaveNet
+VAR_HP = dict(
+    hidden_size=32, enc_layers=2, num_heads=2, enc_ffn_kernel_size=3, ffn_act="gelu",
+    dropout=0.1, use_pos_embed=True, rel_pos=True, use_rope=True,
+    use_lang_id=False, num_lang=1, use_spk_id=False, num_spk=1,
+    predict_dur=True, predict_pitch=True, predict_energy=True, predict_breathiness=True,
+    predict_voicing=False, predict_tension=True,
+    use_melody_encoder=False, melody_encoder_args=dict(hidden_size=32, enc_layers=2),
+    use_glide_embed=False, glide_types=["up", "down"], glide_embed_scale=11.313708498984760,
+    dur_prediction_args=dict(arch="fs2", hidden_size=24, dropout=0.1, num_layers=2,
+                             kernel_size=3, log_offset=1.0),
+    pitch_prediction_args=dict(pitd_norm_min=-8.0, pitd_norm_max=8.0, pitd_clip_min=-12.0,
+                               pitd_clip_max=12.0, repeat_bins=8, backbone_type="wavenet",
+                               backbone_args=dict(num_layers=3, num_channels=16,
+                                                  dilation_cycle_length=2)),
+    variances_prediction_args=dict(total_repeat_bins=12, backbone_type="wavenet",
+                                   backbone_args=dict(num_layers=2, num_channels=16,
+                                                      dilation_cycle_length=2)),
+    energy_db_min=-96.0, energy_db_max=-12.0, breathiness_db_min=-96.0,
+    breathiness_db_max=-20.0, voicing_db_min=-96.0, voicing_db_max=-12.0,
+    tension_logit_min=-10.0, tension_logit_max=10.0,
+    diffusion_type="reflow", schedule_type="linear", timesteps=1000, K_step=1000,
+    time_scale_factor=1000, sampling_algorithm="euler", sampling_steps=3,
+    diff_accelerator="ddim", diff_speedup=10,
+)
+
+
+def variance_pair(hp=None, seed: int = 0, params=None):
+    """(JAX DiffSingerVariance, its params, port DiffSingerVariance) sharing
+    weights; ``params`` of a model with the same parameter tree (the sampler
+    settings may differ) skips the JAX init."""
+    from diffsinger_tpu.models.toplevel import DiffSingerVariance as JaxVariance
+    from diffsinger_tpu_torch.models.toplevel import DiffSingerVariance
+    from diffsinger_tpu_torch.utils.convert import variance_state_dict_from_flax
+
+    hp = dict(hp or VAR_HP)
+    jmodel = JaxVariance(hp, vocab_size=VOCAB)
+    if params is None:
+        params = randomize(jmodel.init(jax.random.PRNGKey(seed)), seed + 100)
+    port = DiffSingerVariance(hp, vocab_size=VOCAB, device="cpu")
+    port.module.load_state_dict(variance_state_dict_from_flax(to_numpy(params), hp))
+    return jmodel, params, port
+
+
 def acoustic_inputs(seed: int = 0, b: int = 2, t_txt: int = 12, t_mel: int = 48):
     """Tokens with pad tokens, mel2ph with padded (0) frames, f0 and curves."""
     rng = np.random.default_rng(seed)
@@ -282,3 +337,75 @@ def jax_vocoder_noise(batch: int, frames: int, hop: int = 512, channels: int = 0
         out.sigma = torch.from_numpy(np.array(
             jax.random.normal(sub, (batch, frames, channels), jnp.float32)))
     return out
+
+
+# configs/variance.yaml cut to a few narrow layers, every variance on, two
+# sampler steps (the nested sections are whole: a config replaces them whole)
+TINY_VARIANCE = dict(
+    hidden_size=32, enc_layers=2, sampling_steps=2,
+    predict_energy=True, predict_breathiness=True, predict_voicing=True, predict_tension=True,
+    dur_prediction_args=dict(arch="fs2", hidden_size=24, dropout=0.1, num_layers=2,
+                             kernel_size=3, log_offset=1.0, loss_type="mse",
+                             lambda_pdur_loss=0.3, lambda_wdur_loss=1.0, lambda_sdur_loss=3.0),
+    melody_encoder_args=dict(hidden_size=16, enc_layers=2),
+    pitch_prediction_args=dict(pitd_norm_min=-8.0, pitd_norm_max=8.0, pitd_clip_min=-12.0,
+                               pitd_clip_max=12.0, repeat_bins=8, backbone_type="wavenet",
+                               backbone_args=dict(num_layers=3, num_channels=16,
+                                                  dilation_cycle_length=2)),
+    variances_prediction_args=dict(total_repeat_bins=16, backbone_type="wavenet",
+                                   backbone_args=dict(num_layers=2, num_channels=16,
+                                                      dilation_cycle_length=2)),
+)
+
+
+def make_variance_exp(root: pathlib.Path, name: str, overrides: dict | None = None, *,
+                      variance_steps: int | None = 10, seed: int = 0) -> pathlib.Path:
+    """Write ``<root>/checkpoints/<name>``, a variance experiment folder as a
+    user has it: ``config.yaml`` (configs/variance.yaml with TINY_VARIANCE and
+    ``overrides``), ``dictionary.txt``, ``spk_map.json`` with ``use_spk_id``,
+    and (unless ``variance_steps`` is None) ``model_ckpt_steps_<N>.ckpt`` in the
+    reference layout: Lightning's ``model.`` prefix, the diffusion wrappers'
+    buffers, ``category: variance``. Seeded random weights, none left at zero.
+    Returns the checkpoints root."""
+    from diffsinger_tpu.config import load_config as jax_load_config
+    from diffsinger_tpu_torch.core.schedule import DiffusionSchedule
+    from diffsinger_tpu_torch.models.toplevel import DiffSingerVariance
+    from diffsinger_tpu_torch.utils.ckpt import checkpoint_path
+    from diffsinger_tpu_torch.utils.text import load_phoneme_dictionary
+
+    ckpt_root = root / "checkpoints"
+    work_dir = ckpt_root / name
+    work_dir.mkdir(parents=True)
+    hp = dict(jax_load_config(str(REPO / "configs" / "variance.yaml"), save_snapshot=False))
+    hp.update(TINY_VARIANCE)
+    hp.update(overrides or {})
+    hp.pop("work_dir", None)
+    hp.pop("dictionaries", None)
+    hp["dictionary"] = str(DICT)
+    shutil.copy(DICT, work_dir / "dictionary.txt")
+    with open(work_dir / "config.yaml", "w") as f:
+        yaml.safe_dump(hp, f, allow_unicode=True)
+    if hp.get("use_spk_id"):
+        (work_dir / "spk_map.json").write_text(json.dumps(
+            {f"spk{i}": i for i in range(hp["num_spk"])}))
+    if variance_steps is None:
+        return ckpt_root
+
+    g = torch.Generator().manual_seed(seed)
+    vocab = len(load_phoneme_dictionary(dict(hp, work_dir=str(work_dir))))
+    torch.manual_seed(seed)
+    model = DiffSingerVariance(hp, vocab_size=vocab, device="cpu")
+    state = {}
+    for k, v in model.module.state_dict().items():
+        scale = 0.3 if v.ndim == 1 else 0.02 + (0.5 * float(v.std()) if v.numel() > 1 else 0.3)
+        state["model." + k] = v + scale * torch.randn(v.shape, generator=g)
+    # buffers of the reference's diffusion wrappers, which neither package's loader wants
+    for wrapper in ("pitch_predictor", "variance_predictor"):
+        state[f"model.{wrapper}.spec_min"] = torch.zeros(1, 1, 1, 1)
+        state[f"model.{wrapper}.spec_max"] = torch.ones(1, 1, 1, 1)
+        if hp["diffusion_type"] == "ddpm":
+            sched = DiffusionSchedule.create("linear", hp["timesteps"])
+            state[f"model.{wrapper}.alphas_cumprod"] = torch.from_numpy(sched.alphas_cumprod)
+    torch.save({"state_dict": state, "category": "variance", "global_step": variance_steps},
+               checkpoint_path(work_dir, variance_steps))
+    return ckpt_root
