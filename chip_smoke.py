@@ -61,11 +61,24 @@ Phases, each printed as it ends; any failure exits non-zero:
    unipc: mel frames/s of the acoustic part, K1 and K2 launches against 6 x
    the denoiser calls, and a float32 B=2, T_mel=512 request against the
    plain versions (mel 1e-3);
-7. times: K1 at the long phrase's shape [1, 4096, 2048], K3 at the long
-   shape [16, 2, 512, 128] and K2's two GEMMs alone
-   (``[time]`` lines), the whole script's seconds, then the ``kernels`` JSON
-   line (launches of every path, time, bound, plain and library times) and
-   the last line ``{"ok": true, "device": {...}}``.
+7. train: the acoustic model's training through ``AcousticTask`` (the task
+   ``cli.train`` runs) at full width in '16-mixed' (bf16 autocast over float32
+   AdamW), an in-memory seeded batch of B=48 segments of 600-1024 frames
+   (T_mel 1024, T_txt 128, ragged): K3's backward against its plain version
+   at [48,2,128,128] and [16,2,512,128] with padded rows (dq, dk, dv within
+   1e-4 of the largest reference entry); one float32 step of a narrow model on
+   the card against the same step on CPU tensors (gradients, parameters after
+   the step); the loss falling over 20 steps on the fixed batch with fixed t
+   and noise; 10 timed steps after 3 warm-ups (optimizer steps/s, mel
+   frames/s, peak memory, launches per step: K3 4, K3's backward 4, K2 and K1
+   6); one step under the profiler (idle share); a validation batch; a save
+   and resume round trip in a temporary folder (``[train]`` lines);
+8. times: K1 at the long phrase's shape [1, 4096, 2048], K3 at the long
+   shape [16, 2, 512, 128], K2's two GEMMs alone and K3's backward with each
+   of its kernels alone (``[time]`` lines), the whole script's seconds, then
+   the ``kernels`` JSON line (launches of every path, the training steps'
+   included, time, bound, plain and library times) and the last line
+   ``{"ok": true, "device": {...}}``.
 
 The models switch TF32 off for their own calls (``utils.no_tf32``), so the
 float32 phases run as the entry points do, with no setting of this script's.
@@ -156,7 +169,7 @@ def seeded_weights(module, seed: int) -> None:
 # our kernels by the names nvcc gives them, for the profile's breakdown
 KERNEL_GROUPS = (("K2 GEMMs + LN stats", ("gemm_bf16_kernel", "gemm_f32_kernel", "ln_stats_kernel")),
                  ("K1 depthwise", ("dwconv_prelu_",)),
-                 ("K3 attention", ("flash_fwd_kernel",)))
+                 ("K3 attention", ("flash_fwd_kernel", "flash_bwd_")))
 
 
 def profile_request(fn, what: str = "one request", table: str = "chip_smoke_profile.txt") -> dict:
@@ -809,6 +822,247 @@ def ddpm_phase(hp, card, reset_counts, read_counts, request):
     return out, launches
 
 
+TRAIN_B, TRAIN_T_TXT, TRAIN_T_MEL = 48, 128, 1024
+TRAIN_LENGTHS = (600, 1024)  # segment lengths in frames
+TRAIN_STEPS, TRAIN_WARMUP = 10, 3  # timed steps, after the warm-ups
+TRAIN_PER_STEP = {"K1": 6, "K2": 6, "K3": 4, "K3bwd": 4}
+
+
+def train_items(rng, n, t_txt, t_mel, n_mels, lo, hi):
+    """n acoustic items: lengths in [lo, hi] (the first one hi, so that the
+    buckets are t_txt and t_mel), ragged token counts up to t_txt."""
+    import numpy as np
+
+    items = []
+    for i in range(n):
+        length = hi if i == 0 else int(rng.integers(lo, hi + 1))
+        n_tok = t_txt if i == 0 else int(rng.integers(t_txt // 2, t_txt + 1))
+        dur = rng.multinomial(length - n_tok, np.ones(n_tok) / n_tok) + 1
+        f0 = 220.0 * 2 ** (rng.uniform(-1, 1) + 0.2 * np.sin(np.linspace(0, 20, length)))
+        items.append(dict(tokens=rng.integers(1, VOCAB, n_tok), mel2ph=np.repeat(np.arange(1, n_tok + 1), dur),
+                          mel=rng.uniform(-11, -1, (length, n_mels)).astype(np.float32),
+                          f0=f0.astype(np.float32)))
+    return items
+
+
+def train_phase(card, reset_counts, read_counts, check):
+    """[train]: the acoustic model's training on the card through
+    ``AcousticTask`` (the task ``cli.train`` builds): configs/acoustic.yaml at
+    full width, '16-mixed' (bf16 autocast over float32 AdamW), an in-memory
+    seeded batch of 48 segments of 600-1024 frames (T_mel bucket 1024, 49,152
+    frames <= max_batch_frames) with ragged token counts (T_txt 128). K3's
+    backward against its plain version; one float32 step of a narrow model on
+    the card against the same step on CPU tensors; the loss falling over 20
+    steps on the fixed batch with fixed t and noise; 10 timed steps after 3
+    warm-ups (steps/s, mel frames/s, peak memory, launches per step); one step
+    under the profiler; a validation batch; a save and resume. Returns the
+    report and the launch counts of the timed steps."""
+    import numpy as np
+    import torch
+
+    from diffsinger_tpu_torch.config import load_config
+    from diffsinger_tpu_torch.data.dataset import AcousticDataset
+    from diffsinger_tpu_torch.ops import flash_attention
+    from diffsinger_tpu_torch.training.acoustic_task import AcousticTask
+    from diffsinger_tpu_torch.training.base_task import micro_seed
+
+    class MemoryDataset(AcousticDataset):
+        """Acoustic items held in memory, behind the dataset's collater."""
+
+        def __init__(self, items, hp):
+            self.hp, self.items = hp, items
+            self.sizes = [len(it["mel"]) for it in items]
+            self.metadata = {"mel": self.sizes}
+            self.frame_bucket, self.token_bucket = 128, 16
+            self.required_variances = []
+
+    dev = torch.device("cuda")
+    report = {}
+    tmp = Path(tempfile.mkdtemp(prefix="train_", dir=OUT_DIR))
+
+    def task_hp(work_dir, **over):
+        hp = load_config(ROOT / "configs" / "acoustic.yaml")
+        hp.update(work_dir=str(work_dir), val_with_vocoder=False, num_valid_plots=1,
+                  dictionary=str(ROOT / "dictionaries" / "opencpop-extension.txt"), **over)
+        return hp
+
+    # K3's backward against its plain version, at the training batch's shape
+    # and the long shape, with padded rows: max|err| <= 1e-4 of max|reference|
+    g = torch.Generator(device=dev).manual_seed(3)
+    bwd_cases = {}
+    for b, length in ((TRAIN_B, TRAIN_T_TXT), (16, 512)):
+        q, k, v, dout = (torch.randn(b, 2, length, 128, generator=g, device=dev) for _ in range(4))
+        pad = torch.zeros(b, length, dtype=torch.bool, device=dev)
+        for i in range(b):
+            pad[i, length - (7 * i) % (length // 2):] = True
+        scale = 128 ** -0.5
+        lse = torch.empty(b, 2, length, device=dev)
+        out = flash_attention._launch_fwd(q, k, v, pad, scale, lse)
+        got = flash_attention.flash_attention_bwd(q, k, v, pad, out, lse, dout, sm_scale=scale)
+        want_out = flash_attention.flash_attention_plain(q, k, v, pad, sm_scale=scale)
+        want_lse = flash_attention.attention_lse_plain(q, k, pad, sm_scale=scale)
+        want = flash_attention.flash_attention_bwd_plain(q, k, v, pad, want_out, want_lse, dout,
+                                                         sm_scale=scale)
+        check(f"K3 f32 lse [{b},2,{length},128] padded", lse, want_lse, 1e-4)
+        errs = [check(f"K3-bwd f32 {n} [{b},2,{length},128] padded", a, w,
+                      1e-4 * w.abs().max().item()) for n, a, w in zip(("dq", "dk", "dv"), got, want)]
+        bwd_cases[(b, length)] = (q, k, v, pad, out, lse, dout, errs)
+    torch.cuda.synchronize()
+
+    # one float32 step of a narrow model: the card (kernels) against the CPU
+    # (plain versions), same weights, batch, t and noise, dropout off
+    narrow = dict(hidden_size=64, enc_layers=2, dropout=0.0, pl_trainer_precision="32-true",
+                  backbone_args=dict(num_channels=128, num_layers=2, kernel_size=31,
+                                     dropout_rate=0.0, strong_cond=True))
+    tasks = []
+    for device in ("cuda", "cpu"):
+        hp_n = task_hp(tmp / f"narrow_{device}", **narrow)
+        hp_n["shallow_diffusion_args"] = dict(hp_n["shallow_diffusion_args"], aux_decoder_args=dict(
+            num_channels=64, num_layers=2, kernel_size=7, dropout_rate=0.0))
+        torch.manual_seed(30)
+        tasks.append(quiet(AcousticTask, hp_n, device=device))
+        tasks[-1].configure_optimizer()
+    seeded_weights(tasks[0].module, 31)
+    tasks[1].module.load_state_dict(tasks[0].module.state_dict())
+    rng = np.random.default_rng(32)
+    small_ds = MemoryDataset(train_items(rng, 4, 32, 256, 128, 150, 256), tasks[0].hp)
+    small = {k: v for k, v in small_ds.collater([small_ds[i] for i in range(4)]).items()
+             if isinstance(v, np.ndarray) and k != "indices"}
+    t_small = torch.from_numpy(rng.uniform(0.4, 1, 4).astype(np.float32))
+    noise_small = torch.from_numpy(rng.standard_normal((4, 256, 128)).astype(np.float32))
+    grads = []
+    for task in tasks:
+        task.train_step(task.to_device(small), t=t_small.to(task.device),
+                        noise=noise_small.to(task.device))
+        grads.append({n: p.grad.detach().float().cpu() for n, p in task.module.named_parameters()})
+        task.apply_update()
+    grad_err = max(max_err(grads[0][n], w) / max(w.abs().max().item(), 1e-8)
+                   for n, w in grads[1].items())
+    lr = tasks[0].hp["optimizer_args"]["lr"]
+    diffs = [(a.cpu() - w).abs() for a, w in zip(tasks[0].module.state_dict().values(),
+                                                  tasks[1].module.state_dict().values())]
+    param_err = max(d.max().item() for d in diffs)
+    param_off = max((d > 1e-6).float().mean().item() for d in diffs)
+    log(f"[train] f32 narrow step, card vs CPU: gradients max|err|/max|ref| {grad_err:.3e} "
+        f"(tolerance 1e-3) over {len(grads[1])} parameters; parameters after AdamW max|err| "
+        f"{param_err:.3e} (tolerance 2 lr = {2 * lr:.1e}), share of elements off by > 1e-6 "
+        f"{param_off:.4f} (tolerance 0.01)")
+    report["f32_step_vs_cpu"] = {"grad_rel_err": grad_err, "param_err": param_err,
+                                 "param_share_off": param_off}
+    if not (grad_err <= 1e-3 and param_err <= 2 * lr and param_off <= 0.01):
+        fail("the float32 training step on the card disagrees with the same step on the CPU")
+    del tasks, grads
+
+    # the full-width task, bf16 autocast over float32 parameters and AdamW
+    hp = task_hp(tmp / "exp")
+    torch.manual_seed(33)
+    task = quiet(AcousticTask, hp)
+    task.configure_optimizer()
+    seeded_weights(task.module, 34)
+    if task.amp_dtype != torch.bfloat16:
+        fail(f"pl_trainer_precision {hp['pl_trainer_precision']} did not give bf16 autocast")
+    n_params = sum(p.numel() for p in task.params)
+    rng = np.random.default_rng(35)
+    ds = MemoryDataset(train_items(rng, TRAIN_B, TRAIN_T_TXT, TRAIN_T_MEL,
+                                   hp["audio_num_mel_bins"], *TRAIN_LENGTHS), hp)
+    collated = ds.collater([ds[i] for i in range(TRAIN_B)])
+    batch = task.to_device({k: v for k, v in collated.items() if isinstance(v, np.ndarray)
+                            and k != "indices"})
+    if tuple(batch["mel"].shape[:2]) != (TRAIN_B, TRAIN_T_MEL) or \
+            tuple(batch["tokens"].shape) != (TRAIN_B, TRAIN_T_TXT):
+        fail(f"[train] batch shapes {tuple(batch['mel'].shape)} {tuple(batch['tokens'].shape)}")
+    true_frames = int((batch["mel2ph"] > 0).sum().item())
+    gen = torch.Generator(device=dev).manual_seed(36)
+    t_fix = 0.4 + 0.6 * torch.rand(TRAIN_B, generator=gen, device=dev)
+    noise_fix = torch.randn(batch["mel"].shape, generator=gen, device=dev)
+
+    # the loss on one fixed batch with fixed t and noise falls
+    losses = []
+    for _ in range(20):
+        m = task.train_step(batch, t=t_fix, noise=noise_fix)
+        task.apply_update()
+        losses.append(float(m["total_loss"]))
+    first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+    log(f"[train] loss on a fixed batch over 20 steps: {['%.4f' % x for x in losses]}; mean of "
+        f"the first 5 {first:.4f}, of the last 5 {last:.4f}")
+    report["fixed_batch_losses"] = losses
+    if not (all(math.isfinite(x) for x in losses) and last < first):
+        fail("[train] the loss did not fall on a fixed batch")
+
+    # steady steps: the loop's body (its seeding, draws from the generators)
+    seed, micro = hp.get("seed") or 0, task.global_step
+
+    def step():
+        nonlocal micro
+        torch.manual_seed(micro_seed(seed, micro))
+        metrics = task.train_step(batch)
+        metrics["grad_norm"] = task.apply_update()
+        micro += 1
+        return metrics
+
+    for _ in range(TRAIN_WARMUP):
+        step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        metrics = step()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(read_counts(), K3bwd=flash_attention.bwd_launches)
+    want = {k: n * TRAIN_STEPS for k, n in TRAIN_PER_STEP.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    values = {k: float(v) for k, v in metrics.items()}
+    log(f"[train] launches over {TRAIN_STEPS} steps: {counts} (expected {want})")
+    if counts != want:
+        fail(f"[train] launch counts {counts} != {want}")
+    if not all(math.isfinite(v) for v in values.values()):
+        fail(f"[train] non-finite metrics {values}")
+    sps = TRAIN_STEPS / wall
+    log(f"[train] {TRAIN_STEPS} steps of B={TRAIN_B} T_mel={TRAIN_T_MEL} ({true_frames} true "
+        f"frames) in {wall:.3f} s: {sps:.3f} optimizer steps/s, {sps * true_frames:.1f} mel "
+        f"frames/s ({sps * TRAIN_B * TRAIN_T_MEL:.1f} padded), peak memory {peak:.2f} GiB, "
+        f"{n_params} parameters, bf16 autocast over float32 AdamW, on {card}; last step "
+        + " ".join(f"{k}={v:.4f}" for k, v in values.items()))
+    report.update(steps_per_s=sps, mel_frames_per_s=sps * true_frames,
+                  padded_frames_per_s=sps * TRAIN_B * TRAIN_T_MEL, true_frames=true_frames,
+                  step_s=wall / TRAIN_STEPS, peak_mem_gib=peak, parameters=n_params,
+                  launches=counts, last_metrics=values)
+    report["profile"] = profile_request(lambda: step(), "one training step",
+                                        table="chip_smoke_train_profile.txt")
+
+    # one validation batch (float32, the kernels, forward_infer and its figures)
+    val = quiet(task.run_validation, MemoryDataset(ds.items[:1], hp))
+    log(f"[train] validation batch: {val}")
+    if not val or not all(math.isfinite(v) for v in val.values()):
+        fail(f"[train] validation losses {val}")
+    report["validation"] = val
+
+    # save, then resume in a new task from the same folder
+    task.save()
+    resumed = quiet(AcousticTask, hp)
+    resumed.configure_optimizer()
+    quiet(resumed.init_or_resume)
+    state, state2 = task.module.state_dict(), resumed.module.state_dict()
+    opt_a = task.optimizer.state_dict()["state"]
+    opt_b = resumed.optimizer.state_dict()["state"]
+    same = (resumed.global_step == task.global_step and state.keys() == state2.keys()
+            and all(torch.equal(state[k], state2[k].to(state[k].device)) for k in state)
+            and opt_a.keys() == opt_b.keys()
+            and all(torch.equal(opt_a[i]["exp_avg_sq"], opt_b[i]["exp_avg_sq"].to(dev)) for i in opt_a)
+            and resumed.scheduler.state_dict()["last_epoch"] == task.global_step)
+    log(f"[train] save and resume at step {task.global_step}: weights, AdamW moments and "
+        f"the scheduler {'restored' if same else 'DIFFER'}")
+    if not same:
+        fail("[train] the resumed task differs from the saved one")
+    report["resume_step"] = task.global_step
+    del resumed, task
+    shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return report, counts, bwd_cases
+
+
 def main() -> None:
     t_script = time.perf_counter()
     import torch
@@ -834,6 +1088,7 @@ def main() -> None:
     def reset_counts():
         for m in counters.values():
             m.launches = 0
+        flash_attention.bwd_launches = 0
 
     def read_counts():
         return {k: m.launches for k, m in counters.items()}
@@ -1180,6 +1435,10 @@ def main() -> None:
     if not all(c["ok"] for c in checks):
         fail("K3 disagrees with its plain version at a variance shape")
     report["phases"]["ddpm"], ddpm_counts = ddpm_phase(hp, card, reset_counts, read_counts, request)
+    report["phases"]["train"], train_counts, bwd_cases = train_phase(
+        card, reset_counts, read_counts, check)
+    if not all(c["ok"] for c in checks):
+        fail("K3's backward disagrees with its plain version")
 
     # ------------------------------------------------------------ 6. kernel line
     x_t = s.transpose(1, 2).contiguous()
@@ -1293,6 +1552,7 @@ def main() -> None:
             "launches_served_score": serve_counts[key],
             "launches_variance_score": var_counts[key],
             "launches_ddpm_request": {acc: c[key] for acc, c in ddpm_counts.items()},
+            "launches_train_steps": train_counts[key],
             "max_abs_err": err,
             "ms": time_ms(fn),
             "plain_ms": time_ms(plain, iters=5, warmup=1),
@@ -1305,6 +1565,57 @@ def main() -> None:
             f"{entry['bound_by']}; plain {entry['plain_ms']:.4f} ms; library "
             f"{entry['library_ms'] if entry['library_ms'] is None else '%.4f ms' % entry['library_ms']}) "
             f"on {card}")
+    # K3's backward at the training batch's shape: the wrapper (delta, dK/dV,
+    # dQ), each kernel alone, the plain backward and SDPA's backward
+    qb, kb, vb, padb, outb, lseb, doutb, bwd_errs = bwd_cases[(TRAIN_B, TRAIN_T_TXT)]
+    scale = 128 ** -0.5
+    visible_b = padb[:, None, :, None] == padb[:, None, None, :]
+    pairs_b = int(visible_b.sum().item()) * qb.shape[1]
+    bwd_ops = 10 * pairs_b * qb.shape[-1]  # five products over the visible pairs
+    bwd_bytes = 4 * 8 * qb.numel() + 4 * lseb.numel() + padb.numel()  # q k v o dO in, dq dk dv out
+    lib = native.load("flash_attention")
+    stream = native.stream_ptr(qb)
+    b_, h_, l_, d_ = qb.shape
+    delta = torch.empty_like(lseb)
+    dq_, dk_, dv_ = torch.empty_like(qb), torch.empty_like(qb), torch.empty_like(qb)
+    pad_ptr = padb.view(torch.uint8).data_ptr()
+    parts = {
+        "pre_ms": lambda: native.check(lib.ds_flash_attn_bwd_pre(
+            outb.data_ptr(), doutb.data_ptr(), delta.data_ptr(), b_ * h_ * l_, d_, stream), "pre"),
+        "dkv_ms": lambda: native.check(lib.ds_flash_attn_bwd_dkv(
+            qb.data_ptr(), kb.data_ptr(), vb.data_ptr(), pad_ptr, doutb.data_ptr(), lseb.data_ptr(),
+            delta.data_ptr(), dk_.data_ptr(), dv_.data_ptr(), b_, h_, l_, d_, scale, stream), "dkv"),
+        "dq_ms": lambda: native.check(lib.ds_flash_attn_bwd_dq(
+            qb.data_ptr(), kb.data_ptr(), vb.data_ptr(), pad_ptr, doutb.data_ptr(), lseb.data_ptr(),
+            delta.data_ptr(), dq_.data_ptr(), b_, h_, l_, d_, scale, stream), "dq"),
+    }
+    alone = {name: time_ms(fn) for name, fn in parts.items()}
+    qs_, ks_, vs_ = (t.clone().requires_grad_() for t in (qb, kb, vb))
+    sdpa_out = F.scaled_dot_product_attention(qs_, ks_, vs_, attn_mask=visible_b)
+    entry = {
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "diffsinger_tpu_torch/ops/csrc/flash_attention.cu",
+        "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:1121 "
+                    "(_flash_attention_bwd_dkv) and :1456 (_flash_attention_bwd_dq), jax 0.9.0, "
+                    "under jax.grad of diffsinger_tpu/models/commons.py:206",
+        "launches": train_counts["K3bwd"],
+        "launches_per_train_step": train_counts["K3bwd"] // TRAIN_STEPS,
+        "max_abs_err": max(bwd_errs),
+        "ms": time_ms(lambda: flash_attention.flash_attention_bwd(
+            qb, kb, vb, padb, outb, lseb, doutb, sm_scale=scale)),
+        "plain_ms": time_ms(lambda: flash_attention.flash_attention_bwd_plain(
+            qb, kb, vb, padb, outb, lseb, doutb, sm_scale=scale), iters=5, warmup=1),
+        "bound_ms": max(bwd_bytes / PEAK_BYTES, bwd_ops / PEAK_F32) * 1e3,
+        "bound_by": "bytes" if bwd_bytes / PEAK_BYTES >= bwd_ops / PEAK_F32 else "operations",
+        "library_ms": time_ms(lambda: torch.autograd.grad(sdpa_out, (qs_, ks_, vs_), doutb,
+                                                          retain_graph=True)),
+        **alone,
+    }
+    kernels.append(entry)
+    log(f"[time] K3-bwd flash_attention_bwd at [{b_},{h_},{l_},{d_}] padded: {entry['ms']:.4f} ms "
+        f"(delta {alone['pre_ms']:.4f}, dK/dV {alone['dkv_ms']:.4f}, dQ {alone['dq_ms']:.4f} ms "
+        f"alone; bound {entry['bound_ms']:.4f} ms by {entry['bound_by']}; plain "
+        f"{entry['plain_ms']:.4f} ms; SDPA backward {entry['library_ms']:.4f} ms) on {card}")
     report["kernels"] = kernels
 
     report["script_s"] = time.perf_counter() - t_script

@@ -4,9 +4,9 @@ Each YAML may declare ``base_config`` (a path or a list of paths); the bases
 load depth-first and the child overrides them with a recursive dict-merge.
 ``hparams_str`` (``"k=v,k2=v2"``) applies typed overrides on top. With
 ``exp_name`` the saved ``<ckpt_root>/<exp_name>/config.yaml`` of an experiment
-folder takes precedence over the chain, as in the JAX package. Unlike the JAX
-package this loader writes no experiment snapshot: the port has no trainer
-yet.
+folder takes precedence over the chain (unless ``reset``), as in the JAX
+package; a training run (``exp_name`` without ``infer``) writes that snapshot
+when the folder has none, or anew with ``reset``.
 """
 
 from __future__ import annotations
@@ -73,12 +73,13 @@ def _apply_hparams_str(cfg: dict, hparams_str: str) -> None:
 
 
 def load_config(config: str | Path = "", hparams_str: str = "", *, exp_name: str = "",
-                infer: bool = False, ckpt_root: str | Path = "checkpoints") -> dict:
+                infer: bool = False, reset: bool = False,
+                ckpt_root: str | Path = "checkpoints") -> dict:
     """Resolve a config file and its ``base_config`` chain into one dict.
 
-    With ``exp_name`` (the inference form) the experiment folder's
-    ``config.yaml`` is read on top and the result carries the bookkeeping keys
-    ``work_dir``, ``exp_name`` and ``infer``.
+    With ``exp_name`` the experiment folder's ``config.yaml`` is read on top
+    (unless ``reset``), a training run writes it, and the result carries the
+    bookkeeping keys ``work_dir``, ``exp_name`` and ``infer``.
     """
     if not (config or exp_name):
         raise ValueError("either config or exp_name must be given")
@@ -86,12 +87,16 @@ def load_config(config: str | Path = "", hparams_str: str = "", *, exp_name: str
     if exp_name:
         work_dir = os.path.join(str(ckpt_root), exp_name)
         snapshot = os.path.join(work_dir, "config.yaml")
-        if os.path.exists(snapshot):
+        if os.path.exists(snapshot) and not reset:
             with open(snapshot, encoding="utf-8") as f:
                 cfg.update(yaml.safe_load(f) or {})
         cfg["work_dir"] = work_dir
     if hparams_str:
         _apply_hparams_str(cfg, hparams_str)
+    if exp_name and not infer and (reset or not os.path.exists(snapshot)):
+        os.makedirs(work_dir, exist_ok=True)
+        with open(snapshot, "w", encoding="utf-8") as f:
+            yaml.safe_dump(dict(cfg, base_config=[]), f, allow_unicode=True)
     if exp_name:
         cfg["infer"] = infer
         if not cfg.get("exp_name"):

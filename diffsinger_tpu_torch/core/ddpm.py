@@ -1,6 +1,6 @@
 """DDPM samplers: ancestral, DDIM and PLMS (PNDM), and the inference function
 that dispatches to them or to the fast solvers
-(counterpart of diffsinger_tpu/core/ddpm.py, inference only).
+(counterpart of diffsinger_tpu/core/ddpm.py).
 
 ``denoise_fn(x, t) -> eps`` works on flat [B, T, D] tensors; ``t`` is an
 int32 [B] tensor of discrete steps (the fast solvers pass float32 times).
@@ -8,8 +8,7 @@ The step loops are Python loops. Per-step scalars come from the float32
 tables of :class:`DiffusionSchedule` and are combined in float32 numpy, as
 the JAX scan combines them on the device; the denoiser's output is taken to
 float32 before it meets them, so the update arithmetic is float32 under a
-bf16 denoiser too. ``p_losses_inputs`` (training) and ``inference_dynamic``
-(export) wait for their slices.
+bf16 denoiser too. ``inference_dynamic`` (export) waits for its slice.
 """
 
 from __future__ import annotations
@@ -36,6 +35,17 @@ def q_sample(sched: DiffusionSchedule, x_start: torch.Tensor, t: torch.Tensor,
     c1 = _table(sched.sqrt_alphas_cumprod, x_start)[t.long()][:, None, None]
     c2 = _table(sched.sqrt_one_minus_alphas_cumprod, x_start)[t.long()][:, None, None]
     return c1 * x_start + c2 * noise
+
+
+def p_losses_inputs(sched: DiffusionSchedule, x_start: torch.Tensor, t: torch.Tensor, *,
+                    noise: Optional[torch.Tensor] = None,
+                    generator: Optional[torch.Generator] = None):
+    """Noisy input and its noise for the epsilon-prediction loss; t [B] int.
+    ``noise`` is drawn from ``generator`` when not given. Returns (x_t, noise)."""
+    if noise is None:
+        noise = torch.randn(x_start.shape, generator=generator, device=x_start.device,
+                            dtype=x_start.dtype)
+    return q_sample(sched, x_start, t, noise), noise
 
 
 def predict_start_from_noise(sched: DiffusionSchedule, x_t: torch.Tensor, t: torch.Tensor,

@@ -1,5 +1,5 @@
-"""Rectified-flow ODE samplers: euler, rk2, rk4, rk5
-(counterpart of diffsinger_tpu/core/reflow.py, inference only).
+"""Rectified-flow training targets and ODE samplers: euler, rk2, rk4, rk5
+(counterpart of diffsinger_tpu/core/reflow.py).
 
 ``velocity_fn(x, t_scaled) -> v`` works on flat [B, T, D] tensors; ``t_scaled``
 is a float32 [B] tensor already multiplied by ``time_scale_factor``. The step
@@ -16,6 +16,21 @@ from typing import Callable, Optional
 import torch
 
 VelocityFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+
+
+def p_losses_inputs(x_end: torch.Tensor, t: torch.Tensor, *,
+                    noise: Optional[torch.Tensor] = None,
+                    generator: Optional[torch.Generator] = None):
+    """Interpolated state and target velocity for the training loss.
+
+    x_end [B, T, D] normalised data; t [B] float in [t_start, 1]; ``noise``
+    (the start x_start, drawn from ``generator`` when not given) has x_end's
+    shape. Returns (x_t, v_gt = x_end - x_start).
+    """
+    x_start = noise if noise is not None else torch.randn(
+        x_end.shape, generator=generator, device=x_end.device, dtype=x_end.dtype)
+    x_t = x_start + t[:, None, None] * (x_end - x_start)
+    return x_t, x_end - x_start
 
 
 def _step_euler(velocity_fn, x, t, dt, tsf):

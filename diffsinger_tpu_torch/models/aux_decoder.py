@@ -24,9 +24,11 @@ def _conv_tc(conv: nn.Conv1d, x: torch.Tensor) -> torch.Tensor:
 
 class ConvNeXtBlock(nn.Module):
     """Depthwise k=7 conv -> LN (eps 1e-6) -> Linear -> exact GELU -> Linear
-    -> layer scale gamma (cast to the activation dtype) -> residual."""
+    -> layer scale gamma (cast to the activation dtype) -> dropout (training
+    mode) -> residual."""
 
-    def __init__(self, dim: int, intermediate_dim: int, layer_scale_init_value: float = 1e-6):
+    def __init__(self, dim: int, intermediate_dim: int, layer_scale_init_value: float = 1e-6,
+                 dropout: float = 0.0):
         super().__init__()
         self.dwconv = nn.Conv1d(dim, dim, kernel_size=7, padding=3, groups=dim)
         self.norm = nn.LayerNorm(dim, eps=1e-6)
@@ -34,6 +36,7 @@ class ConvNeXtBlock(nn.Module):
         self.pwconv2 = nn.Linear(intermediate_dim, dim)
         self.gamma = (nn.Parameter(torch.full((dim,), layer_scale_init_value))
                       if layer_scale_init_value > 0 else None)
+        self.dropout = nn.Dropout(dropout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         residual = x
@@ -41,19 +44,20 @@ class ConvNeXtBlock(nn.Module):
         x = self.pwconv2(F.gelu(self.pwconv1(x)))
         if self.gamma is not None:
             x = self.gamma.to(x.dtype) * x
-        return residual + x
+        return residual + self.dropout(x)
 
 
 class ConvNeXtDecoder(nn.Module):
     """[B, T, in_dims] -> [B, T, out_dims]."""
 
     def __init__(self, in_dims: int, out_dims: int, num_channels: int = 512,
-                 num_layers: int = 6, kernel_size: int = 7):
+                 num_layers: int = 6, kernel_size: int = 7, dropout_rate: float = 0.1):
         super().__init__()
         pad = (kernel_size - 1) // 2
         self.inconv = nn.Conv1d(in_dims, num_channels, kernel_size, padding=pad)
         self.conv = nn.ModuleList([
-            ConvNeXtBlock(num_channels, num_channels * 4) for _ in range(num_layers)
+            ConvNeXtBlock(num_channels, num_channels * 4, dropout=dropout_rate)
+            for _ in range(num_layers)
         ])
         self.outconv = nn.Conv1d(num_channels, out_dims, kernel_size, padding=pad)
 

@@ -26,6 +26,8 @@ def precompute_cond_projections(denoiser: nn.Module, cond: torch.Tensor) -> torc
     The condition is the same at every sampler step, so the L projections are
     computed once here and fed back through ``cond_proj`` instead of L times
     per step. cond [B, T, H] -> [L, B, T, C_out] (LYNXNet: C; WaveNet: 2C).
+    Inference only: the forward_infers call it under ``torch.no_grad``; the
+    training forward projects the condition in each layer, under autograd.
     """
     cond = cond.to(denoiser.input_projection.weight.dtype)
     return torch.stack([pointwise_conv(layer.conditioner_projection, cond)

@@ -4,7 +4,8 @@ Conformer-style residual layers: LayerNorm -> 1x1 conv to 2*inner -> SwiGLU
 -> depthwise conv (k=31) -> PReLU -> 1x1 conv back, with the condition and
 the diffusion step injected per layer. Channel-last throughout. With the
 PReLU activation the conv module is K2 (``ops.lynx_fused``): its kernels on
-CUDA, its plain version on the CPU.
+CUDA, its plain version on the CPU; where gradients are wanted, K2's forward
+under its autograd Function, whose backward runs stock ops.
 """
 
 from __future__ import annotations
@@ -16,7 +17,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from diffsinger_tpu_torch.models.commons import sinusoidal_pos_emb
-from diffsinger_tpu_torch.ops.lynx_fused import conv_module_params_from_module, fused_conv_module
+from diffsinger_tpu_torch.ops.lynx_fused import (
+    conv_module_params_from_module, fused_conv_module, fused_conv_module_train)
 
 
 def pointwise_conv(conv: nn.Conv1d, x: torch.Tensor) -> torch.Tensor:
@@ -40,11 +42,11 @@ class LYNXConvModule(nn.Module):
     """``net`` indices follow the reference: 0 LayerNorm, 1 transpose, 2 pw conv
     C -> 2I, 3 SwiGLU, 4 depthwise conv, 5 PReLU, 6 pw conv I -> C. The
     parameter-free slots are placeholders so the ``state_dict`` names match.
-    The forward is one K2 call. The SiLU and ReLU activations of the JAX module
-    are not ported."""
+    The forward is one K2 call, then dropout (training mode). The SiLU and ReLU
+    activations of the JAX module are not ported."""
 
     def __init__(self, dim: int, expansion_factor: int, kernel_size: int = 31,
-                 activation: str = "PReLU"):
+                 activation: str = "PReLU", dropout: float = 0.0):
         super().__init__()
         if activation != "PReLU":
             raise NotImplementedError(f"activation {activation!r} is not ported")
@@ -58,19 +60,25 @@ class LYNXConvModule(nn.Module):
             PReLU(inner),
             nn.Conv1d(inner, dim, 1),
         ])
+        self.dropout = nn.Dropout(dropout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return fused_conv_module(x, **conv_module_params_from_module(self))
+        params = conv_module_params_from_module(self)
+        if torch.is_grad_enabled() and (x.requires_grad
+                                        or any(p.requires_grad for p in self.parameters())):
+            return self.dropout(fused_conv_module_train(x, **params))
+        return self.dropout(fused_conv_module(x, **params))
 
 
 class LYNXNetResidualLayer(nn.Module):
     def __init__(self, dim_cond: int, dim: int, expansion_factor: int, kernel_size: int = 31,
-                 activation: str = "PReLU", front_cond_inject: bool = False):
+                 activation: str = "PReLU", dropout: float = 0.0,
+                 front_cond_inject: bool = False):
         super().__init__()
         self.front_cond_inject = front_cond_inject
         self.diffusion_projection = nn.Conv1d(dim, dim, 1)
         self.conditioner_projection = nn.Conv1d(dim_cond, dim, 1)
-        self.convmodule = LYNXConvModule(dim, expansion_factor, kernel_size, activation)
+        self.convmodule = LYNXConvModule(dim, expansion_factor, kernel_size, activation, dropout)
 
     def forward(self, x: torch.Tensor, conditioner: torch.Tensor, diffusion_step: torch.Tensor,
                 cond_proj: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -92,7 +100,8 @@ class LYNXNet(nn.Module):
 
     def __init__(self, in_dims: int, n_feats: int, cond_dims: int, num_layers: int = 6,
                  num_channels: int = 512, expansion_factor: int = 2, kernel_size: int = 31,
-                 activation: str = "PReLU", strong_cond: bool = False):
+                 activation: str = "PReLU", dropout_rate: float = 0.0,
+                 strong_cond: bool = False):
         super().__init__()
         c = num_channels
         self.num_channels = c
@@ -106,7 +115,7 @@ class LYNXNet(nn.Module):
         ])
         self.residual_layers = nn.ModuleList([
             LYNXNetResidualLayer(cond_dims, c, expansion_factor, kernel_size, activation,
-                                 front_cond_inject=strong_cond)
+                                 dropout_rate, front_cond_inject=strong_cond)
             for _ in range(num_layers)
         ])
         self.norm = nn.LayerNorm(c, eps=1e-5)

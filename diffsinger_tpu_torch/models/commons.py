@@ -41,6 +41,32 @@ class Linear(nn.Linear):
             nn.init.zeros_(self.bias)
 
 
+class CurveEmbed(Linear):
+    """Linear(1, H) embedding of a curve [B, T] -> [B, T, H], in float32.
+
+    The JAX package's curve embeds take no compute dtype, so their parameters,
+    inputs and outputs stay float32 in a bf16 model; a curve rounded to bf16
+    moves f0's conditioning by up to 8.6 cents and durations above 256 frames
+    by up to 4 frames. So this layer keeps float32 parameters when its model is
+    cast to another dtype (a cast moves them to the new device only), and runs
+    outside autocast. Callers cast the sum of the embeds into the model's dtype.
+    """
+
+    def __init__(self, features: int):
+        super().__init__(1, features)
+
+    def _apply(self, fn, recurse=True):
+        def keep_dtype(t):
+            out = fn(t)
+            return t.to(out.device) if t.is_floating_point() and out.dtype != t.dtype else out
+
+        return super()._apply(keep_dtype, recurse)
+
+    def forward(self, curve: torch.Tensor) -> torch.Tensor:
+        with torch.autocast(curve.device.type, enabled=False):
+            return super().forward(curve.float()[:, :, None])
+
+
 def sinusoidal_pos_emb(t: torch.Tensor, dim: int) -> torch.Tensor:
     """Diffusion-step embedding: [B] float steps -> [B, dim] float32 (sin block, cos block)."""
     half = dim // 2
@@ -103,10 +129,10 @@ def swiglu(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
 
 
 class TransformerFFN(nn.Module):
-    """Conv1d(k) -> x k^-0.5 -> act -> Linear (TransformerFFNLayer)."""
+    """Conv1d(k) -> x k^-0.5 -> act -> dropout -> Linear (TransformerFFNLayer)."""
 
     def __init__(self, hidden_size: int, filter_size: int, kernel_size: int = 9,
-                 act: str = "gelu"):
+                 act: str = "gelu", dropout: float = 0.0):
         super().__init__()
         if act not in ("gelu", "relu", "swish", "swiglu"):
             raise ValueError(f"{act} is not a valid activation")
@@ -114,6 +140,7 @@ class TransformerFFN(nn.Module):
         self.act = act
         width = filter_size * 2 if act == "swiglu" else filter_size
         self.ffn_1 = nn.Conv1d(hidden_size, width, kernel_size, padding=kernel_size // 2)
+        self.dropout = nn.Dropout(dropout)
         self.ffn_2 = Linear(filter_size, hidden_size)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -127,25 +154,29 @@ class TransformerFFN(nn.Module):
             x = F.silu(x)
         else:
             x = swiglu(x)
-        return self.ffn_2(x)
+        return self.ffn_2(self.dropout(x))
 
 
 class EncSALayer(nn.Module):
-    """Pre-LN self-attention + conv-FFN block."""
+    """Pre-LN self-attention + conv-FFN block; in training mode dropout acts
+    on both residual branches and inside the FFN (the attention itself has
+    none, as in the JAX encoder)."""
 
     def __init__(self, hidden_size: int, num_heads: int, kernel_size: int = 9,
-                 act: str = "gelu"):
+                 act: str = "gelu", dropout: float = 0.0):
         super().__init__()
         self.layer_norm1 = nn.LayerNorm(hidden_size, eps=1e-5)
         self.self_attn = SelfAttentionRoPE(hidden_size, num_heads)
         self.layer_norm2 = nn.LayerNorm(hidden_size, eps=1e-5)
-        self.ffn = TransformerFFN(hidden_size, 4 * hidden_size, kernel_size=kernel_size, act=act)
+        self.ffn = TransformerFFN(hidden_size, 4 * hidden_size, kernel_size=kernel_size, act=act,
+                                  dropout=dropout)
+        self.dropout = nn.Dropout(dropout)
 
     def forward(self, x: torch.Tensor, padding_mask: torch.Tensor) -> torch.Tensor:
         nonpadding = (~padding_mask).to(x.dtype)[:, :, None]
-        y = self.self_attn(self.layer_norm1(x), padding_mask)
+        y = self.dropout(self.self_attn(self.layer_norm1(x), padding_mask))
         x = (x + y) * nonpadding
-        y = self.ffn(self.layer_norm2(x))
+        y = self.dropout(self.ffn(self.layer_norm2(x)))
         return (x + y) * nonpadding
 
 
@@ -168,14 +199,16 @@ class FastSpeech2Encoder(nn.Module):
     """
 
     def __init__(self, hidden_size: int, num_layers: int, ffn_kernel_size: int = 9,
-                 ffn_act: str = "gelu", num_heads: int = 2, use_rope: bool = True):
+                 ffn_act: str = "gelu", num_heads: int = 2, use_rope: bool = True,
+                 dropout: float = 0.1):
         super().__init__()
         if not use_rope:
             raise NotImplementedError("only the RoPE encoder is ported so far")
         self.hidden_size = hidden_size
+        self.dropout = nn.Dropout(dropout)
         self.layers = nn.ModuleList([
             TransformerEncoderLayer(hidden_size, num_heads, kernel_size=ffn_kernel_size,
-                                    act=ffn_act)
+                                    act=ffn_act, dropout=dropout)
             for _ in range(num_layers)
         ])
         self.layer_norm = nn.LayerNorm(hidden_size, eps=1e-5)
@@ -186,7 +219,7 @@ class FastSpeech2Encoder(nn.Module):
         if extra_embed is not None:
             x = x + extra_embed
         nonpadding = (~padding_mask).to(x.dtype)[:, :, None]
-        x = x * nonpadding
+        x = self.dropout(x) * nonpadding
         for layer in self.layers:
             x = layer(x, padding_mask) * nonpadding
         return self.layer_norm(x) * nonpadding

@@ -3,8 +3,9 @@
 :class:`AcousticModule` holds the acoustic parameters under the reference
 torch names (``fs2``, ``aux_decoder.decoder``, and the backbone as
 ``diffusion.velocity_fn`` under rectified flow or ``diffusion.denoise_fn``
-under DDPM); :class:`DiffSingerAcoustic` runs its inference forward: encoder
--> ConvNeXt aux draft -> shallow sampler -> spec denorm.
+under DDPM); :class:`DiffSingerAcoustic` runs its inference forward (encoder
+-> ConvNeXt aux draft -> shallow sampler -> spec denorm) and its training
+forward (the aux draft and one denoiser call at a drawn or injected time).
 
 :class:`VarianceModule` holds the variance model's parameters (``fs2``,
 ``spk_embed``, ``melody_encoder``, the pitch and variance embeds, and the
@@ -13,8 +14,8 @@ backbones under ``pitch_predictor`` and ``variance_predictor``);
 and the variance curves with a sampler each.
 
 Both cores run rectified flow (``core/reflow.py``) or DDPM (``core/ddpm.py``
-with the fast solvers). The training forwards and the dynamic (export)
-forwards wait for their slices.
+with the fast solvers). The variance model's training forward and the
+dynamic (export) forwards wait for their slices.
 """
 
 from __future__ import annotations
@@ -35,9 +36,8 @@ from diffsinger_tpu_torch.models import compat
 from diffsinger_tpu_torch.models.acoustic_encoder import FastSpeech2Acoustic
 from diffsinger_tpu_torch.models.aux_decoder import AuxDecoderAdaptor
 from diffsinger_tpu_torch.models.backbones import build_backbone, precompute_cond_projections
-from diffsinger_tpu_torch.models.commons import Embedding, Linear
-from diffsinger_tpu_torch.models.variance_encoder import (
-    FastSpeech2Variance, MelodyEncoder, embed_curve)
+from diffsinger_tpu_torch.models.commons import CurveEmbed, Embedding
+from diffsinger_tpu_torch.models.variance_encoder import FastSpeech2Variance, MelodyEncoder
 from diffsinger_tpu_torch.utils import no_tf32, resolve_device
 from diffsinger_tpu_torch.utils.seq import gather_frames, length_regulator, rhythm_regulator
 
@@ -168,7 +168,9 @@ class DiffSingerAcoustic:
     Builds :class:`AcousticModule` (``self.module``) in ``dtype`` (float32 or
     bfloat16) on ``device``: the card unless the caller asks for another, and
     an error if there is no card. Load weights with
-    ``model.module.load_state_dict`` (see ``utils.convert``).
+    ``model.module.load_state_dict`` (see ``utils.convert``). The module is
+    built in eval mode; a trainer puts it in training mode for
+    :meth:`forward_train`, which turns its dropout on.
     """
 
     def __init__(self, hp: dict, vocab_size: int, out_dims: int, dtype=None, device=None):
@@ -186,6 +188,45 @@ class DiffSingerAcoustic:
             device=self.device, dtype=self.dtype).eval()
         self.spec_transform = SpecTransform(hp["spec_min"], hp["spec_max"], out_dims)
         self.t_start = hp.get("T_start", 0.0) if self.use_shallow_diffusion else 0.0
+        self.time_scale_factor = hp.get("time_scale_factor", 1000)
+
+    def forward_train(self, txt_tokens, mel2ph, f0, gt_mel, *,
+                      t: Optional[torch.Tensor] = None, noise: Optional[torch.Tensor] = None,
+                      generator: Optional[torch.Generator] = None, **kwargs):
+        """Training forward: ``(aux_out, (pred, target, t))`` for the losses.
+
+        ``aux_out`` is the aux decoder's normalised mel [B, T_mel, M] (None
+        unless it trains), fed ``cond * g + cond.detach() * (1 - g)`` with g =
+        ``aux_decoder_grad``; the second item is None under staged training
+        (``train_diffusion: false``). Rectified flow: t [B] float in
+        [T_start, 1], the denoiser at ``t * time_scale_factor``, target the
+        velocity. DDPM: t [B] int in [0, K_step), target the noise. ``t`` and
+        ``noise`` [B, T_mel, M] are drawn from ``generator`` unless given.
+        """
+        hp = self.hp
+        m = self.module
+        cond = m.encode(txt_tokens, mel2ph, f0, **kwargs)
+        shallow = hp["shallow_diffusion_args"] if self.use_shallow_diffusion else {}
+        aux_out = None
+        if self.use_shallow_diffusion and shallow["train_aux_decoder"]:
+            g = shallow["aux_decoder_grad"]
+            aux_out = m.aux(cond * g + cond.detach() * (1 - g), infer=False)
+        if self.use_shallow_diffusion and not shallow.get("train_diffusion", True):
+            return aux_out, None
+
+        spec = self.spec_transform.norm(gt_mel.float())
+        b, dev = spec.shape[0], spec.device
+        if self.schedule is not None:
+            if t is None:
+                t = torch.randint(0, self.k_step, (b,), generator=generator, device=dev)
+            x_noisy, noise = ddpm_core.p_losses_inputs(self.schedule, spec, t, noise=noise,
+                                                       generator=generator)
+            return aux_out, (m.denoise(x_noisy, t.float(), cond), noise, t)
+        if t is None:
+            t = self.t_start + (1.0 - self.t_start) * torch.rand(b, generator=generator,
+                                                                  device=dev)
+        x_t, v_gt = reflow_core.p_losses_inputs(spec, t, noise=noise, generator=generator)
+        return aux_out, (m.denoise(x_t, t * self.time_scale_factor, cond), v_gt, t)
 
     @torch.no_grad()
     @no_tf32()
@@ -255,9 +296,9 @@ class VarianceModule(nn.Module):
             self.use_melody_encoder = hp.get("use_melody_encoder", False)
             if self.use_melody_encoder:
                 self.melody_encoder = MelodyEncoder.from_hparams(hp)
-                self.delta_pitch_embed = Linear(1, h)
+                self.delta_pitch_embed = CurveEmbed(h)
             else:
-                self.base_pitch_embed = Linear(1, h)
+                self.base_pitch_embed = CurveEmbed(h)
             self.pitch_retake_embed = Embedding(2, h)
             backbone_type = compat.get_backbone_type(hp, nested_config=pitch_hp)
             backbone_args = compat.get_backbone_args(pitch_hp, backbone_type)
@@ -265,8 +306,8 @@ class VarianceModule(nn.Module):
                 pitch_hp["repeat_bins"], 1, backbone_type, backbone_args, cond_dims=h),
                 diffusion_type)
         if self.var_list:
-            self.pitch_embed = Linear(1, h)
-            self.variance_embeds = nn.ModuleDict({v: Linear(1, h) for v in self.var_list})
+            self.pitch_embed = CurveEmbed(h)
+            self.variance_embeds = nn.ModuleDict({v: CurveEmbed(h) for v in self.var_list})
             var_hp = hp["variances_prediction_args"]
             backbone_type = compat.get_backbone_type(hp, nested_config=var_hp)
             backbone_args = compat.get_backbone_args(var_hp, backbone_type)
@@ -324,24 +365,23 @@ class VarianceModule(nn.Module):
         if self.use_melody_encoder:
             if delta_pitch_in is None:
                 delta_pitch_in = torch.zeros_like(base_pitch)
-            pitch_cond = pitch_cond + embed_curve(self.delta_pitch_embed, delta_pitch_in)
+            curve = self.delta_pitch_embed(delta_pitch_in)
         else:
             if not retake_unset:
                 base_pitch = base_pitch * pitch_retake + pitch * (~pitch_retake)
-            pitch_cond = pitch_cond + embed_curve(self.base_pitch_embed, base_pitch)
-        return pitch_cond, base_pitch
+            curve = self.base_pitch_embed(base_pitch)
+        return (pitch_cond.float() + curve).to(pitch_cond.dtype), base_pitch
 
     def variance_condition(self, condition, pitch, variances: Dict,
                            variance_retake: Optional[Dict]):
         """Variance-branch condition: the pitch embed, and the given curves
         where they are not retaken."""
-        var_cond = condition + embed_curve(self.pitch_embed, pitch)
+        curves = self.pitch_embed(pitch)
         if variance_retake is not None:
             for v_name in self.var_list:
                 keep = (~variance_retake[v_name])[:, :, None]
-                var_cond = var_cond + embed_curve(
-                    self.variance_embeds[v_name], variances[v_name]) * keep
-        return var_cond
+                curves = curves + self.variance_embeds[v_name](variances[v_name]) * keep
+        return (condition.float() + curves).to(condition.dtype)
 
 
 class DiffSingerVariance:

@@ -20,12 +20,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from diffsinger_tpu_torch.models.commons import Embedding, FastSpeech2Encoder, Linear
-
-
-def embed_curve(layer: nn.Linear, curve: torch.Tensor) -> torch.Tensor:
-    """A Linear(1, H) on a curve [B, T] -> [B, T, H], in the layer's dtype."""
-    return layer(curve.to(layer.weight.dtype)[:, :, None])
+from diffsinger_tpu_torch.models.commons import CurveEmbed, Embedding, FastSpeech2Encoder, Linear
 
 
 class DurationPredictor(nn.Module):
@@ -78,9 +73,9 @@ class FastSpeech2Variance(nn.Module):
         self.txt_embed = Embedding(vocab_size, h, padding_idx=0)
         if predict_dur:
             self.onset_embed = Embedding(2, h)
-            self.word_dur_embed = Linear(1, h)
+            self.word_dur_embed = CurveEmbed(h)
         else:
-            self.ph_dur_embed = Linear(1, h)
+            self.ph_dur_embed = CurveEmbed(h)
         self.lang_embed = Embedding(num_lang + 1, h, padding_idx=0) if use_lang_id else None
         self.encoder = FastSpeech2Encoder(
             h, enc_layers, ffn_kernel_size=enc_ffn_kernel_size, ffn_act=ffn_act,
@@ -113,13 +108,13 @@ class FastSpeech2Variance(nn.Module):
                 wd = torch.zeros((b, t_w + 1), dtype=torch.float32, device=ph2word.device)
                 word_dur = wd.scatter_add(1, idx, ph_dur.float())[:, 1:]
             word_dur_ph = torch.gather(F.pad(word_dur.float(), (1, 0)), 1, idx)
-            extra_embed = extra_embed + embed_curve(self.word_dur_embed, word_dur_ph)
+            extra_embed = extra_embed + self.word_dur_embed(word_dur_ph)
         else:
-            extra_embed = embed_curve(self.ph_dur_embed, ph_dur.float())
+            extra_embed = self.ph_dur_embed(ph_dur)
         if self.lang_embed is not None:
             extra_embed = extra_embed + self.lang_embed(languages)
 
-        encoder_out = self.encoder(txt_embed, extra_embed, txt_tokens == 0)
+        encoder_out = self.encoder(txt_embed, extra_embed.to(txt_embed.dtype), txt_tokens == 0)
         if not self.predict_dur:
             return encoder_out, None
         dur_cond = encoder_out + self.midi_embed(midi.long())
@@ -155,8 +150,8 @@ class MelodyEncoder(nn.Module):
                  glide_embed_scale: float = 11.313708498984760):
         super().__init__()
         h = hidden_size
-        self.note_midi_embed = Linear(1, h)
-        self.note_dur_embed = Linear(1, h)
+        self.note_midi_embed = CurveEmbed(h)
+        self.note_dur_embed = CurveEmbed(h)
         self.glide_embed_scale = glide_embed_scale
         self.note_glide_embed = (Embedding(len(glide_types) + 1, h, padding_idx=0)
                                  if use_glide_embed else None)
@@ -167,11 +162,12 @@ class MelodyEncoder(nn.Module):
 
     def forward(self, note_midi: torch.Tensor, note_rest: torch.Tensor, note_dur: torch.Tensor,
                 glide: Optional[torch.Tensor] = None) -> torch.Tensor:
-        midi_embed = embed_curve(self.note_midi_embed, note_midi) * (~note_rest)[:, :, None]
-        extra = embed_curve(self.note_dur_embed, note_dur.float())
+        dtype = self.out_proj.weight.dtype
+        midi_embed = self.note_midi_embed(note_midi) * (~note_rest)[:, :, None]
+        extra = self.note_dur_embed(note_dur)
         if self.note_glide_embed is not None:
             extra = extra + self.note_glide_embed(glide.long()) * self.glide_embed_scale
-        out = self.encoder(midi_embed, extra, note_midi < 0)
+        out = self.encoder(midi_embed.to(dtype), extra.to(dtype), note_midi < 0)
         return self.out_proj(out)
 
     @classmethod

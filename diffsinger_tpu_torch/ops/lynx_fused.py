@@ -13,11 +13,18 @@ of x) where the kernel stores them.
 
 Weights use the torch layouts (see :func:`conv_module_params_from_module`):
 w1 [2I, C] (value rows first, gate rows second), dw_w [I, k], w2 [C, I].
+
+In training K2 runs inside :class:`FusedConvModuleFn`. The JAX package has no
+backward kernel for K2 (its trainer runs LYNXNet as XLA ops), so neither has
+the port: the forward launches K2 and keeps its input, and the backward
+recomputes the module in stock PyTorch ops (:func:`conv_module_stock`) and
+differentiates them.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from diffsinger_tpu_torch.ops import native
 from diffsinger_tpu_torch.ops.depthwise_conv import (
@@ -88,6 +95,63 @@ def fused_conv_module(x, ln_scale, ln_bias, w1, b1, dw_w, dw_b, alpha, w2, b2):
     global launches
     launches += 1
     return y
+
+
+PARAM_NAMES = ("ln_scale", "ln_bias", "w1", "b1", "dw_w", "dw_b", "alpha", "w2", "b2")
+
+
+def conv_module_stock(x, ln_scale, ln_bias, w1, b1, dw_w, dw_b, alpha, w2, b2):
+    """The conv module in stock PyTorch ops, for K2's backward to differentiate.
+
+    LayerNorm with float32 statistics, pw1 and pw2 as matmuls, SwiGLU,
+    ``F.conv1d(groups=I)`` for the taps and ``F.prelu``, all in x's dtype (on
+    the card's tensor cores in bf16). In float32 it computes K2's function with
+    K2's arithmetic up to the order of sums; in bf16 it rounds the pw1 output
+    to bf16 before SwiGLU, where K2's epilogue keeps it in float32.
+    """
+    inner, k = dw_w.shape
+    xn = F.layer_norm(x.float(), x.shape[-1:], ln_scale.float(), ln_bias.float(),
+                      LN_EPS).to(x.dtype)
+    value, gate = F.linear(xn, w1, b1).chunk(2, dim=-1)
+    s = (value * F.silu(gate)).transpose(1, 2)  # [B, I, T]
+    z = F.conv1d(F.pad(s, (k // 2, k - 1 - k // 2)), dw_w[:, None, :], dw_b, groups=inner)
+    return F.linear(F.prelu(z, alpha).transpose(1, 2), w2, b2)
+
+
+class FusedConvModuleFn(torch.autograd.Function):
+    """K2 under autograd. Forward: :func:`fused_conv_module` (the kernels on a
+    CUDA tensor), saving only its inputs. Backward: recompute the module with
+    :func:`conv_module_stock` and backpropagate through it. Every input has
+    the dtype the module computes in; :func:`fused_conv_module_train` casts."""
+
+    @staticmethod
+    @torch.amp.custom_fwd(device_type="cuda")
+    def forward(ctx, x, *params):
+        ctx.save_for_backward(x, *params)
+        return fused_conv_module(x, *params)
+
+    @staticmethod
+    @torch.amp.custom_bwd(device_type="cuda")
+    def backward(ctx, dy):
+        x, *params = ctx.saved_tensors
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_() for t in (x, *params)]
+            y = conv_module_stock(*inputs)
+        return torch.autograd.grad(y, inputs, dy)
+
+
+def fused_conv_module_train(x, **params):
+    """The conv module where gradients are wanted: K2 forward, stock backward.
+
+    Under autocast the module computes in autocast's dtype, else in x's: x,
+    the two weights and every other parameter are cast to it (as the
+    inference path passes them to K2 in a model of that dtype), and the casts
+    carry the gradients back to the float32 parameters.
+    """
+    dev = x.device.type
+    dtype = torch.get_autocast_dtype(dev) if torch.is_autocast_enabled(dev) else x.dtype
+    args = [t.to(dtype).contiguous() for t in (x, *(params[n] for n in PARAM_NAMES))]
+    return FusedConvModuleFn.apply(*args)
 
 
 def conv_module_params_from_module(module) -> dict:

@@ -1,12 +1,14 @@
-"""Checkpoint discovery and loading for inference
-(counterpart of diffsinger_tpu/utils/ckpt.py::load_params_for_inference).
+"""Checkpoints: discovery and loading for inference, saving and rotation
+for training (counterpart of diffsinger_tpu/utils/ckpt.py).
 
 The port's native format is the reference's: ``model_ckpt_steps_<N>.ckpt``
 under the experiment folder, a ``torch.save``d dict with ``state_dict`` (keys
 with or without Lightning's ``model.`` prefix) and ``category`` ('acoustic' or
-'variance'). The port's modules carry the reference's parameter names, so the
-state dict loads strictly, without conversion. The JAX package's msgpack
-``.dsckpt`` files are not read here.
+'variance'); the trainer adds ``global_step``, ``epoch``, and the optimizer and
+scheduler states as Lightning stores them (``optimizer_states`` and
+``lr_schedulers``, lists of one) and the optimizer's class name. The port's modules carry the reference's
+parameter names, so the state dict loads strictly, without conversion. The
+JAX package's msgpack ``.dsckpt`` files are not read here.
 """
 
 from __future__ import annotations
@@ -88,12 +90,56 @@ def load_state_dict_for_inference(module: torch.nn.Module, work_dir, *, category
     checkpoint's category is another one or its keys do not match the module.
     """
     step, path = find_checkpoint(work_dir, ckpt_steps)
-    ckpt = torch.load(path, map_location="cpu", weights_only=False)
-    found = ckpt.get("category")
-    if found is not None and found != category:
-        raise RuntimeError(
-            f"Category mismatches: checkpoint is '{found}' but a "
-            f"'{category}' checkpoint is required.")
+    ckpt = load_checkpoint(path, category=category)
     module.load_state_dict(strip_model_prefix(ckpt.get("state_dict", ckpt)), strict=True)
     print(f"| load '{path}' (step {step})")
     return {"category": category, "global_step": step, "path": path}
+
+
+def save_checkpoint(path, module: torch.nn.Module, *, category: str, global_step: int,
+                    epoch: int = 0, optimizer=None, scheduler=None) -> None:
+    """Write a training checkpoint in the reference layout; the file appears
+    whole (written beside it, then renamed)."""
+    path = pathlib.Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    blob = {
+        "state_dict": {"model." + k: v.detach().cpu() for k, v in module.state_dict().items()},
+        "category": category,
+        "global_step": int(global_step),
+        "epoch": int(epoch),
+    }
+    if optimizer is not None:
+        blob["optimizer_states"] = [optimizer.state_dict()]
+        blob["optimizer_cls"] = type(optimizer).__name__
+    if scheduler is not None:
+        blob["lr_schedulers"] = [scheduler.state_dict()]
+    tmp = path.with_name(path.name + ".tmp")
+    torch.save(blob, tmp)
+    tmp.replace(path)
+
+
+def keep_checkpoints(work_dir, *, num_ckpt_keep: int, permanent_ckpt_start: int = 0,
+                     permanent_ckpt_interval: int = -1) -> List[pathlib.Path]:
+    """Keep the newest ``num_ckpt_keep`` checkpoints and the permanent ones
+    (a step at or after ``permanent_ckpt_start`` and a multiple of
+    ``permanent_ckpt_interval``); delete the rest and return their paths."""
+    ckpts = list_checkpoints(work_dir)
+    deleted = []
+    for steps, p in ckpts[:-num_ckpt_keep] if num_ckpt_keep > 0 else []:
+        permanent = (permanent_ckpt_interval > 0 and steps >= permanent_ckpt_start
+                     and steps % permanent_ckpt_interval == 0)
+        if not permanent:
+            p.unlink()
+            deleted.append(p)
+    return deleted
+
+
+def load_checkpoint(path, *, category: Optional[str] = None) -> dict:
+    """A checkpoint's dict, its category checked against ``category``."""
+    blob = torch.load(path, map_location="cpu", weights_only=False)
+    found = blob.get("category")
+    if category is not None and found is not None and found != category:
+        raise RuntimeError(
+            f"Category mismatches: checkpoint is '{found}' but a "
+            f"'{category}' checkpoint is required.")
+    return blob

@@ -354,3 +354,140 @@ def test_variance_model_kernels_against_plain_float32(dev, monkeypatch):
     assert sorted(var_k) == ["breathiness", "energy", "tension", "voicing"]
     for v in var_k:
         assert torch.isfinite(var_k[v]).all() and _max_err(var_k[v], var_p[v]) <= 1e-3
+
+
+# ------------------------------------------------------------------ training
+
+def _k3_bwd_case(dev, b, length, d, padded=True, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v, dout = (torch.randn(b, 2, length, d, generator=g, device=dev) for _ in range(4))
+    pad = None
+    if padded:
+        pad = torch.zeros(b, length, dtype=torch.bool, device=dev)
+        for i in range(b):
+            pad[i, length - (7 * i) % (length // 2):] = True
+    return q, k, v, pad, dout
+
+
+@pytest.mark.parametrize("b,length,d,padded", [
+    (48, 128, 128, True),    # the training batch's encoder
+    (16, 512, 128, True),    # the long shape
+    (4, 200, 128, False),    # ragged against every tile, no mask
+    (3, 77, 64, True), (2, 50, 32, True), (16, 32, 128, True),
+])
+def test_k3_backward_kernel(dev, b, length, d, padded):
+    """K3's backward kernels against the plain backward on the forward
+    kernel's output and log-sum-exp: dq, dk, dv within 1e-4 of the largest
+    reference entry (float32, summation order)."""
+    q, k, v, pad, dout = _k3_bwd_case(dev, b, length, d, padded)
+    scale = d ** -0.5
+    qr, kr, vr = (t.clone().requires_grad_() for t in (q, k, v))
+    n_fwd, n_bwd = flash_attention.launches, flash_attention.bwd_launches
+    out = flash_attention.flash_attention(qr, kr, vr, pad, sm_scale=scale)
+    got = torch.autograd.grad(out, (qr, kr, vr), dout)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches, flash_attention.bwd_launches) == (n_fwd + 1, n_bwd + 1)
+    lse = flash_attention.attention_lse_plain(q, k, pad, sm_scale=scale)
+    want = flash_attention.flash_attention_bwd_plain(
+        q, k, v, pad, flash_attention.flash_attention_plain(q, k, v, pad, sm_scale=scale), lse,
+        dout, sm_scale=scale)
+    for a, w in zip(got, want):
+        assert _max_err(a, w) <= 1e-4 * w.abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k2_function_gradients(dev, dtype):
+    """LYNXNet's conv module where gradients are wanted: K2's forward (its
+    counter moves) and the stock backward, against autograd of K2's plain
+    version on the same card tensors. float32 within 1e-4 of the largest
+    entry. bf16 (under autocast, as training runs it) rounds at other points
+    than the plain version, so both are held to the float32 gradients: the
+    Function's mean absolute error within 1.5x that of autograd of the plain
+    version in bf16."""
+    from diffsinger_tpu_torch.models.backbones.lynxnet import LYNXConvModule
+
+    torch.manual_seed(0)
+    m = LYNXConvModule(256, 2, 31).to(dev)
+    with torch.no_grad():
+        for p in m.parameters():
+            p.add_(0.05 * torch.randn_like(p))
+    x = torch.randn(2, 300, 256, device=dev, requires_grad=True)
+    n = lynx_fused.launches
+    with torch.autocast("cuda", dtype=torch.bfloat16, enabled=dtype == torch.bfloat16):
+        y = m(x)
+    assert lynx_fused.launches == n + 1 and y.dtype == dtype
+    dy = torch.randn_like(y)
+    got = torch.autograd.grad(y, [x, *m.parameters()], dy)
+    params = lynx_fused.conv_module_params_from_module(m)
+
+    def plain_grads(dt):
+        ref = lynx_fused.fused_conv_module_plain(x.to(dt), **{k: p.to(dt) for k, p in params.items()})
+        return torch.autograd.grad(ref, [x, *m.parameters()], dy.to(dt))
+
+    want = plain_grads(torch.float32)
+    if dtype == torch.float32:
+        for a, w in zip(got, want):
+            assert _max_err(a, w) <= 1e-4 * w.abs().max().item()
+        return
+    for a, p16, w in zip(got, plain_grads(torch.bfloat16), want):
+        assert a.dtype == torch.float32
+        assert (a - w).abs().mean() <= 1.5 * (p16 - w).abs().mean()
+
+
+def _small_task(device, work_dir):
+    """An AcousticTask at narrow widths in float32, dropout off."""
+    from pathlib import Path
+
+    from diffsinger_tpu_torch.config import load_config
+    from diffsinger_tpu_torch.training.acoustic_task import AcousticTask
+
+    root = Path(__file__).resolve().parents[1]
+    hp = load_config(root / "configs" / "acoustic.yaml")
+    hp.update(work_dir=str(work_dir), dictionary=str(root / "dictionaries" / "opencpop-extension.txt"),
+              hidden_size=64, enc_layers=2, dropout=0.0, pl_trainer_precision="32-true",
+              backbone_args=dict(num_channels=128, num_layers=2, kernel_size=31,
+                                 dropout_rate=0.0, strong_cond=True))
+    hp["shallow_diffusion_args"] = dict(hp["shallow_diffusion_args"], aux_decoder_args=dict(
+        num_channels=64, num_layers=2, kernel_size=7, dropout_rate=0.0))
+    torch.manual_seed(0)
+    task = AcousticTask(hp, device=device)
+    task.configure_optimizer()
+    return task
+
+
+def test_train_step_on_the_card_matches_the_cpu(dev, tmp_path):
+    """One float32 optimizer step of a narrow acoustic model: the kernels on
+    the card against the plain versions on the CPU, same weights, batch, t and
+    noise. Gradients within 1e-3 of each one's largest entry; parameters after
+    AdamW's step within 2 lr (its first step moves an element by lr g / (|g| +
+    eps), so a gradient near 0 may land on either side), and all but 1 % of
+    the elements within 1e-6."""
+    import numpy as np
+
+    card, cpu = _small_task(dev, tmp_path / "card"), _small_task("cpu", tmp_path / "cpu")
+    cpu.module.load_state_dict(card.module.state_dict())
+    rng = np.random.default_rng(0)
+    b, t_txt, t_mel = 4, 32, 256
+    tokens = rng.integers(1, 50, (b, t_txt)).astype(np.int32)
+    mel2ph = np.repeat(np.arange(1, t_txt + 1), t_mel // t_txt)[None].repeat(b, 0).astype(np.int32)
+    tokens[1, 20:] = 0
+    mel2ph[1][mel2ph[1] > 20] = 0
+    batch = dict(tokens=tokens, mel2ph=mel2ph,
+                 f0=rng.uniform(150, 400, (b, t_mel)).astype(np.float32),
+                 mel=rng.uniform(-11, -1, (b, t_mel, 128)).astype(np.float32))
+    t = torch.from_numpy(rng.uniform(0.4, 1, b).astype(np.float32))
+    noise = torch.from_numpy(rng.standard_normal((b, t_mel, 128)).astype(np.float32))
+    grads, launched = [], []
+    for task in (card, cpu):
+        n = flash_attention.bwd_launches
+        task.train_step(task.to_device(batch), t=t.to(task.device), noise=noise.to(task.device))
+        launched.append(flash_attention.bwd_launches - n)
+        grads.append({k: p.grad.detach().cpu() for k, p in task.module.named_parameters()})
+        task.apply_update()
+    assert launched == [2, 0]  # K3's backward once per encoder layer, on the card only
+    lr = card.hp["optimizer_args"]["lr"]
+    for name, w in grads[1].items():
+        assert _max_err(grads[0][name], w) <= 1e-3 * max(w.abs().max().item(), 1e-8), name
+    for (name, a), w in zip(card.module.state_dict().items(), cpu.module.state_dict().values()):
+        d = (a.cpu() - w).abs()
+        assert d.max().item() <= 2 * lr and (d > 1e-6).float().mean().item() <= 0.01, name

@@ -199,8 +199,8 @@ def sweep_k3(dev, gen) -> int:
 
         def call(bq):
             native.check(lib.ds_flash_attn_fwd(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), pad_ptr, out.data_ptr(), b, h, length, d,
-                1 / math.sqrt(d), bq, native.stream_ptr(q)), "flash_attention")
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), pad_ptr, out.data_ptr(), None, b, h,
+                length, d, 1 / math.sqrt(d), bq, native.stream_ptr(q)), "flash_attention")
 
         for bq in reversed(fa.BQ_CHOICES):
             out.fill_(float("nan"))
