@@ -74,10 +74,12 @@ Phases, each printed as it ends; any failure exits non-zero:
    6); one step under the profiler (idle share); a validation batch; a save
    and resume round trip in a temporary folder (``[train]`` lines);
 8. times: K1 at the long phrase's shape [1, 4096, 2048], K3 at the long
-   shape [16, 2, 512, 128], K2's two GEMMs alone and K3's backward with each
-   of its kernels alone (``[time]`` lines), the whole script's seconds, then
-   the ``kernels`` JSON line (launches of every path, the training steps'
-   included, time, bound, plain and library times) and the last line
+   shape [16, 2, 512, 128], K2's two GEMMs alone and K3's backward at
+   [48, 2, 128, 128] and [16, 2, 512, 128] with each of its kernels alone
+   and its bound on the CUDA cores and in 3xTF32 (``[time]`` lines), the
+   whole script's seconds, then the ``kernels`` JSON line (launches of every
+   path, the training steps' included, time, bound, plain and library
+   times) and the last line
    ``{"ok": true, "device": {...}}``.
 
 The models switch TF32 off for their own calls (``utils.no_tf32``), so the
@@ -107,9 +109,10 @@ ROOT = Path(__file__).resolve().parent
 OUT_DIR = ROOT / "chiprun_out"
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, float32 on the
-# CUDA cores, device memory
+# CUDA cores, TF32 tensor cores, device memory
 PEAK_BF16_TC = 989e12
 PEAK_F32 = 67e12
+PEAK_TF32 = 495e12
 PEAK_BYTES = 3.35e12
 
 STEPS = 50
@@ -1565,34 +1568,64 @@ def main() -> None:
             f"{entry['bound_by']}; plain {entry['plain_ms']:.4f} ms; library "
             f"{entry['library_ms'] if entry['library_ms'] is None else '%.4f ms' % entry['library_ms']}) "
             f"on {card}")
-    # K3's backward at the training batch's shape: the wrapper (delta, dK/dV,
-    # dQ), each kernel alone, the plain backward and SDPA's backward
-    qb, kb, vb, padb, outb, lseb, doutb, bwd_errs = bwd_cases[(TRAIN_B, TRAIN_T_TXT)]
-    scale = 128 ** -0.5
-    visible_b = padb[:, None, :, None] == padb[:, None, None, :]
-    pairs_b = int(visible_b.sum().item()) * qb.shape[1]
-    bwd_ops = 10 * pairs_b * qb.shape[-1]  # five products over the visible pairs
-    bwd_bytes = 4 * 8 * qb.numel() + 4 * lseb.numel() + padb.numel()  # q k v o dO in, dq dk dv out
+    # K3's backward at the training batch's shape and the long shape: the
+    # wrapper (dK/dV with delta and dS, then dQ), each kernel alone, the plain
+    # backward and SDPA's backward; the bound both ways: on the CUDA cores
+    # (float32) and on the route the kernel takes (3xTF32: three TF32 products
+    # for each)
     lib = native.load("flash_attention")
-    stream = native.stream_ptr(qb)
-    b_, h_, l_, d_ = qb.shape
-    delta = torch.empty_like(lseb)
-    dq_, dk_, dv_ = torch.empty_like(qb), torch.empty_like(qb), torch.empty_like(qb)
-    pad_ptr = padb.view(torch.uint8).data_ptr()
-    parts = {
-        "pre_ms": lambda: native.check(lib.ds_flash_attn_bwd_pre(
-            outb.data_ptr(), doutb.data_ptr(), delta.data_ptr(), b_ * h_ * l_, d_, stream), "pre"),
-        "dkv_ms": lambda: native.check(lib.ds_flash_attn_bwd_dkv(
-            qb.data_ptr(), kb.data_ptr(), vb.data_ptr(), pad_ptr, doutb.data_ptr(), lseb.data_ptr(),
-            delta.data_ptr(), dk_.data_ptr(), dv_.data_ptr(), b_, h_, l_, d_, scale, stream), "dkv"),
-        "dq_ms": lambda: native.check(lib.ds_flash_attn_bwd_dq(
-            qb.data_ptr(), kb.data_ptr(), vb.data_ptr(), pad_ptr, doutb.data_ptr(), lseb.data_ptr(),
-            delta.data_ptr(), dq_.data_ptr(), b_, h_, l_, d_, scale, stream), "dq"),
-    }
-    alone = {name: time_ms(fn) for name, fn in parts.items()}
-    qs_, ks_, vs_ = (t.clone().requires_grad_() for t in (qb, kb, vb))
-    sdpa_out = F.scaled_dot_product_attention(qs_, ks_, vs_, attn_mask=visible_b)
-    entry = {
+    scale = 128 ** -0.5
+
+    def k3_bwd_times(b_, length):
+        qb, kb, vb, padb, outb, lseb, doutb, bwd_errs = bwd_cases[(b_, length)]
+        visible_b = padb[:, None, :, None] == padb[:, None, None, :]
+        pairs_b = int(visible_b.sum().item()) * qb.shape[1]
+        bwd_ops = 10 * pairs_b * qb.shape[-1]  # five products over the visible pairs
+        # q k v o dO in, dq dk dv out
+        bwd_bytes = 4 * 8 * qb.numel() + 4 * lseb.numel() + padb.numel()
+        _, h_, l_, d_ = qb.shape
+        ds = flash_attention.bwd_scratch(b_ * h_, l_, dev)
+        grads = [torch.empty_like(qb) for _ in range(3)]
+        args = [t.data_ptr() for t in (qb, kb, vb, padb.view(torch.uint8), outb, doutb, lseb, ds,
+                                       *grads)]
+        stream = native.stream_ptr(qb)
+
+        def part(bits):
+            return lambda: native.check(lib.ds_flash_attn_bwd(*args, b_, h_, l_, d_, scale, bits,
+                                                              stream), "flash_attention bwd")
+
+        alone = {name: time_ms(part(bits)) for name, bits in
+                 (("dkv_ms", 1), ("dq_ms", 2), ("both_ms", 3))}
+        qs_, ks_, vs_ = (t.clone().requires_grad_() for t in (qb, kb, vb))
+        sdpa_out = F.scaled_dot_product_attention(qs_, ks_, vs_, attn_mask=visible_b)
+        f32_s, route_s = bwd_ops / PEAK_F32, 3 * bwd_ops / PEAK_TF32
+        bytes_s = bwd_bytes / PEAK_BYTES
+        times = {
+            "max_abs_err": max(bwd_errs),
+            "ms": time_ms(lambda: flash_attention.flash_attention_bwd(
+                qb, kb, vb, padb, outb, lseb, doutb, sm_scale=scale)),
+            "plain_ms": time_ms(lambda: flash_attention.flash_attention_bwd_plain(
+                qb, kb, vb, padb, outb, lseb, doutb, sm_scale=scale), iters=5, warmup=1),
+            "bound_ms": max(bytes_s, f32_s) * 1e3,
+            "bound_by": "bytes" if bytes_s >= f32_s else "operations",
+            "bound_3xtf32_ms": max(bytes_s, route_s) * 1e3,
+            "bound_3xtf32_by": "bytes" if bytes_s >= route_s else "operations",
+            "flop": bwd_ops, "bytes": bwd_bytes,
+            "library_ms": time_ms(lambda: torch.autograd.grad(sdpa_out, (qs_, ks_, vs_), doutb,
+                                                              retain_graph=True)),
+            **alone,
+        }
+        log(f"[time] K3-bwd flash_attention_bwd at [{b_},{h_},{l_},{d_}] padded: "
+            f"{times['ms']:.4f} ms a wrapper call (dK/dV with delta {times['dkv_ms']:.4f}, dQ "
+            f"{times['dq_ms']:.4f}, both {times['both_ms']:.4f} ms alone; bound "
+            f"{times['bound_ms']:.4f} ms by {times['bound_by']} on the CUDA cores, "
+            f"{times['bound_3xtf32_ms']:.4f} ms by {times['bound_3xtf32_by']} in 3xTF32; plain "
+            f"{times['plain_ms']:.4f} ms; SDPA backward {times['library_ms']:.4f} ms) on {card}")
+        return times
+
+    train_times = k3_bwd_times(TRAIN_B, TRAIN_T_TXT)
+    report["k3_bwd_long"] = k3_bwd_times(16, 512)
+    kernels.append({
         "name": "flash_attention_bwd", "route": "cuda",
         "source": "diffsinger_tpu_torch/ops/csrc/flash_attention.cu",
         "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:1121 "
@@ -1600,22 +1633,8 @@ def main() -> None:
                     "under jax.grad of diffsinger_tpu/models/commons.py:206",
         "launches": train_counts["K3bwd"],
         "launches_per_train_step": train_counts["K3bwd"] // TRAIN_STEPS,
-        "max_abs_err": max(bwd_errs),
-        "ms": time_ms(lambda: flash_attention.flash_attention_bwd(
-            qb, kb, vb, padb, outb, lseb, doutb, sm_scale=scale)),
-        "plain_ms": time_ms(lambda: flash_attention.flash_attention_bwd_plain(
-            qb, kb, vb, padb, outb, lseb, doutb, sm_scale=scale), iters=5, warmup=1),
-        "bound_ms": max(bwd_bytes / PEAK_BYTES, bwd_ops / PEAK_F32) * 1e3,
-        "bound_by": "bytes" if bwd_bytes / PEAK_BYTES >= bwd_ops / PEAK_F32 else "operations",
-        "library_ms": time_ms(lambda: torch.autograd.grad(sdpa_out, (qs_, ks_, vs_), doutb,
-                                                          retain_graph=True)),
-        **alone,
-    }
-    kernels.append(entry)
-    log(f"[time] K3-bwd flash_attention_bwd at [{b_},{h_},{l_},{d_}] padded: {entry['ms']:.4f} ms "
-        f"(delta {alone['pre_ms']:.4f}, dK/dV {alone['dkv_ms']:.4f}, dQ {alone['dq_ms']:.4f} ms "
-        f"alone; bound {entry['bound_ms']:.4f} ms by {entry['bound_by']}; plain "
-        f"{entry['plain_ms']:.4f} ms; SDPA backward {entry['library_ms']:.4f} ms) on {card}")
+        **train_times,
+    })
     report["kernels"] = kernels
 
     report["script_s"] = time.perf_counter() - t_script

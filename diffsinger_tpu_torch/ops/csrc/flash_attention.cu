@@ -15,13 +15,15 @@
 // _flash_attention_bwd_dkv and _flash_attention_bwd_dq (jax 0.9.0,
 // jax/experimental/pallas/ops/tpu/flash_attention.py:941 and :1287), which
 // jax.grad runs through the library's custom_vjp. A training step of the
-// acoustic model runs it 4 times at [48, 2, 128, 128]: 5 products of the
-// forward's size over the visible pairs, about 2 GFLOP in float32 (0.03 ms
-// at 67 TFLOP/s), against 19 MB moved, so arithmetic bounds it. Its design is
-// the FlashAttention-2 split, kept simple (CUDA cores, float32, no TMA): see
-// "backward" below.
+// acoustic model runs it 4 times at [48, 2, 128, 128]: 5 products over the
+// visible pairs, 1.36 GFLOP (0.020 ms on the CUDA cores at 67 TFLOP/s; in
+// 3xTF32 on the tensor cores 3 x 1.36 GFLOP at 495 TFLOP/s, 0.008 ms),
+// against 50 MB that must move (0.015 ms at 3.35 TB/s): on the tensor cores
+// the bytes bound it. Its design: the FlashAttention-2 split with S and dP
+// computed once per tile pair, all five products on the tensor cores in
+// 3xTF32, dS through a scratch tensor for dQ: see "backward" below.
 //
-// What bounds it on the H100: at L = 128 neither resource, really: 0.27 GFLOP
+// What bounds the forward on the H100: at L = 128 neither resource, really: 0.27 GFLOP
 // on the CUDA cores (67 TFLOP/s float32, 0.004 ms) against 8.4 MB moved
 // (0.0025 ms), so launch latency dominates. At L = 512 the 4.3 GFLOP float32
 // arithmetic bounds it (0.064 ms at B = 16). No tensor cores: the products stay
@@ -309,350 +311,475 @@ int launch_flash_d(int bq, const void* q, const void* k, const void* v, const vo
   }
 }
 
-
 // ------------------------------------------------------------------ backward
-// K3's backward, the FlashAttention-2 split (see the note at the top):
-//   pre:  delta[i] = rowsum(dO[i] * O[i])
-//   dkv:  a block owns BW_BKV keys of one (batch, head) and walks every query
-//         tile: it rebuilds P = exp(S * scale - lse) from Q, K and the row
-//         log-sum-exp, dS = P * (dP - delta) with dP = dO V^T, and sums
-//         dV += P^T dO and dK += dS^T Q in registers;
-//   dq:   a block owns BW_BQ query rows and walks every key tile for
-//         dQ += dS K. Each output has one owner block: no atomics.
-// Both tiles are 64; 256 threads form a 16 x 16 grid (ty, tx). In the score
-// tiles [64 queries x 64 keys] thread (ty, tx) owns queries ty*4 .. +4 and
-// keys tx, tx+16, tx+32, tx+48 (the forward's layout); in the outputs it owns
-// 4 rows (keys for dK/dV, queries for dQ) and D / 16 columns. P and dS pass
-// through shared memory once per tile.
-constexpr int BW_T = 64;      // queries and keys per tile
-constexpr int BW_TM = 4;      // rows per thread
-constexpr int BW_TN = BW_T / FA_NTX;  // keys per thread in a score tile
-constexpr int BW_THREADS = 256;
+// K3's backward, redesigned for the H100's tensor cores (see the note at the
+// top for what it replaces). Two launches:
+//   dkv:  a block owns BW_KT = 64 keys of one (batch, head), 4 warps of 16
+//         keys, and walks the query rows in steps of BW_QS = 16. Per step it
+//         computes delta = rowsum(dO O) of the step's rows (the TPU library
+//         and FlashAttention-2 take it from a launch of its own; folded in
+//         here, with the O rows loaded a step ahead, the dkv kernel takes 8 %
+//         longer and the backward 7 % less at the training shape),
+//         S^T = K Q^T and
+//         dP^T = V dO^T once, rebuilds
+//         P^T = exp(S^T * scale - lse) on the visible pairs and
+//         dS^T = P^T (dP^T - delta), sums dV += P^T dO and dK += dS^T Q in
+//         registers, and writes dS^T to a scratch tensor [B*H, LP, LP]
+//         (LP = L rounded up to 64; row = key, contiguous queries);
+//   dq:   a block owns BW_QT = 64 queries, 4 warps of 16, and walks the keys
+//         in steps of BW_KS = 32 for dQ += dS K, reading dS from the scratch.
+// Five products, each once per visible tile pair; every output has one owner
+// block, so the result is deterministic (no atomics).
+//
+// Every product runs on the tensor cores in float32 accuracy: 3xTF32. An
+// operand x splits into hi = x rounded to TF32 and lo = x - hi, and
+// a b = a_lo b_hi + a_hi b_lo + a_hi b_hi (the a_lo b_lo term, 2^-22 of the
+// product, is dropped) with mma.sync m16n8k8 tf32 accumulating in float32.
+// Single-pass TF32 keeps 11 bits and would miss the 1e-4 tolerance.
+//
+// What bounds it on the H100 is not the tensor cores but the instruction
+// stream around them. mma.sync m16n8k8 tf32 peaks near 300 TFLOP/s there
+// (about one mma per 1.8 clocks an SM, 44 clocks of latency; measured by a
+// microbenchmark), 60 % of wgmma's 495. Each mma needs its B fragment loaded
+// from shared memory and split by every warp that uses it, and the dK, dV
+// sums (128 registers at D = 128) leave room for only 8 warps an SM. The
+// split is integer arithmetic (3 instructions an operand): cvt.rna.tf32.f32
+// compiles to a longer compare-and-select sequence on sm_90. In the dkv
+// kernel every operand is split as it is read; Q and dO come through a
+// two-stage cp.async ring. The dq kernel splits its B operand (K) once a
+// block: K lands in a "hi" plane and one pass splits it in place into "hi"
+// and "lo" planes, which the four warps read (faster there than splitting
+// as read; in the dkv kernel 7 % slower, for lack of room for a second
+// stage). Measured alternatives that were slower: 8 warps with D split
+// between warp pairs, or with S/dP split between them (128-register cap,
+// spills), two sums for S over halves of D, dQ^T = K^T dS^T.
+//
+// Fragments (g = lane / 4, t = lane % 4): A [16 x 8] holds (g, t), (g+8, t),
+// (g, t+4), (g+8, t+4); B [8 x 8] holds (k t, n g), (k t+4, n g); C [16 x 8]
+// holds (g, 2t), (g, 2t+1), (g+8, 2t), (g+8, 2t+1). P^T and dS^T stay in
+// registers: a C fragment is taken as the A fragment of the next product
+// with its k slots permuted (slot t is column 2t, slot t+4 column 2t+1), and
+// the B operand is read with the same permutation (rows 2t and 2t+1).
+// Shared-memory rows are padded to D + 4 floats (dkv: rows g and 2t land on
+// distinct banks) or D + 8 and 64 + 8 (dq).
+//
+// Tile pairs with no visible pair are skipped: each 64-key tile and each
+// 16-query group is marked by whether it holds any valid row and any pad row
+// (read from the mask, which need not be a contiguous tail; a table in shared
+// memory made in the prologue), and a pair is computed only where both hold
+// rows of one segment. The dq kernel skips exactly the pairs that the dkv
+// kernel skipped, so it never reads scratch that was not written.
+//
+// Shared memory (D = 128): dkv 109,888 B + a byte a query step (K and V, two
+// stages of Q and dO, O and delta of a step), so two blocks fit on an SM and
+// the training shape's 192 blocks run in one wave of 264. dq 88,064 B + a
+// byte a key tile (two stages of dS^T and the split K).
+constexpr int BW_KT = 64;        // keys per dK/dV block
+constexpr int BW_QS = 16;        // queries per step of the dK/dV block
+constexpr int BW_QT = 64;        // queries per dQ block
+constexpr int BW_KS = 32;        // keys per step of the dQ block
+constexpr int BW_THREADS = 128;  // 4 warps
+constexpr int BW_LDS = BW_QT + 8;  // row stride of the dS^T tile in the dq kernel
+
+// scratch row length: L rounded up to whole key and query tiles
+__host__ __device__ __forceinline__ int bwd_lp(int L) { return (L + 63) / 64 * 64; }
 
 template <int D>
 struct BwdCfg {
-  static constexpr int LDQ = D + 4;     // row stride of Q, dO, K, V tiles
-  static constexpr int LDP = BW_T + 4;  // row stride of the P and dS tiles
-  static constexpr int DV = D / FA_NTX;
-  static constexpr int VW = DV >= 4 ? 4 : 2;
-  static constexpr int NV = DV / VW;
-  static constexpr size_t TILE = (size_t)BW_T * LDQ;
-  // dkv: K, V, Q, dO, P, dS, lse, delta; dq: Q, dO, K, V, dS, lse, delta
-  static constexpr size_t SMEM_DKV = sizeof(float) * (4 * TILE + 2 * BW_T * LDP + 2 * BW_T);
-  static constexpr size_t SMEM_DQ = sizeof(float) * (4 * TILE + BW_T * LDP + 2 * BW_T);
+  static constexpr int LDA = D + 4;  // dkv: K, V, Q, dO rows
+  static constexpr int LDK = D + 8;  // dq: K rows
+  static constexpr int STAGE_DQ = BW_KS * (BW_LDS + 2 * LDK);  // dS^T, K hi, K lo
+  // the tables of visible steps follow the tiles
+  static size_t smem_dkv(int L) {
+    return sizeof(float) * ((size_t)2 * BW_KT * LDA + 5 * BW_QS * LDA + BW_QS) +
+           (L + BW_QS - 1) / BW_QS;
+  }
+  static size_t smem_dq(int L) { return sizeof(float) * 2 * STAGE_DQ + bwd_lp(L) / BW_KT; }
 };
 
-// the NV * VW columns of a row that thread tx owns: i*16*VW + tx*VW + e
-template <int VW, int NV>
-__device__ __forceinline__ void load_cols(float (&dst)[NV * VW], const float* row, int tx) {
-#pragma unroll
-  for (int i = 0; i < NV; ++i) {
-    const float* p = row + i * FA_NTX * VW + tx * VW;
-    if (VW == 4) {
-      const float4 t = *reinterpret_cast<const float4*>(p);
-      dst[i * VW] = t.x, dst[i * VW + 1] = t.y, dst[i * VW + 2] = t.z, dst[i * VW + 3] = t.w;
-    } else {
-      const float2 t = *reinterpret_cast<const float2*>(p);
-      dst[i * VW] = t.x, dst[i * VW + 1] = t.y;
-    }
+// ---- 3xTF32 on mma.sync
+// x = hi + lo: hi is x rounded to TF32 (to nearest, ties away from zero, as
+// cvt.rna.tf32.f32 rounds finite x), lo = x - hi exactly. The tensor core
+// reads the top 19 bits of lo, so lo enters with an error of 2^-21 of x at
+// most.
+// (DS_PROBE_CVT_SPLIT, for tools/perf_torch_kernels.py k3bwdprobe only: the
+// same rounding by the cvt instruction.)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+#ifdef DS_PROBE_CVT_SPLIT
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
+#else
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+#endif
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+// an A fragment, split as it is read
+struct FragA {
+  uint32_t hi[4], lo[4];
+  __device__ __forceinline__ void set(float a0, float a1, float a2, float a3) {
+    split_tf32(a0, hi[0], lo[0]);
+    split_tf32(a1, hi[1], lo[1]);
+    split_tf32(a2, hi[2], lo[2]);
+    split_tf32(a3, hi[3], lo[3]);
   }
+};
+// d += a b, small terms first: b = (b0, b1) split here, or read from split
+// planes (hi, lo) at offsets o0, o1
+// (DS_PROBE_ONE_MMA, for the probe only: a_hi b_hi alone, single-pass TF32.)
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const FragA& a, const uint32_t (&bh)[2],
+                                           const uint32_t (&bl)[2]) {
+#ifndef DS_PROBE_ONE_MMA
+  mma_tf32(d, a.lo, bh);
+  mma_tf32(d, a.hi, bl);
+#endif
+  mma_tf32(d, a.hi, bh);
+}
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const FragA& a, float b0, float b1) {
+  uint32_t bh[2], bl[2];
+  split_tf32(b0, bh[0], bl[0]);
+  split_tf32(b1, bh[1], bl[1]);
+  mma_3xtf32(d, a, bh, bl);
+}
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const FragA& a, const float* bhi,
+                                           const float* blo, int o0, int o1) {
+  const uint32_t bh[2] = {__float_as_uint(bhi[o0]), __float_as_uint(bhi[o1])};
+  const uint32_t bl[2] = {__float_as_uint(blo[o0]), __float_as_uint(blo[o1])};
+  mma_3xtf32(d, a, bh, bl);
 }
 
-template <int VW, int NV>
-__device__ __forceinline__ void store_cols(float* row, const float (&src)[NV * VW], float mul,
-                                           int tx) {
-#pragma unroll
-  for (int i = 0; i < NV; ++i) {
-    float* p = row + i * FA_NTX * VW + tx * VW;
-    if (VW == 4)
-      *reinterpret_cast<float4*>(p) = make_float4(src[i * VW] * mul, src[i * VW + 1] * mul,
-                                                  src[i * VW + 2] * mul, src[i * VW + 3] * mul);
-    else
-      *reinterpret_cast<float2*>(p) = make_float2(src[i * VW] * mul, src[i * VW + 1] * mul);
-  }
-}
-
-// lse and delta of query rows [q0, q0 + BW_T) into shared memory, 0 past L
-__device__ __forceinline__ void load_row_stats(float* lse_s, float* del_s, const float* lse,
-                                               const float* delta, int q0, int L, int tid) {
-  for (int i = tid; i < BW_T; i += BW_THREADS) {
-    const bool in = q0 + i < L;
-    lse_s[i] = in ? lse[q0 + i] : 0.f;
-    del_s[i] = in ? delta[q0 + i] : 0.f;
-  }
-}
-
-// One score tile, queries q0 + ty*4 + r against keys k0 + tx + 16 c:
-//   p[r][c]  = exp(q.k * scale - lse)   where the pair is visible, else 0
-//   ds[r][c] = p * (dO.v - delta)
+// rows [0, rows) x D of a tile, split in place: `hi` holds x on entry and
+// hi on exit, `lo` receives lo (both with row stride ld)
 template <int D>
-__device__ __forceinline__ void bwd_tile(const float* qs, const float* dos, const float* ks,
-                                         const float* vs, const float* lse_s, const float* del_s,
-                                         const uint8_t* padb, int q0, int k0, int L, float scale,
-                                         int ty, int tx, float (&p)[BW_TM][BW_TN],
-                                         float (&ds)[BW_TM][BW_TN]) {
-  constexpr int LDQ = BwdCfg<D>::LDQ;
-  float s[BW_TM][BW_TN], dp[BW_TM][BW_TN];
-#pragma unroll
-  for (int r = 0; r < BW_TM; ++r)
-#pragma unroll
-    for (int c = 0; c < BW_TN; ++c) s[r][c] = dp[r][c] = 0.f;
-#pragma unroll 2
-  for (int d = 0; d < D; d += 4) {
-    float4 kv[BW_TN], vv[BW_TN];
-#pragma unroll
-    for (int c = 0; c < BW_TN; ++c) {
-      kv[c] = *reinterpret_cast<const float4*>(ks + (tx + FA_NTX * c) * LDQ + d);
-      vv[c] = *reinterpret_cast<const float4*>(vs + (tx + FA_NTX * c) * LDQ + d);
-    }
-#pragma unroll
-    for (int r = 0; r < BW_TM; ++r) {
-      const float4 qv = *reinterpret_cast<const float4*>(qs + (ty * BW_TM + r) * LDQ + d);
-      const float4 ov = *reinterpret_cast<const float4*>(dos + (ty * BW_TM + r) * LDQ + d);
-#pragma unroll
-      for (int c = 0; c < BW_TN; ++c) {
-        s[r][c] = fmaf(qv.x, kv[c].x, s[r][c]);
-        s[r][c] = fmaf(qv.y, kv[c].y, s[r][c]);
-        s[r][c] = fmaf(qv.z, kv[c].z, s[r][c]);
-        s[r][c] = fmaf(qv.w, kv[c].w, s[r][c]);
-        dp[r][c] = fmaf(ov.x, vv[c].x, dp[r][c]);
-        dp[r][c] = fmaf(ov.y, vv[c].y, dp[r][c]);
-        dp[r][c] = fmaf(ov.z, vv[c].z, dp[r][c]);
-        dp[r][c] = fmaf(ov.w, vv[c].w, dp[r][c]);
-      }
-    }
-  }
-  int kseg[BW_TN];
-  bool kin[BW_TN];
-#pragma unroll
-  for (int c = 0; c < BW_TN; ++c) {
-    const int kj = k0 + tx + FA_NTX * c;
-    kin[c] = kj < L;
-    kseg[c] = (padb && kin[c]) ? padb[kj] : 0;
-  }
-#pragma unroll
-  for (int r = 0; r < BW_TM; ++r) {
-    const int row = ty * BW_TM + r, qi = q0 + row;
-    const bool qin = qi < L;
-    const int qseg = (padb && qin) ? padb[qi] : 0;
-#pragma unroll
-    for (int c = 0; c < BW_TN; ++c) {
-      const bool ok = qin && kin[c] && kseg[c] == qseg;
-      p[r][c] = ok ? expf(s[r][c] * scale - lse_s[row]) : 0.f;
-      ds[r][c] = p[r][c] * (dp[r][c] - del_s[row]);
-    }
+__device__ __forceinline__ void split_tile(float* hi, float* lo, int ld, int rows, int tid) {
+  for (int i = tid; i < rows * (D / 4); i += BW_THREADS) {
+    const int off = (i / (D / 4)) * ld + (i % (D / 4)) * 4;
+    const float4 x = *reinterpret_cast<const float4*>(hi + off);
+    uint4 h, l;
+    split_tf32(x.x, h.x, l.x);
+    split_tf32(x.y, h.y, l.y);
+    split_tf32(x.z, h.z, l.z);
+    split_tf32(x.w, h.w, l.w);
+    *reinterpret_cast<uint4*>(hi + off) = h;
+    *reinterpret_cast<uint4*>(lo + off) = l;
   }
 }
 
-// delta[row] = sum_d dO[row, d] * O[row, d]: one warp a row
-__global__ void __launch_bounds__(BW_THREADS)
-flash_bwd_pre_kernel(const float* __restrict__ out, const float* __restrict__ dout,
-                     float* __restrict__ delta, int rows, int D) {
-  const int row = (blockIdx.x * BW_THREADS + threadIdx.x) / 32, lane = threadIdx.x % 32;
-  if (row >= rows) return;
-  const float* o = out + (size_t)row * D;
-  const float* g = dout + (size_t)row * D;
-  float acc = 0.f;
-  for (int c = lane; c < D; c += 32) acc = fmaf(o[c], g[c], acc);
-  acc = warp_sum(acc);
-  if (lane == 0) delta[row] = acc;
+// Whether rows [r0, r0 + n) hold any valid row (bit 0) and any pad row
+// (bit 1), rows past L not counted; with no mask every row in range is valid.
+__device__ __forceinline__ int row_flags(const uint8_t* padb, int r0, int n, int L) {
+  int f = 0;
+  for (int r = r0; r < min(r0 + n, L); ++r) f |= (padb && padb[r]) ? 2 : 1;
+  return f;
+}
+// the same for n <= 64 rows, computed by the warp together; every lane gets it
+__device__ __forceinline__ int seg_flags(const uint8_t* padb, int r0, int n, int L, int lane) {
+  int f = 0;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    if (lane + 32 * i < n) f |= row_flags(padb, r0 + lane + 32 * i, 1, L);
+  return (__any_sync(0xffffffffu, f & 1) ? 1 : 0) | (__any_sync(0xffffffffu, f & 2) ? 2 : 0);
+}
+// a tile pair holds a visible pair where both hold rows of one segment
+__device__ __forceinline__ bool pair_visible(int fa, int fb) { return (fa & fb) != 0; }
+// the first entry of table[0, n) at or after s that is set (n if none)
+__device__ __forceinline__ int next_set(const uint8_t* table, int s, int n) {
+  while (s < n && !table[s]) ++s;
+  return s;
 }
 
 template <int D>
-__global__ void __launch_bounds__(BW_THREADS)
+__global__ void __launch_bounds__(BW_THREADS, 2)
 flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, const uint8_t* __restrict__ pad,
-                     const float* __restrict__ dout, const float* __restrict__ lse,
-                     const float* __restrict__ delta, float* __restrict__ dk,
-                     float* __restrict__ dv, int H, int L, float scale) {
-  using Cfg = BwdCfg<D>;
-  constexpr int LDQ = Cfg::LDQ, LDP = Cfg::LDP, VW = Cfg::VW, NV = Cfg::NV;
+                     const float* __restrict__ out, const float* __restrict__ dout,
+                     const float* __restrict__ lse, float* __restrict__ dst,
+                     float* __restrict__ dk, float* __restrict__ dv, int H, int L, float scale) {
+  constexpr int LDA = BwdCfg<D>::LDA, NT = D / 8;
   extern __shared__ __align__(16) float smem[];
-  float* ks = smem;                 // [BW_T][LDQ]
-  float* vs = ks + Cfg::TILE;       // [BW_T][LDQ]
-  float* qs = vs + Cfg::TILE;       // [BW_T][LDQ]
-  float* dos = qs + Cfg::TILE;      // [BW_T][LDQ]
-  float* ps = dos + Cfg::TILE;      // [BW_T queries][LDP]
-  float* dss = ps + BW_T * LDP;     // [BW_T queries][LDP]
-  float* lse_s = dss + BW_T * LDP;  // [BW_T]
-  float* del_s = lse_s + BW_T;      // [BW_T]
+  float* ks = smem;                  // [BW_KT][LDA]
+  float* vs = ks + BW_KT * LDA;      // [BW_KT][LDA]
+  float* stage0 = vs + BW_KT * LDA;  // per stage: Q [BW_QS][LDA], dO [BW_QS][LDA]
+  float* os = stage0 + 4 * BW_QS * LDA;  // [BW_QS][LDA]: O of the step
+  float* del_s = os + BW_QS * LDA;       // [BW_QS]: delta of the step
+  uint8_t* vis = reinterpret_cast<uint8_t*>(del_s + BW_QS);  // [steps]: visible
 
-  const int tid = threadIdx.x, tx = tid % FA_NTX, ty = tid / FA_NTX;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
   const int bh = blockIdx.y, b = bh / H;
-  const int k0 = blockIdx.x * BW_T;
+  const int k0 = blockIdx.x * BW_KT;
   const size_t base = (size_t)bh * L * D;
   const uint8_t* padb = pad ? pad + (size_t)b * L : nullptr;
+  const int LP = bwd_lp(L);
   lse += (size_t)bh * L;
-  delta += (size_t)bh * L;
+  dst += (size_t)bh * LP * LP;
 
-  load_rows<D, BW_THREADS>(ks, LDQ, k + base, k0, BW_T, L, tid);
-  load_rows<D, BW_THREADS>(vs, LDQ, v + base, k0, BW_T, L, tid);
+  load_rows<D, BW_THREADS>(ks, LDA, k + base, k0, BW_KT, L, tid);
+  load_rows<D, BW_THREADS>(vs, LDA, v + base, k0, BW_KT, L, tid);
+  cp_async_commit();
+  const int kflags = seg_flags(padb, k0, BW_KT, L, lane);
+  const int steps = (L + BW_QS - 1) / BW_QS;
+  for (int s = tid; s < steps; s += BW_THREADS)
+    vis[s] = pair_visible(kflags, row_flags(padb, s * BW_QS, BW_QS, L));
+  auto load_step = [&](int stage, int s) {
+    float* qs = stage0 + stage * 2 * BW_QS * LDA;
+    load_rows<D, BW_THREADS>(qs, LDA, q + base, s * BW_QS, BW_QS, L, tid);
+    load_rows<D, BW_THREADS>(qs + BW_QS * LDA, LDA, dout + base, s * BW_QS, BW_QS, L, tid);
+  };
 
-  // thread owns keys ty*4 + r of the tile, columns of load_cols
-  float acc_k[BW_TM][NV * VW], acc_v[BW_TM][NV * VW];
+  float acc_k[NT][4], acc_v[NT][4];
 #pragma unroll
-  for (int r = 0; r < BW_TM; ++r)
+  for (int n = 0; n < NT; ++n)
 #pragma unroll
-    for (int c = 0; c < NV * VW; ++c) acc_k[r][c] = acc_v[r][c] = 0.f;
-
-  for (int q0 = 0; q0 < L; q0 += BW_T) {
-    __syncthreads();  // every thread is done with the previous query tile
-    load_rows<D, BW_THREADS>(qs, LDQ, q + base, q0, BW_T, L, tid);
-    load_rows<D, BW_THREADS>(dos, LDQ, dout + base, q0, BW_T, L, tid);
-    cp_async_commit();
-    load_row_stats(lse_s, del_s, lse, delta, q0, L, tid);
-    cp_async_wait<0>();
-    __syncthreads();
-
-    float p[BW_TM][BW_TN], ds[BW_TM][BW_TN];
-    bwd_tile<D>(qs, dos, ks, vs, lse_s, del_s, padb, q0, k0, L, scale, ty, tx, p, ds);
+    for (int e = 0; e < 4; ++e) acc_k[n][e] = acc_v[n][e] = 0.f;
+  // this thread's keys in the score tiles: rows g and g + 8 of the warp's 16
+  const int kr0 = 16 * warp + g;
+  int kseg[2];
+  bool kin[2];
 #pragma unroll
-    for (int r = 0; r < BW_TM; ++r)
-#pragma unroll
-      for (int c = 0; c < BW_TN; ++c) {
-        ps[(ty * BW_TM + r) * LDP + tx + FA_NTX * c] = p[r][c];
-        dss[(ty * BW_TM + r) * LDP + tx + FA_NTX * c] = ds[r][c];
-      }
-    __syncthreads();  // P and dS are visible
-
-    // dV[key] += sum_j P[j][key] dO[j];  dK[key] += sum_j dS[j][key] Q[j]
-#pragma unroll 2
-    for (int j = 0; j < BW_T; ++j) {
-      const float4 pj = *reinterpret_cast<const float4*>(ps + j * LDP + ty * BW_TM);
-      const float4 dsj = *reinterpret_cast<const float4*>(dss + j * LDP + ty * BW_TM);
-      float go[NV * VW], gq[NV * VW];
-      load_cols<VW, NV>(go, dos + j * LDQ, tx);
-      load_cols<VW, NV>(gq, qs + j * LDQ, tx);
-      const float pr[BW_TM] = {pj.x, pj.y, pj.z, pj.w};
-      const float sr[BW_TM] = {dsj.x, dsj.y, dsj.z, dsj.w};
-#pragma unroll
-      for (int r = 0; r < BW_TM; ++r)
-#pragma unroll
-        for (int c = 0; c < NV * VW; ++c) {
-          acc_v[r][c] = fmaf(pr[r], go[c], acc_v[r][c]);
-          acc_k[r][c] = fmaf(sr[r], gq[c], acc_k[r][c]);
-        }
-    }
+  for (int h = 0; h < 2; ++h) {
+    const int kj = k0 + kr0 + 8 * h;
+    kin[h] = kj < L;
+    kseg[h] = (padb && kin[h]) ? padb[kj] : 0;
   }
+  __syncthreads();  // the table is complete
+
+  // groups in flight, oldest first: a step's Q and dO, then its O
+  int cur = next_set(vis, 0, steps);
+  if (cur < steps) load_step(0, cur);
+  cp_async_commit();
+  if (cur < steps) load_rows<D, BW_THREADS>(os, LDA, out + base, cur * BW_QS, BW_QS, L, tid);
+  cp_async_commit();
+  for (int it = 0; cur < steps; ++it) {
+    const int nxt = next_set(vis, cur + 1, steps);
+    if (nxt < steps) load_step((it + 1) & 1, nxt);
+    cp_async_commit();
+    const int q0 = cur * BW_QS;
+    // lse and segment of this thread's query columns 8j + 2t + c
+    float lse_r[2][2];
+    int qseg[2][2];
+    bool qin[2][2];
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int qi = q0 + 8 * j + 2 * t + c;
+        qin[j][c] = qi < L;
+        lse_r[j][c] = qin[j][c] ? lse[qi] : 0.f;
+        qseg[j][c] = (padb && qin[j][c]) ? padb[qi] : 0;
+      }
+    cp_async_wait<1>();  // K, V and this step's Q, dO, O landed; the next Q, dO may be in flight
+    __syncthreads();
+    const float* qs = stage0 + (it & 1) * 2 * BW_QS * LDA;
+    const float* dos = qs + BW_QS * LDA;
+
+    // delta = rowsum(dO O): 8 threads a row, 4 columns every 32 each
+    {
+      const int r = tid / 8, c = (tid % 8) * 4;
+      float sum = 0.f;
+#pragma unroll
+      for (int i = 0; i < D / 32; ++i) {
+        const float4 o4 = *reinterpret_cast<const float4*>(os + r * LDA + c + 32 * i);
+        const float4 g4 = *reinterpret_cast<const float4*>(dos + r * LDA + c + 32 * i);
+        sum = fmaf(o4.x, g4.x, fmaf(o4.y, g4.y, fmaf(o4.z, g4.z, fmaf(o4.w, g4.w, sum))));
+      }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 4);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      if (tid % 8 == 0) del_s[r] = sum;
+    }
+    __syncthreads();  // delta is visible and the O buffer free: the next step's O
+    if (nxt < steps) load_rows<D, BW_THREADS>(os, LDA, out + base, nxt * BW_QS, BW_QS, L, tid);
+    cp_async_commit();
+
+    // S^T = K Q^T and dP^T = V dO^T: [16 keys x 16 queries] a warp
+    float s[2][4], dp[2][4];
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll 4
+    for (int kk = 0; kk < D; kk += 8) {
+      const float* kp = ks + kr0 * LDA + kk + t;
+      const float* vp = vs + kr0 * LDA + kk + t;
+      FragA ka, va;
+      ka.set(kp[0], kp[8 * LDA], kp[4], kp[8 * LDA + 4]);
+      va.set(vp[0], vp[8 * LDA], vp[4], vp[8 * LDA + 4]);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const float* qp = qs + (8 * j + g) * LDA + kk + t;
+        const float* op = dos + (8 * j + g) * LDA + kk + t;
+        mma_3xtf32(s[j], ka, qp[0], qp[4]);
+        mma_3xtf32(dp[j], va, op[0], op[4]);
+      }
+    }
+
+    // P^T and dS^T in place; dS^T to the scratch
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e / 2, c = e % 2;
+        const bool ok = kin[h] && qin[j][c] && kseg[h] == qseg[j][c];
+        const float p = ok ? expf(fmaf(s[j][e], scale, -lse_r[j][c])) : 0.f;
+        s[j][e] = p;
+        dp[j][e] = p * (dp[j][e] - del_s[8 * j + 2 * t + c]);
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<float2*>(dst + (size_t)(k0 + kr0 + 8 * h) * LP + q0 + 8 * j + 2 * t) =
+            make_float2(dp[j][2 * h], dp[j][2 * h + 1]);
+    }
+
+    // dV += P^T dO, dK += dS^T Q: k runs over the 16 queries, slots permuted
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      FragA pa, sa;
+      pa.set(s[j][0], s[j][2], s[j][1], s[j][3]);
+      sa.set(dp[j][0], dp[j][2], dp[j][1], dp[j][3]);
+      const float* op = dos + (8 * j + 2 * t) * LDA + g;
+      const float* qp = qs + (8 * j + 2 * t) * LDA + g;
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        mma_3xtf32(acc_v[n], pa, op[8 * n], op[LDA + 8 * n]);
+        mma_3xtf32(acc_k[n], sa, qp[8 * n], qp[LDA + 8 * n]);
+      }
+    }
+    __syncthreads();  // every warp is done with this stage before it is loaded again
+    cur = nxt;
+  }
+  cp_async_wait<0>();  // K and V, where no step was visible
 
 #pragma unroll
-  for (int r = 0; r < BW_TM; ++r) {
-    const int kj = k0 + ty * BW_TM + r;
+  for (int h = 0; h < 2; ++h) {
+    const int kj = k0 + kr0 + 8 * h;
     if (kj >= L) continue;
-    store_cols<VW, NV>(dk + base + (size_t)kj * D, acc_k[r], scale, tx);
-    store_cols<VW, NV>(dv + base + (size_t)kj * D, acc_v[r], 1.f, tx);
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const size_t off = base + (size_t)kj * D + 8 * n + 2 * t;
+      *reinterpret_cast<float2*>(dk + off) =
+          make_float2(acc_k[n][2 * h] * scale, acc_k[n][2 * h + 1] * scale);
+      *reinterpret_cast<float2*>(dv + off) = make_float2(acc_v[n][2 * h], acc_v[n][2 * h + 1]);
+    }
   }
 }
 
 template <int D>
-__global__ void __launch_bounds__(BW_THREADS)
-flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, const uint8_t* __restrict__ pad,
-                    const float* __restrict__ dout, const float* __restrict__ lse,
-                    const float* __restrict__ delta, float* __restrict__ dq, int H, int L,
+__global__ void __launch_bounds__(BW_THREADS, 2)
+flash_bwd_dq_kernel(const float* __restrict__ k, const uint8_t* __restrict__ pad,
+                    const float* __restrict__ dst, float* __restrict__ dq, int H, int L,
                     float scale) {
-  using Cfg = BwdCfg<D>;
-  constexpr int LDQ = Cfg::LDQ, LDP = Cfg::LDP, VW = Cfg::VW, NV = Cfg::NV;
+  constexpr int LDK = BwdCfg<D>::LDK, NT = D / 8, STAGE = BwdCfg<D>::STAGE_DQ;
+  // per stage: dS^T [BW_KS][BW_LDS], K hi (K as it lands) and K lo [BW_KS][LDK];
+  // then the flags of each 64-key tile
   extern __shared__ __align__(16) float smem[];
-  float* qs = smem;                 // [BW_T][LDQ]
-  float* dos = qs + Cfg::TILE;      // [BW_T][LDQ]
-  float* ks = dos + Cfg::TILE;      // [BW_T][LDQ]
-  float* vs = ks + Cfg::TILE;       // [BW_T][LDQ]
-  float* dss = vs + Cfg::TILE;      // [BW_T queries][LDP]
-  float* lse_s = dss + BW_T * LDP;  // [BW_T]
-  float* del_s = lse_s + BW_T;      // [BW_T]
+  uint8_t* kflags = reinterpret_cast<uint8_t*>(smem + 2 * STAGE);
 
-  const int tid = threadIdx.x, tx = tid % FA_NTX, ty = tid / FA_NTX;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
   const int bh = blockIdx.y, b = bh / H;
-  const int q0 = blockIdx.x * BW_T;
+  const int q0 = blockIdx.x * BW_QT;
   const size_t base = (size_t)bh * L * D;
   const uint8_t* padb = pad ? pad + (size_t)b * L : nullptr;
+  const int LP = bwd_lp(L);
+  dst += (size_t)bh * LP * LP;
 
-  load_rows<D, BW_THREADS>(qs, LDQ, q + base, q0, BW_T, L, tid);
-  load_rows<D, BW_THREADS>(dos, LDQ, dout + base, q0, BW_T, L, tid);
-  load_row_stats(lse_s, del_s, lse + (size_t)bh * L, delta + (size_t)bh * L, q0, L, tid);
+  const int wflags = seg_flags(padb, q0 + 16 * warp, 16, L, lane);  // this warp's queries
+  const int qflags = seg_flags(padb, q0, BW_QT, L, lane);            // the block's
+  const int steps = (L + BW_KS - 1) / BW_KS;
+  for (int i = tid; i < LP / BW_KT; i += BW_THREADS)
+    kflags[i] = row_flags(padb, i * BW_KT, BW_KT, L);
+  __syncthreads();
+  auto key_tile_flags = [&](int s) { return kflags[s * BW_KS / BW_KT]; };
+  // the first key step at or after s whose tile the block's queries see
+  auto next_step = [&](int s) {
+    while (s < steps && !pair_visible(qflags, key_tile_flags(s))) ++s;
+    return s;
+  };
+  auto load_step = [&](int stage, int s) {
+    float* dss = smem + stage * STAGE;
+    for (int i = tid; i < BW_KS * (BW_QT / 4); i += BW_THREADS) {
+      const int r = i / (BW_QT / 4), c = (i % (BW_QT / 4)) * 4;
+      cp_async16(dss + r * BW_LDS + c, dst + (size_t)(s * BW_KS + r) * LP + q0 + c, true);
+    }
+    load_rows<D, BW_THREADS>(dss + BW_KS * BW_LDS, LDK, k + base, s * BW_KS, BW_KS, L, tid);
+  };
 
-  // thread owns queries ty*4 + r of the tile, columns of load_cols
-  float acc[BW_TM][NV * VW];
+  float acc[NT][4];
 #pragma unroll
-  for (int r = 0; r < BW_TM; ++r)
+  for (int n = 0; n < NT; ++n)
 #pragma unroll
-    for (int c = 0; c < NV * VW; ++c) acc[r][c] = 0.f;
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
 
-  for (int k0 = 0; k0 < L; k0 += BW_T) {
-    __syncthreads();  // every thread is done with the previous key tile
-    load_rows<D, BW_THREADS>(ks, LDQ, k + base, k0, BW_T, L, tid);
-    load_rows<D, BW_THREADS>(vs, LDQ, v + base, k0, BW_T, L, tid);
+  int cur = next_step(0);
+  if (cur < steps) load_step(0, cur);
+  cp_async_commit();
+  for (int it = 0; cur < steps; ++it) {
+    const int nxt = next_step(cur + 1);
+    if (nxt < steps) load_step((it + 1) & 1, nxt);
     cp_async_commit();
-    cp_async_wait<0>();
+    cp_async_wait<1>();
     __syncthreads();
-
-    float p[BW_TM][BW_TN], ds[BW_TM][BW_TN];
-    bwd_tile<D>(qs, dos, ks, vs, lse_s, del_s, padb, q0, k0, L, scale, ty, tx, p, ds);
+    float* dss = smem + (it & 1) * STAGE;
+    float* kh = dss + BW_KS * BW_LDS;
+    float* kl = kh + BW_KS * LDK;
+    split_tile<D>(kh, kl, LDK, BW_KS, tid);
+    __syncthreads();
+    if (pair_visible(wflags, key_tile_flags(cur))) {
+      // dQ[16 queries] += dS[16 x 32] K[32 x D]; the dkv kernel wrote this dS
 #pragma unroll
-    for (int r = 0; r < BW_TM; ++r)
+      for (int kk = 0; kk < BW_KS; kk += 8) {
+        const float* ap = dss + (kk + t) * BW_LDS + 16 * warp + g;
+        FragA a;
+        a.set(ap[0], ap[8], ap[4 * BW_LDS], ap[4 * BW_LDS + 8]);
+        const int o = (kk + t) * LDK + g;
 #pragma unroll
-      for (int c = 0; c < BW_TN; ++c) dss[(ty * BW_TM + r) * LDP + tx + FA_NTX * c] = ds[r][c];
-    __syncthreads();  // dS is visible
-
-    // dQ[row] += sum_j dS[row][j] K[j]
-#pragma unroll 2
-    for (int j = 0; j < BW_T; j += 4) {
-      float4 sv[BW_TM];
-#pragma unroll
-      for (int r = 0; r < BW_TM; ++r)
-        sv[r] = *reinterpret_cast<const float4*>(dss + (ty * BW_TM + r) * LDP + j);
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        float kk[NV * VW];
-        load_cols<VW, NV>(kk, ks + (j + jj) * LDQ, tx);
-#pragma unroll
-        for (int r = 0; r < BW_TM; ++r) {
-          const float g = jj == 0 ? sv[r].x : jj == 1 ? sv[r].y : jj == 2 ? sv[r].z : sv[r].w;
-#pragma unroll
-          for (int c = 0; c < NV * VW; ++c) acc[r][c] = fmaf(g, kk[c], acc[r][c]);
-        }
+        for (int n = 0; n < NT; ++n) mma_3xtf32(acc[n], a, kh, kl, o + 8 * n, o + 4 * LDK + 8 * n);
       }
     }
+    __syncthreads();  // every warp is done with this stage before it is loaded again
+    cur = nxt;
   }
+  cp_async_wait<0>();
 
 #pragma unroll
-  for (int r = 0; r < BW_TM; ++r) {
-    const int qi = q0 + ty * BW_TM + r;
-    if (qi < L) store_cols<VW, NV>(dq + base + (size_t)qi * D, acc[r], scale, tx);
+  for (int h = 0; h < 2; ++h) {
+    const int qi = q0 + 16 * warp + g + 8 * h;
+    if (qi >= L) continue;
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+      *reinterpret_cast<float2*>(dq + base + (size_t)qi * D + 8 * n + 2 * t) =
+          make_float2(acc[n][2 * h] * scale, acc[n][2 * h + 1] * scale);
   }
 }
 
 template <int D>
-int launch_bwd_dkv(const void* q, const void* k, const void* v, const void* pad,
-                   const void* dout, const void* lse, const void* delta, void* dk, void* dv,
-                   int B, int H, int L, float scale, cudaStream_t s) {
-  auto kernel = flash_bwd_dkv_kernel<D>;
-  const int smem = (int)BwdCfg<D>::SMEM_DKV;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<dim3((L + BW_T - 1) / BW_T, B * H), BW_THREADS, smem, s>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const uint8_t*>(pad), static_cast<const float*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta), static_cast<float*>(dk),
-      static_cast<float*>(dv), H, L, scale);
-  return (int)cudaGetLastError();
-}
-
-template <int D>
-int launch_bwd_dq(const void* q, const void* k, const void* v, const void* pad,
-                  const void* dout, const void* lse, const void* delta, void* dq, int B, int H,
-                  int L, float scale, cudaStream_t s) {
-  auto kernel = flash_bwd_dq_kernel<D>;
-  const int smem = (int)BwdCfg<D>::SMEM_DQ;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<dim3((L + BW_T - 1) / BW_T, B * H), BW_THREADS, smem, s>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const uint8_t*>(pad), static_cast<const float*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta), static_cast<float*>(dq),
-      H, L, scale);
-  return (int)cudaGetLastError();
+int launch_bwd(const float* q, const float* k, const float* v, const uint8_t* pad,
+               const float* out, const float* dout, const float* lse, float* ds, float* dq,
+               float* dk, float* dv, int B, int H, int L, float scale, int parts, cudaStream_t s) {
+  cudaError_t err;
+  if (parts & 1) {
+    auto kernel = flash_bwd_dkv_kernel<D>;
+    const int smem = (int)BwdCfg<D>::smem_dkv(L);
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<dim3((L + BW_KT - 1) / BW_KT, B * H), BW_THREADS, smem, s>>>(
+        q, k, v, pad, out, dout, lse, ds, dk, dv, H, L, scale);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  if (parts & 2) {
+    auto kernel = flash_bwd_dq_kernel<D>;
+    const int smem = (int)BwdCfg<D>::smem_dq(L);
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<dim3((L + BW_QT - 1) / BW_QT, B * H), BW_THREADS, smem, s>>>(
+        k, pad, ds, dq, H, L, scale);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  return 0;
 }
 
 }  // namespace ds
@@ -673,41 +800,27 @@ extern "C" int ds_flash_attn_fwd(const void* q, const void* k, const void* v,
   }
 }
 
-// The backward's three launches. out, dout: [B, H, L, D]; lse, delta:
-// [B, H, L] float32. pre writes delta = rowsum(dout * out); dkv writes dk and
-// dv; dq writes dq (all [B, H, L, D]); dkv and dq read delta.
-extern "C" int ds_flash_attn_bwd_pre(const void* out, const void* dout, void* delta, int rows,
-                                     int D, void* stream) {
-  const int per_block = ds::BW_THREADS / 32;
-  ds::flash_bwd_pre_kernel<<<(rows + per_block - 1) / per_block, ds::BW_THREADS, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(out), static_cast<const float*>(dout),
-      static_cast<float*>(delta), rows, D);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int ds_flash_attn_bwd_dkv(const void* q, const void* k, const void* v,
-                                     const void* pad, const void* dout, const void* lse,
-                                     const void* delta, void* dk, void* dv, int B, int H, int L,
-                                     int D, float scale, void* stream) {
+// The backward. q, k, v, out, dout, dq, dk, dv: [B, H, L, D] float32; pad as
+// for the forward; lse: [B, H, L] float32; ds: scratch of B * H * LP * LP
+// float32 (LP = L rounded up to 64), 16-byte aligned. parts picks the
+// launches, run in this order: 1 dk, dv and dS, 2 dq (reads dS); a whole
+// backward is 3.
+extern "C" int ds_flash_attn_bwd(const void* q, const void* k, const void* v, const void* pad,
+                                 const void* out, const void* dout, const void* lse, void* ds,
+                                 void* dq, void* dk, void* dv, int B, int H, int L, int D,
+                                 float scale, int parts, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
+  auto f = [](const void* p) { return static_cast<const float*>(p); };
+  auto w = [](void* p) { return static_cast<float*>(p); };
+  auto pb = static_cast<const uint8_t*>(pad);
+#define DS_BWD(DD)                                                                       \
+  ds::launch_bwd<DD>(f(q), f(k), f(v), pb, f(out), f(dout), f(lse), w(ds), w(dq), w(dk), \
+                     w(dv), B, H, L, scale, parts, s)
   switch (D) {
-    case 32: return ds::launch_bwd_dkv<32>(q, k, v, pad, dout, lse, delta, dk, dv, B, H, L, scale, s);
-    case 64: return ds::launch_bwd_dkv<64>(q, k, v, pad, dout, lse, delta, dk, dv, B, H, L, scale, s);
-    case 128: return ds::launch_bwd_dkv<128>(q, k, v, pad, dout, lse, delta, dk, dv, B, H, L, scale, s);
+    case 32: return DS_BWD(32);
+    case 64: return DS_BWD(64);
+    case 128: return DS_BWD(128);
     default: return (int)cudaErrorInvalidValue;
   }
-}
-
-extern "C" int ds_flash_attn_bwd_dq(const void* q, const void* k, const void* v,
-                                    const void* pad, const void* dout, const void* lse,
-                                    const void* delta, void* dq, int B, int H, int L, int D,
-                                    float scale, void* stream) {
-  auto s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 32: return ds::launch_bwd_dq<32>(q, k, v, pad, dout, lse, delta, dq, B, H, L, scale, s);
-    case 64: return ds::launch_bwd_dq<64>(q, k, v, pad, dout, lse, delta, dq, B, H, L, scale, s);
-    case 128: return ds::launch_bwd_dq<128>(q, k, v, pad, dout, lse, delta, dq, B, H, L, scale, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+#undef DS_BWD
 }

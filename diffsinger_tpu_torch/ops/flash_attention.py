@@ -21,7 +21,7 @@ import torch
 
 from diffsinger_tpu_torch.ops import native
 
-# launches of the CUDA forward kernel, and of the backward (three kernels a
+# launches of the CUDA forward kernel, and of the backward (two kernels a
 # call), in this process
 launches = 0
 bwd_launches = 0
@@ -122,11 +122,19 @@ def _launch_fwd(q, k, v, key_padding_mask, sm_scale, lse=None):
     return out
 
 
+def bwd_scratch(batch_heads: int, length: int, device) -> torch.Tensor:
+    """The backward's dS, float32 [batch_heads, LP, LP] (LP = length rounded
+    up to 64): the dK/dV kernel writes it where a tile pair is visible, and
+    the dQ kernel reads back only those."""
+    lp = -(-length // 64) * 64
+    return torch.empty(batch_heads, lp, lp, device=device, dtype=torch.float32)
+
+
 def flash_attention_bwd(q, k, v, key_padding_mask, out, lse, dout, *, sm_scale: float):
     """(dq, dk, dv) of K3 from the forward's output and log-sum-exp.
 
     On CPU tensors this is the plain version; on CUDA tensors it launches the
-    three backward kernels (delta, dK/dV, dQ) or raises.
+    two backward kernels (dK/dV with delta and dS, then dQ) or raises.
     """
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, key_padding_mask, out, lse, dout,
@@ -136,21 +144,13 @@ def flash_attention_bwd(q, k, v, key_padding_mask, out, lse, dout, *, sm_scale: 
     native.require(out, "out", device=q.device, dtype=torch.float32, shape=q.shape)
     native.require(dout, "dout", device=q.device, dtype=torch.float32, shape=q.shape)
     native.require(lse, "lse", device=q.device, dtype=torch.float32, shape=(b, h, l))
-    delta = torch.empty_like(lse)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    lib = native.load("flash_attention")
-    stream = native.stream_ptr(q)
-    pad_ptr = None if pad is None else pad.data_ptr()
-    native.check(lib.ds_flash_attn_bwd_pre(out.data_ptr(), dout.data_ptr(), delta.data_ptr(),
-                                           b * h * l, d, stream), "flash_attention bwd delta")
-    native.check(lib.ds_flash_attn_bwd_dkv(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), pad_ptr, dout.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, l, d, float(sm_scale), stream),
-        "flash_attention bwd dkv")
-    native.check(lib.ds_flash_attn_bwd_dq(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), pad_ptr, dout.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dq.data_ptr(), b, h, l, d, float(sm_scale), stream),
-        "flash_attention bwd dq")
+    ds = bwd_scratch(b * h, l, q.device)
+    native.check(native.load("flash_attention").ds_flash_attn_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), None if pad is None else pad.data_ptr(),
+        out.data_ptr(), dout.data_ptr(), lse.data_ptr(), ds.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), b, h, l, d, float(sm_scale), 3, native.stream_ptr(q)),
+        "flash_attention bwd")
     global bwd_launches
     bwd_launches += 1
     return dq, dk, dv

@@ -48,9 +48,7 @@ SIGNATURES = {
     ("lynx_fused", "ds_lynx_pw1_swiglu"): (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     ("lynx_fused", "ds_lynx_pw2"): (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     ("flash_attention", "ds_flash_attn_fwd"): (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P),
-    ("flash_attention", "ds_flash_attn_bwd_pre"): (_P, _P, _P, _I, _I, _P),
-    ("flash_attention", "ds_flash_attn_bwd_dkv"): (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
-    ("flash_attention", "ds_flash_attn_bwd_dq"): (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
+    ("flash_attention", "ds_flash_attn_bwd"): (_P,) * 11 + (_I, _I, _I, _I, _F, _I, _P),
 }
 
 

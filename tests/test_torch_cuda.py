@@ -358,28 +358,45 @@ def test_variance_model_kernels_against_plain_float32(dev, monkeypatch):
 
 # ------------------------------------------------------------------ training
 
-def _k3_bwd_case(dev, b, length, d, padded=True, seed=0):
+def _k3_bwd_case(dev, b, length, d, mask="tail", seed=0):
+    """q, k, v, key padding and dout for K3's backward. mask: "none"; "tail"
+    (row i's last (7 i) % (L / 2) positions padded); "tiles" (whole 64-row
+    query and key tiles padded: a row padded from 64 on, a row with its first
+    128 positions padded, a row with every other 64-row tile padded, a row
+    without padding); "random" (each position padded with probability 0.3:
+    no contiguous tail)."""
     g = torch.Generator(device=dev).manual_seed(seed)
     q, k, v, dout = (torch.randn(b, 2, length, d, generator=g, device=dev) for _ in range(4))
-    pad = None
-    if padded:
-        pad = torch.zeros(b, length, dtype=torch.bool, device=dev)
-        for i in range(b):
+    if mask == "none":
+        return q, k, v, None, dout
+    pad = torch.zeros(b, length, dtype=torch.bool, device=dev)
+    pos = torch.arange(length, device=dev)
+    for i in range(b):
+        if mask == "tail":
             pad[i, length - (7 * i) % (length // 2):] = True
+        elif mask == "tiles":
+            pad[i] = (pos >= 64, pos < 128, (pos // 64) % 2 == 1, pos < 0)[i % 4]
+        else:
+            pad[i] = torch.rand(length, generator=g, device=dev) < 0.3
     return q, k, v, pad, dout
 
 
-@pytest.mark.parametrize("b,length,d,padded", [
-    (48, 128, 128, True),    # the training batch's encoder
-    (16, 512, 128, True),    # the long shape
-    (4, 200, 128, False),    # ragged against every tile, no mask
-    (3, 77, 64, True), (2, 50, 32, True), (16, 32, 128, True),
+@pytest.mark.parametrize("b,length,d,mask", [
+    (48, 128, 128, "tail"),    # the training batch's encoder
+    (16, 512, 128, "tail"),    # the long shape
+    (4, 200, 128, "none"),     # ragged against every tile, no mask
+    (3, 77, 64, "tail"), (2, 50, 32, "tail"), (16, 32, 128, "tail"),
+    (4, 512, 128, "tiles"),    # whole query and key tiles skipped, both ways
+    (4, 300, 64, "tiles"),     # the same with a ragged last tile
+    (3, 256, 128, "random"),   # pad that is not a contiguous tail
+    (2, 513, 128, "tail"), (2, 1024, 128, "tail"), (2, 1024, 128, "random"),
+    (4, 384, 32, "tail"), (4, 640, 64, "random"),
 ])
-def test_k3_backward_kernel(dev, b, length, d, padded):
+def test_k3_backward_kernel(dev, b, length, d, mask):
     """K3's backward kernels against the plain backward on the forward
     kernel's output and log-sum-exp: dq, dk, dv within 1e-4 of the largest
-    reference entry (float32, summation order)."""
-    q, k, v, pad, dout = _k3_bwd_case(dev, b, length, d, padded)
+    reference entry (float32 accuracy: 3xTF32, summation order)."""
+    q, k, v, pad, dout = _k3_bwd_case(dev, b, length, d, mask)
     scale = d ** -0.5
     qr, kr, vr = (t.clone().requires_grad_() for t in (q, k, v))
     n_fwd, n_bwd = flash_attention.launches, flash_attention.bwd_launches
@@ -392,7 +409,23 @@ def test_k3_backward_kernel(dev, b, length, d, padded):
         q, k, v, pad, flash_attention.flash_attention_plain(q, k, v, pad, sm_scale=scale), lse,
         dout, sm_scale=scale)
     for a, w in zip(got, want):
+        assert torch.isfinite(a).all()
         assert _max_err(a, w) <= 1e-4 * w.abs().max().item()
+
+
+@pytest.mark.parametrize("b,length,mask", [(48, 128, "tail"), (3, 256, "random")])
+def test_k3_backward_is_deterministic(dev, b, length, mask):
+    """Every output of the backward has one owner block and no atomics: two
+    calls on the same inputs give bitwise-equal dq, dk and dv."""
+    q, k, v, pad, dout = _k3_bwd_case(dev, b, length, 128, mask, seed=1)
+    scale = 128 ** -0.5
+    lse = torch.empty(b, 2, length, device=dev)
+    out = flash_attention._launch_fwd(q, k, v, pad, scale, lse)
+    first = flash_attention.flash_attention_bwd(q, k, v, pad, out, lse, dout, sm_scale=scale)
+    second = flash_attention.flash_attention_bwd(q, k, v, pad, out, lse, dout, sm_scale=scale)
+    torch.cuda.synchronize()
+    for a, w in zip(first, second):
+        assert torch.equal(a, w)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

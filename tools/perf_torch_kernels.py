@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Kernel sweeps for the PyTorch/CUDA port on one NVIDIA GPU (H100).
 
-    python3 tools/perf_torch_kernels.py [k1] [k3] [k2] [k1probe]
+    python3 tools/perf_torch_kernels.py [k1] [k3] [k3bwd] [k2] [k1probe] [k3bwdprobe] [mmarate]
 
 k1: the depthwise conv + PReLU kernel at the main path's shape, the long
     phrase's and the ConvNeXt-like k = 7 shape in bf16: the generic kernel and
@@ -15,6 +15,12 @@ k3: the flash-attention kernel at each tile size BQ it is built for (direct
     calls of the C function, so the wrapper's choice is not in the way) at the
     encoder's shapes, checked against the plain version, with the wrapper's
     own choice, SDPA and the float32 bound beside it.
+k3bwd: K3's backward (3xTF32 on the tensor cores) over L in 32, 128, 512,
+    1024 and B * H in 32, 96 (H = 2, D = 128, each row's tail padded as in
+    ``chip_smoke.py``), checked against the plain backward (1e-4 of the
+    largest entry): the wrapper's time, its two kernels together in one C
+    call, the bound on the CUDA cores (float32) and in 3xTF32, and SDPA's
+    backward with a bool mask.
 k2: the conv module's two bf16 GEMMs alone at the main shape, with
     ``torch.matmul`` on the same operands as a yardstick (it computes no LN,
     SwiGLU or bias, and the port never calls it).
@@ -26,6 +32,15 @@ k1probe (only when named): where K1's time goes. Builds ``depthwise_conv.cu``
     of the k = 31 tile kernel by opcode (``cuobjdump``, where the toolkit
     has it). Probe builds compute nothing useful and are checked against
     nothing.
+
+k3bwdprobe (only when named): K3's backward built again with its probe
+    macros (the TF32 split by the cvt.rna.tf32.f32 instruction instead of
+    integer arithmetic; one TF32 product instead of three, which misses the
+    tolerance) beside the shipped build: each kernel alone at
+    [48, 2, 128, 128], its registers and spills, and its error.
+mmarate (only when named): the rate and latency of mma.sync m16n8k8 tf32
+    (``tools/mma_rate.cu``): one chain of dependent products a warp, and
+    eight, at 2 blocks of 8 warps an SM.
 
 Times are CUDA-event means over 20 launches after 3 warm-ups. Exits non-zero
 if a kernel disagrees with its plain version.
@@ -53,6 +68,7 @@ from diffsinger_tpu_torch.ops import lynx_fused as lf  # noqa: E402
 from diffsinger_tpu_torch.ops import native  # noqa: E402
 
 PEAK_F32 = 67e12  # H100 SXM, CUDA cores
+PEAK_TF32 = 495e12  # H100 SXM, TF32 tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM, device memory
 
 
@@ -217,6 +233,128 @@ def sweep_k3(dev, gen) -> int:
     return bad
 
 
+def sweep_k3bwd(dev, gen) -> int:
+    lib = native.load("flash_attention")
+    bad = 0
+    for length in (32, 128, 512, 1024):
+        for b in (16, 48):
+            h, d = 2, 128
+            scale = d ** -0.5
+            q, k, v, dout = (torch.randn(b, h, length, d, generator=gen, device=dev)
+                             for _ in range(4))
+            pad = torch.zeros(b, length, dtype=torch.bool, device=dev)
+            for i in range(b):
+                pad[i, length - (7 * i) % (length // 2):] = True
+            lse = torch.empty(b, h, length, device=dev)
+            out = fa._launch_fwd(q, k, v, pad, scale, lse)
+            got = fa.flash_attention_bwd(q, k, v, pad, out, lse, dout, sm_scale=scale)
+            want = fa.flash_attention_bwd_plain(q, k, v, pad, out, lse, dout, sm_scale=scale)
+            err = max((a - w).abs().max().item() / w.abs().max().item()
+                      for a, w in zip(got, want))
+            bad += not err <= 1e-4
+            ds = fa.bwd_scratch(b * h, length, dev)
+            grads = [torch.empty_like(q) for _ in range(3)]
+            args = [t.data_ptr() for t in (q, k, v, pad.view(torch.uint8), out, dout, lse, ds,
+                                           *grads)]
+            stream = native.stream_ptr(q)
+            alone = time_ms(lambda: native.check(lib.ds_flash_attn_bwd(
+                *args, b, h, length, d, scale, 3, stream), "flash_attention bwd"))
+            wrapper = time_ms(lambda: fa.flash_attention_bwd(q, k, v, pad, out, lse, dout,
+                                                             sm_scale=scale))
+            visible = pad[:, None, :, None] == pad[:, None, None, :]
+            flop = 10 * int(visible.sum().item()) * h * d
+            bytes_ = 4 * 8 * q.numel() + 4 * lse.numel() + pad.numel()
+            bound_f32 = max(flop / PEAK_F32, bytes_ / PEAK_BYTES) * 1e3
+            bound_tc = max(3 * flop / PEAK_TF32, bytes_ / PEAK_BYTES) * 1e3
+            qr, kr, vr = (t.clone().requires_grad_() for t in (q, k, v))
+            o = F.scaled_dot_product_attention(qr, kr, vr, attn_mask=visible)
+            sdpa = time_ms(lambda: torch.autograd.grad(o, (qr, kr, vr), dout, retain_graph=True))
+            print(f"K3-bwd [{b},{h},{length},{d}] padded: wrapper {wrapper:.4f} ms, kernels "
+                  f"{alone:.4f} ms; bound {bound_f32:.4f} ms (CUDA cores), {bound_tc:.4f} ms "
+                  f"(3xTF32); SDPA backward {sdpa:.4f} ms; max|err|/max|ref| {err:.2e}")
+    return bad
+
+
+def probe_k3bwd(dev, gen) -> int:
+    src = native.CSRC / "flash_attention.cu"
+    out_dir = native.BUILD_DIR / "probe"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    builds = {"as shipped": [], "split by cvt.rna.tf32.f32": ["-DDS_PROBE_CVT_SPLIT"],
+              "one TF32 product (misses the tolerance)": ["-DDS_PROBE_ONE_MMA"]}
+    procs = {}
+    for n, (name, flags) in enumerate(builds.items()):
+        lib_path = out_dir / f"libk3bwd_probe{n}.so"
+        procs[name] = (lib_path, subprocess.Popen(
+            [nvcc, *native.NVCC_FLAGS, *flags, "-o", str(lib_path), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    b, h, length, d = 48, 2, 128, 128
+    scale = d ** -0.5
+    q, k, v, dout = (torch.randn(b, h, length, d, generator=gen, device=dev) for _ in range(4))
+    pad = torch.zeros(b, length, dtype=torch.bool, device=dev)
+    for i in range(b):
+        pad[i, length - (7 * i) % (length // 2):] = True
+    lse = torch.empty(b, h, length, device=dev)
+    out = fa._launch_fwd(q, k, v, pad, scale, lse)
+    want = fa.flash_attention_bwd_plain(q, k, v, pad, out, lse, dout, sm_scale=scale)
+    ds = fa.bwd_scratch(b * h, length, dev)
+    grads = [torch.empty_like(q) for _ in range(3)]
+    args = [t.data_ptr() for t in (q, k, v, pad.view(torch.uint8), out, dout, lse, ds, *grads)]
+    for name, (lib_path, proc) in procs.items():
+        msg, _ = proc.communicate()
+        if proc.returncode:
+            print(msg)
+            return 1
+        lines = msg.splitlines()
+        used = {kern: next((" ".join(part.replace("ptxas info    :", "").strip()
+                                     for part in lines[i + 2:i + 4])
+                            for i, line in enumerate(lines)
+                            if "Compiling" in line and f"flash_bwd_{kern}_kernelILi128" in line), "")
+                for kern in ("dkv", "dq")}
+        lib = ctypes.CDLL(str(lib_path))
+        lib.ds_flash_attn_bwd.argtypes = list(native.SIGNATURES[("flash_attention", "ds_flash_attn_bwd")])
+
+        def call(parts):
+            native.check(lib.ds_flash_attn_bwd(*args, b, h, length, d, scale, parts,
+                                               native.stream_ptr(q)), "probe")
+
+        call(3)
+        err = max((a - w).abs().max().item() / w.abs().max().item() for a, w in zip(grads, want))
+        print(f"K3-bwd probe [{b},{h},{length},{d}], {name}: dK/dV {time_ms(lambda: call(1)):.4f} "
+              f"ms ({used['dkv']}), dQ {time_ms(lambda: call(2)):.4f} ms ({used['dq']}); "
+              f"max|err|/max|ref| {err:.2e}")
+    return 0
+
+
+def mma_rate(dev) -> int:
+    out_dir = native.BUILD_DIR / "probe"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    lib_path = out_dir / "libmma_rate.so"
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    subprocess.run([nvcc, *native.NVCC_FLAGS, "-o", str(lib_path),
+                    str(Path(__file__).resolve().parent / "mma_rate.cu")],
+                   check=True, capture_output=True)
+    lib = ctypes.CDLL(str(lib_path))
+    lib.mma_rate.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 4
+    out = torch.zeros(1024, device=dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    clock = float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                                  "--format=csv,noheader,nounits"],
+                                 capture_output=True, text=True).stdout.split()[0]) * 1e6
+    for blocks_per_sm, threads, chains in ((1, 128, 1), (2, 256, 8)):
+        blocks, iters = sms * blocks_per_sm, 4000
+        native.check(lib.mma_rate(out.data_ptr(), blocks, threads, 10, chains), "mma_rate")
+        ms = time_ms(lambda: native.check(lib.mma_rate(out.data_ptr(), blocks, threads, iters,
+                                                       chains), "mma_rate"), iters=3, warmup=1)
+        per_sm = blocks * threads / 32 * iters * chains / sms / (ms * 1e-3)
+        in_flight = blocks_per_sm * threads / 32 * chains
+        print(f"mma.sync m16n8k8 tf32, {blocks_per_sm} x {threads} threads an SM, {chains} chain(s) "
+              f"a warp: {per_sm * sms * 2048 / 1e12:.1f} TFLOP/s, {per_sm / 1e9:.3f} G mma/s an SM"
+              + (f", {in_flight * clock / per_sm:.1f} clocks from one mma to the next of a chain "
+                 f"at {clock / 1e6:.0f} MHz" if chains == 1 else ""))
+    return 0
+
+
 def sweep_k2(dev, gen) -> int:
     lib = native.load("lynx_fused")
     bf = torch.bfloat16
@@ -252,7 +390,7 @@ def sweep_k2(dev, gen) -> int:
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA card")
-    which = sys.argv[1:] or ["k1", "k3", "k2"]
+    which = sys.argv[1:] or ["k1", "k3", "k3bwd", "k2"]
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip())
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -265,8 +403,14 @@ def main() -> None:
         bad += probe_k1(dev, gen)
     if "k3" in which:
         bad += sweep_k3(dev, gen)
+    if "k3bwd" in which:
+        bad += sweep_k3bwd(dev, gen)
     if "k2" in which:
         bad += sweep_k2(dev, gen)
+    if "k3bwdprobe" in which:
+        bad += probe_k3bwd(dev, gen)
+    if "mmarate" in which:
+        bad += mma_rate(dev)
     sys.exit(1 if bad else 0)
 
 
