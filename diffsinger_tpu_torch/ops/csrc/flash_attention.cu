@@ -338,13 +338,14 @@ int launch_flash_d(int bq, const void* q, const void* k, const void* v, const vo
 // Single-pass TF32 keeps 11 bits and would miss the 1e-4 tolerance.
 //
 // What bounds it on the H100 is not the tensor cores but the instruction
-// stream around them. mma.sync m16n8k8 tf32 peaks near 300 TFLOP/s there
-// (about one mma per 1.8 clocks an SM, 44 clocks of latency; measured by a
-// microbenchmark), 60 % of wgmma's 495. Each mma needs its B fragment loaded
+// stream around them. mma.sync m16n8k8 tf32 peaks at 306 TFLOP/s there, 62 %
+// of wgmma's 495, with 31 clocks from one mma to the next of a dependent
+// chain (tools/perf_torch_kernels.py mmarate, H100 80GB HBM3 at 700 W). Each mma needs its B fragment loaded
 // from shared memory and split by every warp that uses it, and the dK, dV
 // sums (128 registers at D = 128) leave room for only 8 warps an SM. The
 // split is integer arithmetic (3 instructions an operand): cvt.rna.tf32.f32
-// compiles to a longer compare-and-select sequence on sm_90. In the dkv
+// compiles to a longer compare-and-select sequence on sm_90 (dK/dV 0.0671
+// against 0.0599 ms at [48, 2, 128, 128] on the H100). In the dkv
 // kernel every operand is split as it is read; Q and dO come through a
 // two-stage cp.async ring. The dq kernel splits its B operand (K) once a
 // block: K lands in a "hi" plane and one pass splits it in place into "hi"
@@ -402,14 +403,8 @@ struct BwdCfg {
 // cvt.rna.tf32.f32 rounds finite x), lo = x - hi exactly. The tensor core
 // reads the top 19 bits of lo, so lo enters with an error of 2^-21 of x at
 // most.
-// (DS_PROBE_CVT_SPLIT, for tools/perf_torch_kernels.py k3bwdprobe only: the
-// same rounding by the cvt instruction.)
 __device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-#ifdef DS_PROBE_CVT_SPLIT
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
-#else
   hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-#endif
   lo = __float_as_uint(x - __uint_as_float(hi));
 }
 __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
@@ -431,7 +426,9 @@ struct FragA {
 };
 // d += a b, small terms first: b = (b0, b1) split here, or read from split
 // planes (hi, lo) at offsets o0, o1
-// (DS_PROBE_ONE_MMA, for the probe only: a_hi b_hi alone, single-pass TF32.)
+// (DS_PROBE_ONE_MMA, for tools/perf_torch_kernels.py k3bwdprobe only: a_hi b_hi
+// alone, single-pass TF32, which misses the tolerance; it measures what the two
+// extra products of 3xTF32 cost.)
 __device__ __forceinline__ void mma_3xtf32(float (&d)[4], const FragA& a, const uint32_t (&bh)[2],
                                            const uint32_t (&bl)[2]) {
 #ifndef DS_PROBE_ONE_MMA

@@ -125,7 +125,13 @@ def _launch_fwd(q, k, v, key_padding_mask, sm_scale, lse=None):
 def bwd_scratch(batch_heads: int, length: int, device) -> torch.Tensor:
     """The backward's dS, float32 [batch_heads, LP, LP] (LP = length rounded
     up to 64): the dK/dV kernel writes it where a tile pair is visible, and
-    the dQ kernel reads back only those."""
+    the dQ kernel reads back only those.
+
+    It takes 4 * batch_heads * LP^2 bytes, quadratic in the length: 6.3 MB at
+    [48 x 2 heads, 128], 33.5 MB at [16 x 2, 512], 0.54 GB at [16 x 2, 2048].
+    Under a batch sampler's frame budget F (B * L <= F, a token lasting at
+    least one frame) it is at most 4 * H * F * LP bytes: 0.33 GB at H = 2,
+    F = 80,000 and LP = 512, 1.3 GB at LP = 2048."""
     lp = -(-length // 64) * 64
     return torch.empty(batch_heads, lp, lp, device=device, dtype=torch.float32)
 

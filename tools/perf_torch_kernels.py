@@ -19,8 +19,8 @@ k3bwd: K3's backward (3xTF32 on the tensor cores) over L in 32, 128, 512,
     1024 and B * H in 32, 96 (H = 2, D = 128, each row's tail padded as in
     ``chip_smoke.py``), checked against the plain backward (1e-4 of the
     largest entry): the wrapper's time, its two kernels together in one C
-    call, the bound on the CUDA cores (float32) and in 3xTF32, and SDPA's
-    backward with a bool mask.
+    call, the bound of its route (3xTF32) and that of float32 on the CUDA
+    cores, and SDPA's backward with a bool mask.
 k2: the conv module's two bf16 GEMMs alone at the main shape, with
     ``torch.matmul`` on the same operands as a yardstick (it computes no LN,
     SwiGLU or bias, and the port never calls it).
@@ -34,10 +34,10 @@ k1probe (only when named): where K1's time goes. Builds ``depthwise_conv.cu``
     nothing.
 
 k3bwdprobe (only when named): K3's backward built again with its probe
-    macros (the TF32 split by the cvt.rna.tf32.f32 instruction instead of
-    integer arithmetic; one TF32 product instead of three, which misses the
-    tolerance) beside the shipped build: each kernel alone at
-    [48, 2, 128, 128], its registers and spills, and its error.
+    macro (one TF32 product instead of three, which misses the tolerance)
+    beside the shipped build: each kernel alone at [48, 2, 128, 128], its
+    registers and spills, and its error. The difference is what the two extra
+    products of 3xTF32 cost.
 mmarate (only when named): the rate and latency of mma.sync m16n8k8 tf32
     (``tools/mma_rate.cu``): one chain of dependent products a warp, and
     eight, at 2 blocks of 8 warps an SM.
@@ -264,14 +264,14 @@ def sweep_k3bwd(dev, gen) -> int:
             visible = pad[:, None, :, None] == pad[:, None, None, :]
             flop = 10 * int(visible.sum().item()) * h * d
             bytes_ = 4 * 8 * q.numel() + 4 * lse.numel() + pad.numel()
-            bound_f32 = max(flop / PEAK_F32, bytes_ / PEAK_BYTES) * 1e3
             bound_tc = max(3 * flop / PEAK_TF32, bytes_ / PEAK_BYTES) * 1e3
+            bound_f32 = max(flop / PEAK_F32, bytes_ / PEAK_BYTES) * 1e3
             qr, kr, vr = (t.clone().requires_grad_() for t in (q, k, v))
             o = F.scaled_dot_product_attention(qr, kr, vr, attn_mask=visible)
             sdpa = time_ms(lambda: torch.autograd.grad(o, (qr, kr, vr), dout, retain_graph=True))
             print(f"K3-bwd [{b},{h},{length},{d}] padded: wrapper {wrapper:.4f} ms, kernels "
-                  f"{alone:.4f} ms; bound {bound_f32:.4f} ms (CUDA cores), {bound_tc:.4f} ms "
-                  f"(3xTF32); SDPA backward {sdpa:.4f} ms; max|err|/max|ref| {err:.2e}")
+                  f"{alone:.4f} ms; bound {bound_tc:.4f} ms (3xTF32), {bound_f32:.4f} ms "
+                  f"(float32, CUDA cores); SDPA backward {sdpa:.4f} ms; max|err|/max|ref| {err:.2e}")
     return bad
 
 
@@ -280,8 +280,7 @@ def probe_k3bwd(dev, gen) -> int:
     out_dir = native.BUILD_DIR / "probe"
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    builds = {"as shipped": [], "split by cvt.rna.tf32.f32": ["-DDS_PROBE_CVT_SPLIT"],
-              "one TF32 product (misses the tolerance)": ["-DDS_PROBE_ONE_MMA"]}
+    builds = {"as shipped": [], "one TF32 product (misses the tolerance)": ["-DDS_PROBE_ONE_MMA"]}
     procs = {}
     for n, (name, flags) in enumerate(builds.items()):
         lib_path = out_dir / f"libk3bwd_probe{n}.so"
