@@ -73,14 +73,27 @@ Phases, each printed as it ends; any failure exits non-zero:
    frames/s, peak memory, launches per step: K3 4, K3's backward 4, K2 and K1
    6); one step under the profiler (idle share); a validation batch; a save
    and resume round trip in a temporary folder (``[train]`` lines);
-8. times: K1 at the long phrase's shape [1, 4096, 2048], K3 at the long
+8. train_variance: the variance model's training through ``VarianceTask``
+   (the task ``cli.train`` runs for configs/variance.yaml) at full width with
+   the four variances on, in '16-mixed', an in-memory seeded batch of B=48
+   segments of 1000-1664 frames (T_mel 1664, T_txt about 176, one note a
+   word) made by ``VarianceDataset.collater``: K3 and its backward against
+   their plain versions at the encoder's shape and at the melody encoder's
+   head width 64; one float32 step of a narrow model with the melody encoder
+   and glides on the card against the same step on CPU tensors; the loss
+   falling over 20 steps with fixed t, noise and retake masks; 10 timed steps
+   after 3 warm-ups (optimizer steps/s, true frames/s, peak memory, launches
+   per step: K3 4, K3's backward 4, K1 and K2 0); one step under the profiler
+   (idle share, top device operations); a validation batch (losses and
+   metrics); a save and resume round trip (``[train_variance]`` lines);
+9. times: K1 at the long phrase's shape [1, 4096, 2048], K3 at the long
    shape [16, 2, 512, 128], K2's two GEMMs alone and K3's backward at
    [48, 2, 128, 128] and [16, 2, 512, 128] with each of its kernels alone
-   and its bound on the CUDA cores and in 3xTF32 (``[time]`` lines), the
-   whole script's seconds, then the ``kernels`` JSON line (launches of every
-   path, the training steps' included, time, bound, plain and library
-   times) and the last line
-   ``{"ok": true, "device": {...}}``.
+   and its bound on the CUDA cores and in 3xTF32, then K3 and its backward
+   at the variance training shapes (``[time]`` lines), the whole script's
+   seconds, then the ``kernels`` JSON line (launches of every path, the
+   training steps' included, time, bound, plain and library times) and the
+   last line ``{"ok": true, "device": {...}}``.
 
 The models switch TF32 off for their own calls (``utils.no_tf32``), so the
 float32 phases run as the entry points do, with no setting of this script's.
@@ -825,6 +838,112 @@ def ddpm_phase(hp, card, reset_counts, read_counts, request):
     return out, launches
 
 
+def card_vs_cpu_step(tag, tasks, batch, draws, what=""):
+    """One float32 optimizer step of two tasks with the same weights: the
+    card's (kernels) and the CPU's (plain versions), on the same numpy batch
+    and draws (tensors, or dicts of them). Gradients within 1e-3 of each
+    one's largest entry; parameters after AdamW within 2 lr (its first step
+    moves an element by lr g / (|g| + eps), so a gradient near 0 may land on
+    either side), all but 1 % of each tensor's elements within 1e-6. Returns
+    the report and the K3 launches (forward, backward) of each step."""
+    from diffsinger_tpu_torch.ops import flash_attention
+
+    grads, launched = [], []
+    for task in tasks:
+        on = {k: ({n: m.to(task.device) for n, m in x.items()} if isinstance(x, dict)
+                  else x.to(task.device)) for k, x in draws.items()}
+        n_fwd, n_bwd = flash_attention.launches, flash_attention.bwd_launches
+        task.train_step(task.to_device(batch), **on)
+        launched.append((flash_attention.launches - n_fwd, flash_attention.bwd_launches - n_bwd))
+        # a copy: apply_update clips the gradients in place (.cpu() of a CPU tensor is itself)
+        grads.append({n: p.grad.detach().float().cpu().clone()
+                      for n, p in task.module.named_parameters()})
+        task.apply_update()
+    grad_err = max(max_err(grads[0][n], w) / max(w.abs().max().item(), 1e-8)
+                   for n, w in grads[1].items())
+    lr = tasks[0].hp["optimizer_args"]["lr"]
+    diffs = [(a.cpu() - w).abs() for a, w in zip(tasks[0].module.state_dict().values(),
+                                                  tasks[1].module.state_dict().values())]
+    param_err = max(d.max().item() for d in diffs)
+    param_off = max((d > 1e-6).float().mean().item() for d in diffs)
+    log(f"[{tag}] f32 narrow step{what}, card vs CPU: gradients max|err|/max|ref| {grad_err:.3e} "
+        f"(tolerance 1e-3) over {len(grads[1])} parameters; parameters after AdamW max|err| "
+        f"{param_err:.3e} (tolerance 2 lr = {2 * lr:.1e}), share of elements off by > 1e-6 "
+        f"{param_off:.4f} (tolerance 0.01); K3 launches (forward, backward) card {launched[0]}, "
+        f"CPU {launched[1]}")
+    if not (grad_err <= 1e-3 and param_err <= 2 * lr and param_off <= 0.01):
+        fail(f"[{tag}] the float32 training step on the card disagrees with the step on the CPU")
+    return {"grad_rel_err": grad_err, "param_err": param_err, "param_share_off": param_off,
+            "k3_launches": launched[0]}, launched
+
+
+def timed_train_steps(tag, task, batch, per_step, reset_counts, read_counts):
+    """The loop's body (its seeding, draws from the global generators):
+    ``TRAIN_WARMUP`` steps, then ``TRAIN_STEPS`` timed ones with the launch
+    counters reset before them and checked against ``per_step`` after.
+    Returns the seconds, the counts, the peak memory in GiB, the last step's
+    metrics and the step function."""
+    import torch
+
+    from diffsinger_tpu_torch.ops import flash_attention
+    from diffsinger_tpu_torch.training.base_task import micro_seed
+
+    seed, micro = task.hp.get("seed") or 0, task.global_step
+
+    def step():
+        nonlocal micro
+        torch.manual_seed(micro_seed(seed, micro))
+        metrics = task.train_step(batch)
+        metrics["grad_norm"] = task.apply_update()
+        micro += 1
+        return metrics
+
+    for _ in range(TRAIN_WARMUP):
+        step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        metrics = step()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(read_counts(), K3bwd=flash_attention.bwd_launches)
+    want = {k: n * TRAIN_STEPS for k, n in per_step.items()}
+    values = {k: float(v) for k, v in metrics.items()}
+    log(f"[{tag}] launches over {TRAIN_STEPS} steps: {counts} (expected {want})")
+    if counts != want:
+        fail(f"[{tag}] launch counts {counts} != {want}")
+    if not all(math.isfinite(v) for v in values.values()):
+        fail(f"[{tag}] non-finite metrics {values}")
+    return wall, counts, torch.cuda.max_memory_allocated() / 2**30, values, step
+
+
+def check_resume(tag, task, task_cls, hp):
+    """Save, then resume a new task from the same folder: the weights, the
+    AdamW moments, the step and the scheduler must come back."""
+    import torch
+
+    task.save()
+    resumed = quiet(task_cls, hp)
+    resumed.configure_optimizer()
+    quiet(resumed.init_or_resume)
+    state, state2 = task.module.state_dict(), resumed.module.state_dict()
+    opt_a = task.optimizer.state_dict()["state"]
+    opt_b = resumed.optimizer.state_dict()["state"]
+    same = (resumed.global_step == task.global_step and state.keys() == state2.keys()
+            and all(torch.equal(state[k], state2[k].to(state[k].device)) for k in state)
+            and opt_a.keys() == opt_b.keys()
+            and all(torch.equal(opt_a[i][m], opt_b[i][m].to(opt_a[i][m].device)) for i in opt_a
+                    for m in ("exp_avg", "exp_avg_sq"))
+            and resumed.scheduler.state_dict()["last_epoch"] == task.global_step)
+    log(f"[{tag}] save and resume at step {task.global_step}: weights, AdamW moments and "
+        f"the scheduler {'restored' if same else 'DIFFER'}")
+    if not same:
+        fail(f"[{tag}] the resumed task differs from the saved one")
+    return task.global_step
+
+
 TRAIN_B, TRAIN_T_TXT, TRAIN_T_MEL = 48, 128, 1024
 TRAIN_LENGTHS = (600, 1024)  # segment lengths in frames
 TRAIN_STEPS, TRAIN_WARMUP = 10, 3  # timed steps, after the warm-ups
@@ -867,7 +986,6 @@ def train_phase(card, reset_counts, read_counts, check):
     from diffsinger_tpu_torch.data.dataset import AcousticDataset
     from diffsinger_tpu_torch.ops import flash_attention
     from diffsinger_tpu_torch.training.acoustic_task import AcousticTask
-    from diffsinger_tpu_torch.training.base_task import micro_seed
 
     class MemoryDataset(AcousticDataset):
         """Acoustic items held in memory, behind the dataset's collater."""
@@ -933,28 +1051,11 @@ def train_phase(card, reset_counts, read_counts, check):
              if isinstance(v, np.ndarray) and k != "indices"}
     t_small = torch.from_numpy(rng.uniform(0.4, 1, 4).astype(np.float32))
     noise_small = torch.from_numpy(rng.standard_normal((4, 256, 128)).astype(np.float32))
-    grads = []
-    for task in tasks:
-        task.train_step(task.to_device(small), t=t_small.to(task.device),
-                        noise=noise_small.to(task.device))
-        grads.append({n: p.grad.detach().float().cpu() for n, p in task.module.named_parameters()})
-        task.apply_update()
-    grad_err = max(max_err(grads[0][n], w) / max(w.abs().max().item(), 1e-8)
-                   for n, w in grads[1].items())
-    lr = tasks[0].hp["optimizer_args"]["lr"]
-    diffs = [(a.cpu() - w).abs() for a, w in zip(tasks[0].module.state_dict().values(),
-                                                  tasks[1].module.state_dict().values())]
-    param_err = max(d.max().item() for d in diffs)
-    param_off = max((d > 1e-6).float().mean().item() for d in diffs)
-    log(f"[train] f32 narrow step, card vs CPU: gradients max|err|/max|ref| {grad_err:.3e} "
-        f"(tolerance 1e-3) over {len(grads[1])} parameters; parameters after AdamW max|err| "
-        f"{param_err:.3e} (tolerance 2 lr = {2 * lr:.1e}), share of elements off by > 1e-6 "
-        f"{param_off:.4f} (tolerance 0.01)")
-    report["f32_step_vs_cpu"] = {"grad_rel_err": grad_err, "param_err": param_err,
-                                 "param_share_off": param_off}
-    if not (grad_err <= 1e-3 and param_err <= 2 * lr and param_off <= 0.01):
-        fail("the float32 training step on the card disagrees with the same step on the CPU")
-    del tasks, grads
+    report["f32_step_vs_cpu"], launched = card_vs_cpu_step(
+        "train", tasks, small, dict(t=t_small, noise=noise_small))
+    if launched != [(2, 2), (0, 0)]:  # a layer of the encoder each, on the card only
+        fail(f"[train] the narrow step's K3 launches {launched} != [(2, 2), (0, 0)]")
+    del tasks
 
     # the full-width task, bf16 autocast over float32 parameters and AdamW
     hp = task_hp(tmp / "exp")
@@ -992,36 +1093,9 @@ def train_phase(card, reset_counts, read_counts, check):
     if not (all(math.isfinite(x) for x in losses) and last < first):
         fail("[train] the loss did not fall on a fixed batch")
 
-    # steady steps: the loop's body (its seeding, draws from the generators)
-    seed, micro = hp.get("seed") or 0, task.global_step
-
-    def step():
-        nonlocal micro
-        torch.manual_seed(micro_seed(seed, micro))
-        metrics = task.train_step(batch)
-        metrics["grad_norm"] = task.apply_update()
-        micro += 1
-        return metrics
-
-    for _ in range(TRAIN_WARMUP):
-        step()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts()
-    t0 = time.perf_counter()
-    for _ in range(TRAIN_STEPS):
-        metrics = step()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = dict(read_counts(), K3bwd=flash_attention.bwd_launches)
-    want = {k: n * TRAIN_STEPS for k, n in TRAIN_PER_STEP.items()}
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    values = {k: float(v) for k, v in metrics.items()}
-    log(f"[train] launches over {TRAIN_STEPS} steps: {counts} (expected {want})")
-    if counts != want:
-        fail(f"[train] launch counts {counts} != {want}")
-    if not all(math.isfinite(v) for v in values.values()):
-        fail(f"[train] non-finite metrics {values}")
+    # steady steps, as the loop runs them
+    wall, counts, peak, values, step = timed_train_steps("train", task, batch, TRAIN_PER_STEP,
+                                                         reset_counts, read_counts)
     sps = TRAIN_STEPS / wall
     log(f"[train] {TRAIN_STEPS} steps of B={TRAIN_B} T_mel={TRAIN_T_MEL} ({true_frames} true "
         f"frames) in {wall:.3f} s: {sps:.3f} optimizer steps/s, {sps * true_frames:.1f} mel "
@@ -1042,28 +1116,267 @@ def train_phase(card, reset_counts, read_counts, check):
         fail(f"[train] validation losses {val}")
     report["validation"] = val
 
-    # save, then resume in a new task from the same folder
-    task.save()
-    resumed = quiet(AcousticTask, hp)
-    resumed.configure_optimizer()
-    quiet(resumed.init_or_resume)
-    state, state2 = task.module.state_dict(), resumed.module.state_dict()
-    opt_a = task.optimizer.state_dict()["state"]
-    opt_b = resumed.optimizer.state_dict()["state"]
-    same = (resumed.global_step == task.global_step and state.keys() == state2.keys()
-            and all(torch.equal(state[k], state2[k].to(state[k].device)) for k in state)
-            and opt_a.keys() == opt_b.keys()
-            and all(torch.equal(opt_a[i]["exp_avg_sq"], opt_b[i]["exp_avg_sq"].to(dev)) for i in opt_a)
-            and resumed.scheduler.state_dict()["last_epoch"] == task.global_step)
-    log(f"[train] save and resume at step {task.global_step}: weights, AdamW moments and "
-        f"the scheduler {'restored' if same else 'DIFFER'}")
-    if not same:
-        fail("[train] the resumed task differs from the saved one")
-    report["resume_step"] = task.global_step
-    del resumed, task
+    report["resume_step"] = check_resume("train", task, AcousticTask, hp)
+    del task
     shutil.rmtree(tmp, ignore_errors=True)
     torch.cuda.empty_cache()
     return report, counts, bwd_cases
+
+
+VAR_TRAIN_B = 48
+VAR_TRAIN_LENGTHS = (1000, 1664)  # segment lengths in frames
+VAR_TRAIN_PER_STEP = {"K1": 0, "K2": 0, "K3": 4, "K3bwd": 4}
+
+
+def variance_train_items(rng, n, lo, hi, n_ph_first):
+    """n variance items of lo-hi frames (the first one hi frames and
+    ``n_ph_first`` phonemes, so that it sets the buckets): about a phoneme per
+    10 frames, words of 1-3 phonemes, one note per word, a base pitch from the
+    notes, a pitch with vibrato around it, 10 % unvoiced frames, and the four
+    curves (dB, tension as a logit)."""
+    import numpy as np
+
+    items = []
+    for i in range(n):
+        length = hi if i == 0 else int(rng.integers(lo, hi + 1))
+        n_ph = n_ph_first if i == 0 else int(round(length / rng.uniform(9.5, 11.5)))
+        ph_num = []
+        while sum(ph_num) < n_ph:
+            ph_num.append(min(int(rng.integers(1, 4)), n_ph - sum(ph_num)))
+        ph_num = np.asarray(ph_num)
+        n_word = len(ph_num)
+        ph_dur = rng.multinomial(length - n_ph, np.ones(n_ph) / n_ph) + 1
+        note_dur = np.add.reduceat(ph_dur, np.r_[0, np.cumsum(ph_num)[:-1]])
+        note_midi = rng.uniform(52, 72, n_word).astype(np.float32)
+        base_pitch = np.repeat(note_midi, note_dur).astype(np.float32)
+        vibrato = 0.3 * np.sin(np.linspace(0, length / 15, length))
+        items.append(dict(
+            tokens=rng.integers(1, VOCAB, n_ph), ph_dur=ph_dur,
+            ph2word=np.repeat(np.arange(1, n_word + 1), ph_num),
+            midi=np.repeat(np.round(note_midi), ph_num).astype(np.int64),
+            mel2ph=np.repeat(np.arange(1, n_ph + 1), ph_dur),
+            note_midi=note_midi, note_rest=rng.random(n_word) < 0.1, note_dur=note_dur,
+            note_glide=rng.integers(0, 3, n_word),
+            mel2note=np.repeat(np.arange(1, n_word + 1), note_dur), base_pitch=base_pitch,
+            pitch=(base_pitch + vibrato + rng.normal(0, 0.1, length)).astype(np.float32),
+            uv=rng.random(length) < 0.1,
+            energy=rng.uniform(-60, -20, length).astype(np.float32),
+            breathiness=rng.uniform(-80, -40, length).astype(np.float32),
+            voicing=rng.uniform(-40, -12, length).astype(np.float32),
+            tension=rng.uniform(-4, 4, length).astype(np.float32)))
+    return items
+
+
+def train_variance_phase(card, reset_counts, read_counts, check):
+    """[train_variance]: the variance model's training on the card through
+    ``VarianceTask`` (the task ``cli.train`` builds for configs/variance.yaml):
+    full width with the four variances on, '16-mixed' (bf16 autocast over
+    float32 AdamW), an in-memory seeded batch of 48 segments of 1000-1664
+    frames (T_mel bucket 1664: 79,872 frames <= max_batch_frames 80,000) with
+    about a phoneme per 10 frames (T_txt bucket 176) through
+    ``VarianceDataset.collater``. K3 and its backward against their plain
+    versions at the encoder's shape and at the melody encoder's head width 64;
+    one float32 step of a narrow model with the melody encoder and glides on
+    the card against the same step on CPU tensors; the loss falling over 20
+    steps on the fixed batch with fixed t, noise and retake masks; 10 timed
+    steps after 3 warm-ups (steps/s, true frames/s, peak memory, launches per
+    step); one step under the profiler; a validation batch (losses and
+    metrics); a save and resume. Returns the report, the launch counts of the
+    timed steps and the kernel cases for the timings."""
+    import numpy as np
+    import torch
+
+    from diffsinger_tpu_torch.config import load_config
+    from diffsinger_tpu_torch.data.dataset import VarianceDataset
+    from diffsinger_tpu_torch.ops import flash_attention
+    from diffsinger_tpu_torch.training.variance_task import VarianceTask, random_retake_masks
+
+    class MemoryDataset(VarianceDataset):
+        """Variance items held in memory, behind the dataset's collater."""
+
+        def __init__(self, items, hp):
+            self.hp, self.items = hp, items
+            self.sizes = [len(it["mel2ph"]) for it in items]
+            self.metadata = {k: [len(it[k]) for it in items]
+                             for k in ("tokens", "pitch", *VARIANCES)}
+            self.frame_bucket, self.token_bucket = 128, 16
+            self.var_list = [v for v in VARIANCES if hp.get(f"predict_{v}", False)]
+
+    def batch_of(task, ds, n):
+        collated = ds.collater([ds[i] for i in range(n)])
+        return task.to_device({k: v for k, v in collated.items()
+                               if isinstance(v, np.ndarray) and k != "indices"})
+
+    dev = torch.device("cuda")
+    report = {}
+    tmp = Path(tempfile.mkdtemp(prefix="train_variance_", dir=OUT_DIR))
+
+    def task_hp(work_dir, **over):
+        hp = load_config(ROOT / "configs" / "variance.yaml")
+        hp.update({f"predict_{v}": True for v in VARIANCES})
+        hp.update(work_dir=str(work_dir), num_valid_plots=1,
+                  dictionary=str(ROOT / "dictionaries" / "opencpop-extension.txt"), **over)
+        return hp
+
+    # the full-width batch first: its buckets are the kernels' shapes
+    hp = task_hp(tmp / "exp")
+    rng = np.random.default_rng(40)
+    ds = MemoryDataset(variance_train_items(rng, VAR_TRAIN_B, *VAR_TRAIN_LENGTHS, 170), hp)
+    collated = ds.collater([ds[i] for i in range(VAR_TRAIN_B)])
+    b_, t_txt = collated["tokens"].shape
+    t_mel, t_note = collated["mel2ph"].shape[1], collated["note_midi"].shape[1]
+    if (b_, t_mel) != (VAR_TRAIN_B, VAR_TRAIN_LENGTHS[1]) or b_ * t_mel > hp["max_batch_frames"]:
+        fail(f"[train_variance] batch shapes {collated['tokens'].shape} {collated['mel2ph'].shape}")
+    log(f"[train_variance] batch: B={b_}, T_txt bucket {t_txt}, T_note bucket {t_note}, T_mel "
+        f"bucket {t_mel} ({b_ * t_mel} frames, max_batch_frames {hp['max_batch_frames']})")
+
+    # K3 and its backward against their plain versions at the variance
+    # encoder's shape (2 heads of 128 over the batch's token padding) and the
+    # melody encoder's (2 heads of 64 over its note padding)
+    g = torch.Generator(device=dev).manual_seed(41)
+    cases = {}
+    for what, length, d, pad_np in (
+            ("encoder", t_txt, 128, collated["tokens"] == 0),
+            ("melody encoder", t_note, 64, collated["note_midi"] < 0)):
+        q, k, v, dout = (torch.randn(b_, 2, length, d, generator=g, device=dev) for _ in range(4))
+        pad = torch.from_numpy(pad_np).to(dev)
+        scale = d ** -0.5
+        lse = torch.empty(b_, 2, length, device=dev)
+        out = flash_attention._launch_fwd(q, k, v, pad, scale, lse)
+        got = flash_attention.flash_attention_bwd(q, k, v, pad, out, lse, dout, sm_scale=scale)
+        want_out = flash_attention.flash_attention_plain(q, k, v, pad, sm_scale=scale)
+        want_lse = flash_attention.attention_lse_plain(q, k, pad, sm_scale=scale)
+        want = flash_attention.flash_attention_bwd_plain(q, k, v, pad, want_out, want_lse, dout,
+                                                         sm_scale=scale)
+        name = f"[{b_},2,{length},{d}] padded ({what}, variance training)"
+        fwd_err = check(f"K3 f32 {name}", out, want_out, 1e-4)
+        check(f"K3 f32 lse {name}", lse, want_lse, 1e-4)
+        errs = [check(f"K3-bwd f32 {n} {name}", a, w, 1e-4 * w.abs().max().item())
+                for n, a, w in zip(("dq", "dk", "dv"), got, want)]
+        cases[what] = dict(q=q, k=k, v=v, pad=pad, out=out, lse=lse, dout=dout,
+                           fwd_err=fwd_err, bwd_errs=errs)
+    torch.cuda.synchronize()
+
+    # one float32 step of a narrow model with the melody encoder and glides:
+    # the card (kernels) against the CPU (plain versions), same weights,
+    # batch, t, noise and retake masks, dropout off. The encoder has two heads
+    # of 32, the melody encoder two heads of 64, as at full width.
+    narrow = dict(hidden_size=64, enc_layers=2, dropout=0.0, pl_trainer_precision="32-true",
+                  use_melody_encoder=True, use_glide_embed=True,
+                  melody_encoder_args=dict(hidden_size=128, enc_layers=2),
+                  dur_prediction_args=dict(hp["dur_prediction_args"], hidden_size=64,
+                                           num_layers=2, dropout=0.0),
+                  pitch_prediction_args=dict(hp["pitch_prediction_args"], backbone_args=dict(
+                      num_layers=4, num_channels=64, dilation_cycle_length=2)),
+                  variances_prediction_args=dict(hp["variances_prediction_args"], backbone_args=dict(
+                      num_layers=2, num_channels=64, dilation_cycle_length=2)))
+    tasks = []
+    for device in ("cuda", "cpu"):
+        torch.manual_seed(42)
+        tasks.append(quiet(VarianceTask, task_hp(tmp / f"narrow_{device}", **narrow),
+                           device=device))
+        tasks[-1].configure_optimizer()
+    seeded_weights(tasks[0].module, 43)
+    tasks[1].module.load_state_dict(tasks[0].module.state_dict())
+    rng = np.random.default_rng(44)
+    small_ds = MemoryDataset(variance_train_items(rng, 4, 150, 256, 30), tasks[0].hp)
+    small = {k: v for k, v in small_ds.collater([small_ds[i] for i in range(4)]).items()
+             if isinstance(v, np.ndarray) and k != "indices"}
+    b_s, t_s = small["mel2ph"].shape
+    gen = torch.Generator().manual_seed(45)
+    draws = dict(t_pitch=torch.rand(b_s, generator=gen), t_var=torch.rand(b_s, generator=gen),
+                 noise_pitch=torch.randn(b_s, t_s, 64, generator=gen),
+                 noise_var=torch.randn(b_s, t_s, 48, generator=gen),
+                 pitch_retake=random_retake_masks(b_s, t_s, generator=gen),
+                 variance_retake={v: random_retake_masks(b_s, t_s, generator=gen)
+                                  for v in VARIANCES})
+    report["f32_step_vs_cpu"], launched = card_vs_cpu_step(
+        "train_variance", tasks, small, draws, " with the melody encoder")
+    # two layers each of the encoder and the melody encoder, on the card only
+    melody_layers = narrow["melody_encoder_args"]["enc_layers"]
+    report["f32_step_vs_cpu"]["melody_k3_launches"] = (melody_layers, melody_layers)
+    if launched != [(4, 4), (0, 0)]:
+        fail(f"[train_variance] the narrow step's K3 launches {launched} != [(4, 4), (0, 0)]")
+    del tasks
+
+    # the full-width task, bf16 autocast over float32 parameters and AdamW
+    torch.manual_seed(46)
+    task = quiet(VarianceTask, hp)
+    task.configure_optimizer()
+    seeded_weights(task.module, 47)
+    if task.amp_dtype != torch.bfloat16:
+        fail(f"pl_trainer_precision {hp['pl_trainer_precision']} did not give bf16 autocast")
+    n_params = sum(p.numel() for p in task.params)
+    batch = batch_of(task, ds, VAR_TRAIN_B)
+    true_frames = int((batch["mel2ph"] > 0).sum().item())
+    true_tokens = int((batch["tokens"] > 0).sum().item())
+    gen = torch.Generator(device=dev).manual_seed(48)
+    fixed = dict(t_pitch=torch.rand(b_, generator=gen, device=dev),
+                 t_var=torch.rand(b_, generator=gen, device=dev),
+                 noise_pitch=torch.randn(b_, t_mel, hp["pitch_prediction_args"]["repeat_bins"],
+                                         generator=gen, device=dev),
+                 noise_var=torch.randn(b_, t_mel,
+                                       hp["variances_prediction_args"]["total_repeat_bins"],
+                                       generator=gen, device=dev),
+                 pitch_retake=random_retake_masks(b_, t_mel, generator=gen, device=dev),
+                 variance_retake={v: random_retake_masks(b_, t_mel, generator=gen, device=dev)
+                                  for v in VARIANCES})
+
+    # the loss on one fixed batch with fixed t, noise and retake masks falls
+    losses = []
+    for _ in range(20):
+        m = task.train_step(batch, **fixed)
+        task.apply_update()
+        losses.append({k: float(v) for k, v in m.items()})
+    totals = [x["total_loss"] for x in losses]
+    first, last = sum(totals[:5]) / 5, sum(totals[-5:]) / 5
+    log(f"[train_variance] loss on a fixed batch over 20 steps: {['%.4f' % x for x in totals]}; "
+        f"mean of the first 5 {first:.4f}, of the last 5 {last:.4f}; last step "
+        + " ".join(f"{k}={v:.4f}" for k, v in losses[-1].items()))
+    report["fixed_batch_losses"] = losses
+    if not (all(math.isfinite(x) for x in totals) and last < first):
+        fail("[train_variance] the loss did not fall on a fixed batch")
+
+    # steady steps, as the loop runs them
+    wall, counts, peak, values, step = timed_train_steps(
+        "train_variance", task, batch, VAR_TRAIN_PER_STEP, reset_counts, read_counts)
+    sps = TRAIN_STEPS / wall
+    log(f"[train_variance] {TRAIN_STEPS} steps of B={b_} T_mel={t_mel} T_txt={t_txt} "
+        f"({true_frames} true frames, {true_tokens} true tokens) in {wall:.3f} s: {sps:.3f} "
+        f"optimizer steps/s, {sps * true_frames:.1f} true frames/s ({sps * b_ * t_mel:.1f} "
+        f"padded), peak memory {peak:.2f} GiB, {n_params} parameters, bf16 autocast over float32 "
+        f"AdamW, on {card}; last step " + " ".join(f"{k}={v:.4f}" for k, v in values.items()))
+    report.update(steps_per_s=sps, frames_per_s=sps * true_frames,
+                  padded_frames_per_s=sps * b_ * t_mel, true_frames=true_frames,
+                  true_tokens=true_tokens, shapes={"B": b_, "T_txt": t_txt, "T_note": t_note,
+                                                   "T_mel": t_mel},
+                  step_s=wall / TRAIN_STEPS, peak_mem_gib=peak, parameters=n_params,
+                  launches=counts, last_metrics=values)
+    prof = profile_request(lambda: step(), "one variance training step",
+                           table="chip_smoke_train_variance_profile.txt")
+    report["profile"] = prof
+    if prof.get("measured"):
+        log("[train_variance] top device operations: " + "; ".join(
+            f"{k[:60]} {ms:.1f} ms" for k, ms in list(prof["top_kernels_ms"].items())[:8]))
+
+    # one validation batch (float32, the kernels, forward_infer, metrics, figures)
+    val = quiet(task.run_validation, MemoryDataset(ds.items[:4], hp))
+    log(f"[train_variance] validation batch: {val}")
+    want_keys = {"dur_loss", "pitch_loss", "var_loss", "metrics/rhythm_corr",
+                 "metrics/ph_dur_acc", "metrics/pitch_acc", "metrics/pitch_r2",
+                 *(f"metrics/{v}_r2" for v in VARIANCES)}
+    shares = ("metrics/rhythm_corr", "metrics/ph_dur_acc", "metrics/pitch_acc")
+    if not (want_keys <= set(val) and all(math.isfinite(v) for v in val.values())
+            and all(0.0 <= val[k] <= 1.0 for k in shares)
+            and all(val[k] <= 1.0 for k in want_keys if k.endswith("_r2"))):
+        fail(f"[train_variance] validation losses or metrics {val}")
+    report["validation"] = val
+
+    report["resume_step"] = check_resume("train_variance", task, VarianceTask, hp)
+    del task, batch, fixed
+    shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return report, counts, cases
 
 
 def main() -> None:
@@ -1442,6 +1755,10 @@ def main() -> None:
         card, reset_counts, read_counts, check)
     if not all(c["ok"] for c in checks):
         fail("K3's backward disagrees with its plain version")
+    report["phases"]["train_variance"], var_train_counts, var_cases = train_variance_phase(
+        card, reset_counts, read_counts, check)
+    if not all(c["ok"] for c in checks):
+        fail("K3 or its backward disagrees with its plain version at a variance training shape")
 
     # ------------------------------------------------------------ 6. kernel line
     x_t = s.transpose(1, 2).contiguous()
@@ -1556,6 +1873,7 @@ def main() -> None:
             "launches_variance_score": var_counts[key],
             "launches_ddpm_request": {acc: c[key] for acc, c in ddpm_counts.items()},
             "launches_train_steps": train_counts[key],
+            "launches_train_variance_steps": var_train_counts[key],
             "max_abs_err": err,
             "ms": time_ms(fn),
             "plain_ms": time_ms(plain, iters=5, warmup=1),
@@ -1574,10 +1892,10 @@ def main() -> None:
     # (3xTF32: three TF32 products for each), and beside it the bound of the
     # same work in float32 on the CUDA cores
     lib = native.load("flash_attention")
-    scale = 128 ** -0.5
 
-    def k3_bwd_times(b_, length):
-        qb, kb, vb, padb, outb, lseb, doutb, bwd_errs = bwd_cases[(b_, length)]
+    def k3_bwd_times(qb, kb, vb, padb, outb, lseb, doutb, bwd_errs):
+        b_ = qb.shape[0]
+        scale = qb.shape[-1] ** -0.5
         visible_b = padb[:, None, :, None] == padb[:, None, None, :]
         pairs_b = int(visible_b.sum().item()) * qb.shape[1]
         bwd_ops = 10 * pairs_b * qb.shape[-1]  # five products over the visible pairs
@@ -1626,8 +1944,8 @@ def main() -> None:
             f"{times['plain_ms']:.4f} ms; SDPA backward {times['library_ms']:.4f} ms) on {card}")
         return times
 
-    train_times = k3_bwd_times(TRAIN_B, TRAIN_T_TXT)
-    report["k3_bwd_long"] = k3_bwd_times(16, 512)
+    train_times = k3_bwd_times(*bwd_cases[(TRAIN_B, TRAIN_T_TXT)])
+    report["k3_bwd_long"] = k3_bwd_times(*bwd_cases[(16, 512)])
     kernels.append({
         "name": "flash_attention_bwd", "route": "cuda",
         "source": "diffsinger_tpu_torch/ops/csrc/flash_attention.cu",
@@ -1636,8 +1954,54 @@ def main() -> None:
                     "under jax.grad of diffsinger_tpu/models/commons.py:206",
         "launches": train_counts["K3bwd"],
         "launches_per_train_step": train_counts["K3bwd"] // TRAIN_STEPS,
+        "launches_train_variance_steps": var_train_counts["K3bwd"],
         **train_times,
     })
+
+    # K3 and its backward at the variance model's training shapes: the
+    # encoder's (launched in [train_variance]'s timed steps) and the melody
+    # encoder's head width 64 (launched by its narrow float32 step)
+    narrow_launches = report["phases"]["train_variance"]["f32_step_vs_cpu"]["melody_k3_launches"]
+    bwd_replaces = kernels[-1]["replaces"]
+    for what, case in var_cases.items():
+        qv, kv, vv, padv = case["q"], case["k"], case["v"], case["pad"]
+        shape = "[%d,%d,%d,%d]" % tuple(qv.shape)
+        ops_v, bytes_v = k3_bound(qv, padv)
+        visible_v = padv[:, None, :, None] == padv[:, None, None, :]
+        scale_v = qv.shape[-1] ** -0.5
+        if what == "encoder":
+            fwd_n, bwd_n = var_train_counts["K3"], var_train_counts["K3bwd"]
+            origin = f"[train_variance]'s {TRAIN_STEPS} timed steps"
+        else:
+            fwd_n, bwd_n = narrow_launches
+            origin = ("[train_variance]'s narrow float32 step: its melody encoder's two "
+                      "layers of two heads of 64, at the narrow batch's note bucket")
+        fwd = {
+            "name": f"flash_attention at {shape} ({what}, variance training)", "route": "cuda",
+            "source": "diffsinger_tpu_torch/ops/csrc/flash_attention.cu",
+            "replaces": "diffsinger_tpu/models/commons.py:206",
+            "launches": fwd_n, "launches_from": origin, "max_abs_err": case["fwd_err"],
+            "ms": time_ms(lambda: flash_attention.flash_attention(qv, kv, vv, padv,
+                                                                  sm_scale=scale_v)),
+            "plain_ms": time_ms(lambda: flash_attention.flash_attention_plain(
+                qv, kv, vv, padv, sm_scale=scale_v), 5, 1),
+            "bound_ms": max(ops_v / PEAK_F32, bytes_v / PEAK_BYTES) * 1e3,
+            "bound_by": "bytes" if bytes_v / PEAK_BYTES >= ops_v / PEAK_F32 else "operations",
+            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(qv, kv, vv,
+                                                                         attn_mask=visible_v)),
+        }
+        log(f"[time] K3 flash_attention at {shape} ({what}, variance training): "
+            f"{fwd['ms']:.4f} ms (bound {fwd['bound_ms']:.4f} ms by {fwd['bound_by']}; plain "
+            f"{fwd['plain_ms']:.4f} ms; SDPA {fwd['library_ms']:.4f} ms) on {card}")
+        bwd = {
+            "name": f"flash_attention_bwd at {shape} ({what}, variance training)",
+            "route": "cuda", "source": "diffsinger_tpu_torch/ops/csrc/flash_attention.cu",
+            "replaces": bwd_replaces,
+            "launches": bwd_n, "launches_from": origin,
+            **k3_bwd_times(qv, kv, vv, padv, case["out"], case["lse"], case["dout"],
+                           case["bwd_errs"]),
+        }
+        kernels += [fwd, bwd]
     report["kernels"] = kernels
 
     report["script_s"] = time.perf_counter() - t_script

@@ -4,10 +4,10 @@
         [--hparams k=v,...] [--reset] [--max_steps N] [--infer] [--profile N]
         [--ckpt_root DIR] [--device cpu]
 
-It trains the task that the config's ``task_cls`` names (the acoustic model;
-the variance model's training is not ported yet) in ``<ckpt_root>/<EXP>``,
-resuming from the newest checkpoint there. It runs on the card unless
-``--device cpu`` is given, and raises when there is no card.
+It trains the task that the config's ``task_cls`` names (the acoustic or the
+variance model) in ``<ckpt_root>/<EXP>``, resuming from the newest checkpoint
+there. It runs on the card unless ``--device cpu`` is given, and raises when
+there is no card.
 """
 
 from __future__ import annotations
@@ -26,7 +26,11 @@ def task_class(task_cls: str):
         from diffsinger_tpu_torch.training.acoustic_task import AcousticTask
 
         return AcousticTask
-    raise NotImplementedError(f"task {task_cls!r} is not ported yet; only AcousticTask is")
+    if name == "VarianceTask":
+        from diffsinger_tpu_torch.training.variance_task import VarianceTask
+
+        return VarianceTask
+    raise ValueError(f"unknown task {task_cls!r}: AcousticTask or VarianceTask")
 
 
 def main(argv=None) -> None:

@@ -1,18 +1,18 @@
-"""Acoustic training data over the binarized store
-(counterpart of diffsinger_tpu/data/dataset.py, the acoustic half).
+"""Training data over the binarized store (counterpart of
+diffsinger_tpu/data/dataset.py).
 
-The collater pads a batch to bucket lengths (multiples of ``frame_bucket``
-frames and ``token_bucket`` tokens), as the JAX one does, so both packages
-see batches of the same shapes; on the card the buckets bound the shapes
-the allocator meets. The variance dataset comes with the variance model's
-training.
+The collaters pad a batch to bucket lengths (multiples of ``frame_bucket``
+frames and ``token_bucket`` tokens or notes), as the JAX ones do, so both
+packages see batches of the same shapes; on the card the buckets bound the
+shapes the allocator meets. ``pad_to`` raises an axis to a length of the
+caller's.
 """
 
 from __future__ import annotations
 
 import pickle
 from pathlib import Path
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -35,9 +35,9 @@ def collate_nd(items: Sequence[np.ndarray], pad_value, length: int) -> np.ndarra
     return out
 
 
-class AcousticDataset:
+class BaseDataset:
     """Items of ``{data_dir}/{prefix}.data`` with the sizes and lengths of
-    ``{prefix}.meta``; ``collater`` makes the acoustic batch."""
+    ``{prefix}.meta``."""
 
     def __init__(self, data_dir, hp: dict, prefix: str, preload: bool = False,
                  frame_bucket: int = 128, token_bucket: int = 16):
@@ -51,7 +51,6 @@ class AcousticDataset:
         self.items = [store[i] for i in range(len(store))] if preload else store
         self.frame_bucket = frame_bucket
         self.token_bucket = token_bucket
-        self.required_variances = [v for v in VARIANCES if hp.get(f"use_{v}_embed", False)]
 
     def __getitem__(self, index: int) -> Dict:
         return {"_idx": index, **self.items[index]}
@@ -59,13 +58,26 @@ class AcousticDataset:
     def __len__(self) -> int:
         return len(self.sizes)
 
+    @staticmethod
+    def collate_base(samples: List[Dict]) -> Dict:
+        return {"size": len(samples),
+                "indices": np.asarray([s["_idx"] for s in samples], np.int64)}
+
+
+
+class AcousticDataset(BaseDataset):
+    """``collater`` makes the acoustic batch."""
+
+    def __init__(self, data_dir, hp: dict, prefix: str, **kwargs):
+        super().__init__(data_dir, hp, prefix, **kwargs)
+        self.required_variances = [v for v in VARIANCES if hp.get(f"use_{v}_embed", False)]
+
     def collater(self, samples: List[Dict]) -> Dict:
         """numpy batch: size, indices, tokens [B, T_txt], mel2ph, mel [B, T_mel, M],
         f0, and the enabled conditioning (variances, key_shift, speed, spk_ids,
         languages)."""
         hp = self.hp
-        batch = {"size": len(samples),
-                 "indices": np.asarray([s["_idx"] for s in samples], np.int64)}
+        batch = self.collate_base(samples)
         if not samples:
             return batch
         t_mel = bucket(max(len(s["mel2ph"]) for s in samples), self.frame_bucket)
@@ -87,4 +99,69 @@ class AcousticDataset:
         if hp.get("use_lang_id", False):
             batch["languages"] = collate_nd([s["languages"] for s in samples], 0,
                                             t_txt).astype(np.int32)
+        return batch
+
+
+class VarianceDataset(BaseDataset):
+    """``collater`` makes the variance batch."""
+
+    def __init__(self, data_dir, hp: dict, prefix: str, **kwargs):
+        super().__init__(data_dir, hp, prefix, **kwargs)
+        self.var_list = [v for v in VARIANCES if hp.get(f"predict_{v}", False)]
+
+    def collater(self, samples: List[Dict], pad_to: Optional[Dict[str, int]] = None) -> Dict:
+        """numpy batch: size, indices, tokens and ph_dur [B, T_txt], spk_ids and
+        languages where enabled; ph2word and midi under ``predict_dur``; the
+        notes (note_midi padded with -1, note_rest with True) [B, T_note],
+        mel2note and base_pitch [B, T_mel] under ``predict_pitch``; mel2ph,
+        pitch and uv (padded with True) where a frame branch is on; the
+        predicted curves. ``pad_to``: {"t_mel", "t_txt", "t_note"}."""
+        hp = self.hp
+        batch = self.collate_base(samples)
+        if not samples:
+            return batch
+        pad_to = pad_to or {}
+
+        def length(key, step, axis):  # bucketed, or pad_to's if longer
+            return max(bucket(max(len(s[key]) for s in samples), step), pad_to.get(axis, 0))
+
+        t_txt = length("tokens", self.token_bucket, "t_txt")
+        batch.update(
+            tokens=collate_nd([s["tokens"] for s in samples], 0, t_txt).astype(np.int32),
+            ph_dur=collate_nd([s["ph_dur"] for s in samples], 0, t_txt).astype(np.int32),
+        )
+        if hp.get("use_spk_id", False):
+            batch["spk_ids"] = np.asarray([s["spk_id"] for s in samples], np.int32)
+        if hp.get("use_lang_id", False):
+            batch["languages"] = collate_nd([s["languages"] for s in samples], 0,
+                                            t_txt).astype(np.int32)
+        if hp["predict_dur"]:
+            for k in ("ph2word", "midi"):
+                batch[k] = collate_nd([s[k] for s in samples], 0, t_txt).astype(np.int32)
+        if not (hp["predict_pitch"] or self.var_list):
+            return batch
+        t_mel = length("mel2ph", self.frame_bucket, "t_mel")
+
+        def frames(key, pad, dtype=None):
+            out = collate_nd([s[key] for s in samples], pad, t_mel)
+            return out if dtype is None else out.astype(dtype)
+
+        if hp["predict_pitch"]:
+            t_note = length("note_midi", self.token_bucket, "t_note")
+
+            def notes(key, pad, dtype=None):
+                out = collate_nd([s[key] for s in samples], pad, t_note)
+                return out if dtype is None else out.astype(dtype)
+
+            batch.update(note_midi=notes("note_midi", -1.0, np.float32),
+                         note_rest=notes("note_rest", True),
+                         note_dur=notes("note_dur", 0, np.int32))
+            if hp.get("use_glide_embed", False):
+                batch["note_glide"] = notes("note_glide", 0, np.int32)
+            batch.update(mel2note=frames("mel2note", 0, np.int32),
+                         base_pitch=frames("base_pitch", 0.0, np.float32))
+        batch.update(mel2ph=frames("mel2ph", 0, np.int32), pitch=frames("pitch", 0.0, np.float32),
+                     uv=frames("uv", True))
+        for v in self.var_list:
+            batch[v] = frames(v, 0.0, np.float32)
         return batch

@@ -21,10 +21,15 @@ from diffsinger_tpu_torch.ops.flash_attention import flash_attention
 
 
 class Embedding(nn.Embedding):
-    """Embedding with the reference init: N(0, dim^-0.5), zero pad row."""
+    """Embedding with the reference init: N(0, dim^-0.5), zero pad row.
+
+    The pad row only starts at zero: it trains like any other row, as the JAX
+    package's does (torch's ``padding_idx`` would hold its gradient at zero).
+    That matters where index 0 also marks a real value: a note without glide,
+    a phoneme without a language tag."""
 
     def __init__(self, num_embeddings: int, features: int, padding_idx: Optional[int] = None):
-        super().__init__(num_embeddings, features, padding_idx=padding_idx)
+        super().__init__(num_embeddings, features)
         nn.init.normal_(self.weight, 0.0, features ** -0.5)
         if padding_idx is not None:
             with torch.no_grad():

@@ -11,11 +11,12 @@ forward (the aux draft and one denoiser call at a drawn or injected time).
 ``spk_embed``, ``melody_encoder``, the pitch and variance embeds, and the
 backbones under ``pitch_predictor`` and ``variance_predictor``);
 :class:`DiffSingerVariance` predicts phoneme durations, then the pitch delta
-and the variance curves with a sampler each.
+and the variance curves with a sampler each, and runs its training forward
+(the log-domain durations and one denoiser call of each branch at a drawn or
+injected time).
 
 Both cores run rectified flow (``core/reflow.py``) or DDPM (``core/ddpm.py``
-with the fast solvers). The variance model's training forward and the
-dynamic (export) forwards wait for their slices.
+with the fast solvers). The dynamic (export) forwards wait for their slice.
 """
 
 from __future__ import annotations
@@ -324,14 +325,15 @@ class VarianceModule(nn.Module):
         return self.variance_predictor.backbone
 
     def encode(self, txt_tokens, midi, ph2word, ph_dur=None, word_dur=None, spk_id=None,
-               ph_spk_mix_embed=None, languages=None):
-        """fs2 encoder (+ token-level speaker embed) -> (encoder_out, dur_pred)."""
+               ph_spk_mix_embed=None, languages=None, infer: bool = True):
+        """fs2 encoder (+ token-level speaker embed) -> (encoder_out, dur_pred);
+        ``infer=False`` gives the training form of ``dur_pred`` (log domain)."""
         ph_spk = None
         if self.use_spk_id:
             ph_spk = (ph_spk_mix_embed if ph_spk_mix_embed is not None
                       else self.spk_embed(spk_id)[:, None, :])
         return self.fs2(txt_tokens, midi, ph2word, ph_dur=ph_dur, word_dur=word_dur,
-                        spk_embed=ph_spk, languages=languages)
+                        spk_embed=ph_spk, languages=languages, infer=infer)
 
     def frame_condition(self, encoder_out, mel2ph, spk_id=None, spk_mix_embed=None):
         condition = gather_frames(encoder_out, mel2ph)
@@ -385,11 +387,12 @@ class VarianceModule(nn.Module):
 
 
 class DiffSingerVariance:
-    """The variance model's inference entry point.
+    """The variance model's entry point: inference, and the training forward.
 
     Builds :class:`VarianceModule` (``self.module``) in ``dtype`` on
     ``device``: the card unless the caller asks for another, and an error if
-    there is no card.
+    there is no card. The module is built in eval mode; a trainer puts it in
+    training mode for :meth:`forward_train`, which turns its dropout on.
     """
 
     def __init__(self, hp: dict, vocab_size: int, dtype=None, device=None):
@@ -403,6 +406,7 @@ class DiffSingerVariance:
         self.diffusion_type = hp.get("diffusion_type", "ddpm")
         self.timesteps = hp.get("timesteps", 1000)
         self.k_step = hp.get("K_step", self.timesteps)
+        self.time_scale_factor = hp.get("time_scale_factor", 1000)
         self.schedule = _schedule(hp, self.diffusion_type, self.timesteps)
         self.module = VarianceModule(hp, vocab_size).to(device=self.device, dtype=self.dtype).eval()
 
@@ -424,6 +428,77 @@ class DiffSingerVariance:
             total_rb = hp["variances_prediction_args"]["total_repeat_bins"]
             self.variance_transform = MultiVarianceTransform(
                 ranges=ranges, clamps=clamps, repeat_bins=total_rb // len(self.var_list))
+
+    def forward_train(
+        self, txt_tokens, midi, ph2word, ph_dur, mel2ph, base_pitch, pitch,
+        variances: Dict, *, pitch_retake=None, variance_retake: Optional[Dict] = None,
+        spk_id=None, languages=None, note_midi=None, note_rest=None, note_dur=None,
+        note_glide=None, mel2note=None,
+        t_pitch: Optional[torch.Tensor] = None, noise_pitch: Optional[torch.Tensor] = None,
+        t_var: Optional[torch.Tensor] = None, noise_var: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
+    ):
+        """Training forward: ``(dur_pred_log [B, T_ph] | None, (pred, target,
+        t) | None, (pred, target, t) | None)`` for the duration, pitch and
+        variance losses.
+
+        The pitch branch is conditioned on the frames not in ``pitch_retake``
+        (with the melody encoder through ``(pitch - base_pitch) *
+        ~pitch_retake``) and learns the normalised delta ``pitch -
+        base_pitch``; the variance branch is conditioned on the ground-truth
+        ``pitch`` and the curves not in ``variance_retake`` and learns the
+        flattened normalised curves [B, T, F*R]. The times and noises are drawn
+        from ``generator`` unless given (``t_pitch`` / ``noise_pitch`` first,
+        then ``t_var`` / ``noise_var``); see :meth:`_train_core`.
+        """
+        m = self.module
+        encoder_out, dur_pred = m.encode(txt_tokens, midi, ph2word, ph_dur=ph_dur, spk_id=spk_id,
+                                         languages=languages, infer=False)
+        if not self.predict_pitch and not self.var_list:
+            return dur_pred, None, None
+        condition = m.frame_condition(encoder_out, mel2ph, spk_id=spk_id)
+
+        pitch_out = None
+        if self.predict_pitch:
+            melody_frame = None
+            delta_pitch_in = None
+            if self.use_melody_encoder:
+                mel_out = m.melody_encode(note_midi, note_rest, note_dur, note_glide=note_glide)
+                melody_frame = gather_frames(mel_out, mel2note)
+                delta_pitch_in = (pitch - base_pitch) * (~pitch_retake)
+            pitch_cond, _ = m.pitch_condition(
+                condition, mel2ph, base_pitch, pitch=pitch, pitch_retake=pitch_retake,
+                melody_frame=melody_frame, delta_pitch_in=delta_pitch_in)
+            x0 = self.pitch_transform.norm(pitch - base_pitch)
+            pitch_out = self._train_core(m.pitch_denoiser, pitch_cond, x0, t_pitch, noise_pitch,
+                                         generator)
+
+        var_out = None
+        if self.var_list:
+            var_cond = m.variance_condition(condition, pitch, variances, variance_retake)
+            x0 = self.variance_transform.flatten(
+                self.variance_transform.norm([variances[v] for v in self.var_list]))
+            var_out = self._train_core(m.variance_denoiser, var_cond, x0, t_var, noise_var,
+                                       generator)
+        return dur_pred, pitch_out, var_out
+
+    def _train_core(self, denoiser: nn.Module, cond: torch.Tensor, x0: torch.Tensor,
+                    t: Optional[torch.Tensor], noise: Optional[torch.Tensor], generator):
+        """One denoiser call on flat [B, T, D] data -> (pred, target, t).
+        Rectified flow: t [B] uniform in [0, 1), the denoiser at ``t *
+        time_scale_factor``, target the velocity. DDPM: t [B] int in [0,
+        K_step), target the noise."""
+        b, dev = x0.shape[0], x0.device
+        if self.schedule is not None:
+            if t is None:
+                t = torch.randint(0, self.k_step, (b,), generator=generator, device=dev)
+            x_noisy, noise = ddpm_core.p_losses_inputs(self.schedule, x0, t, noise=noise,
+                                                       generator=generator)
+            return denoiser(x_noisy, t.float(), cond), noise, t
+        if t is None:
+            t = torch.rand(b, generator=generator, device=dev)
+        x_t, v_gt = reflow_core.p_losses_inputs(x0, t, noise=noise, generator=generator)
+        return denoiser(x_t, t * self.time_scale_factor, cond), v_gt, t
 
     @torch.no_grad()
     @no_tf32()

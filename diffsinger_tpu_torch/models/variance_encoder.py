@@ -1,5 +1,5 @@
 """FastSpeech2 variance encoder, duration predictor and melody encoder
-(counterpart of diffsinger_tpu/models/variance_encoder.py, inference only).
+(counterpart of diffsinger_tpu/models/variance_encoder.py).
 
 Channel-last [B, T, C]; the parameters carry the reference torch names that
 ``torch_model_convert.py::convert_variance`` reads (``fs2.txt_embed``,
@@ -7,9 +7,10 @@ Channel-last [B, T, C]; the parameters carry the reference torch names that
 ``fs2.dur_predictor.conv.{i}.1`` (conv) / ``.3`` (LayerNorm),
 ``fs2.dur_predictor.linear``, ``melody_encoder.{note_midi_embed,
 note_dur_embed,note_glide_embed,encoder,out_proj}``). Both encoders are the
-RoPE ``FastSpeech2Encoder``, so their attention is K3. The conv-stack
-``VariancePredictor`` and ``PitchPredictor`` of the JAX module are on no
-inference path and are not ported.
+RoPE ``FastSpeech2Encoder``, so their attention is K3. Both take the config's
+``dropout`` (the melody encoder its own ``melody_encoder_args.dropout`` first),
+which acts in training mode only. The conv-stack ``VariancePredictor`` and
+``PitchPredictor`` of the JAX module are on no path and are not ported.
 """
 
 from __future__ import annotations
@@ -24,14 +25,14 @@ from diffsinger_tpu_torch.models.commons import CurveEmbed, Embedding, FastSpeec
 
 
 class DurationPredictor(nn.Module):
-    """Conv stack predicting log-domain durations, returned as linear
-    durations clamped at 0. ``conv.{i}`` keeps the reference's slots: 0 and 4
-    (padding and dropout) are placeholders, 1 the conv, 2 the ReLU, 3 the
-    LayerNorm (eps 1e-12). The LayerNorms and the last Linear run in float32
-    whatever the module's dtype, as the JAX module computes them."""
+    """Conv stack predicting log-domain durations. ``conv.{i}`` keeps the
+    reference's slots: 0 (padding) is a placeholder, 1 the conv, 2 the ReLU, 3
+    the LayerNorm (eps 1e-12), 4 the dropout. The LayerNorms and the last
+    Linear run in float32 whatever the module's dtype, as the JAX module
+    computes them."""
 
     def __init__(self, in_dims: int, n_layers: int = 5, n_chans: int = 512,
-                 kernel_size: int = 3, offset: float = 1.0):
+                 kernel_size: int = 3, dropout: float = 0.1, offset: float = 1.0):
         super().__init__()
         self.offset = offset
         self.conv = nn.ModuleList([
@@ -41,32 +42,36 @@ class DurationPredictor(nn.Module):
                           padding=kernel_size // 2),
                 nn.ReLU(),
                 nn.LayerNorm(n_chans, eps=1e-12),
-                nn.Identity(),
+                nn.Dropout(dropout),
             )
             for i in range(n_layers)
         ])
         self.linear = Linear(n_chans, 1)
 
-    def forward(self, xs: torch.Tensor, x_masks: torch.Tensor) -> torch.Tensor:
-        """xs [B, T, H]; x_masks [B, T] bool, True = padding -> [B, T] float32."""
+    def forward(self, xs: torch.Tensor, x_masks: torch.Tensor, infer: bool = True) -> torch.Tensor:
+        """xs [B, T, H]; x_masks [B, T] bool, True = padding -> [B, T] float32:
+        linear durations clamped at 0, or with ``infer=False`` the raw
+        log-domain output that ``dur_loss`` takes."""
         nonpadding = (~x_masks).float()[:, :, None]
         for block in self.conv:
-            conv, norm = block[1], block[3]
+            conv, norm, dropout = block[1], block[3], block[4]
             w = conv.weight
             xs = F.relu(conv(xs.to(w.dtype).transpose(1, 2)).transpose(1, 2))
             xs = F.layer_norm(xs.float(), norm.normalized_shape, norm.weight.float(),
                               norm.bias.float(), norm.eps)
-            xs = xs * nonpadding
+            xs = dropout(xs) * nonpadding
         dur_log = (F.linear(xs, self.linear.weight.float(), self.linear.bias.float())
                    * nonpadding)[:, :, 0]
+        if not infer:
+            return dur_log
         return torch.clamp(torch.exp(dur_log) - self.offset, min=0.0)
 
 
 class FastSpeech2Variance(nn.Module):
     def __init__(self, vocab_size: int, hidden_size: int = 256, enc_layers: int = 4,
-                 enc_ffn_kernel_size: int = 9, ffn_act: str = "gelu", num_heads: int = 2,
-                 use_rope: bool = True, use_lang_id: bool = False, num_lang: int = 1,
-                 predict_dur: bool = True, dur_args: Optional[dict] = None):
+                 enc_ffn_kernel_size: int = 9, ffn_act: str = "gelu", dropout: float = 0.1,
+                 num_heads: int = 2, use_rope: bool = True, use_lang_id: bool = False,
+                 num_lang: int = 1, predict_dur: bool = True, dur_args: Optional[dict] = None):
         super().__init__()
         h = hidden_size
         self.predict_dur = predict_dur
@@ -79,23 +84,25 @@ class FastSpeech2Variance(nn.Module):
         self.lang_embed = Embedding(num_lang + 1, h, padding_idx=0) if use_lang_id else None
         self.encoder = FastSpeech2Encoder(
             h, enc_layers, ffn_kernel_size=enc_ffn_kernel_size, ffn_act=ffn_act,
-            num_heads=num_heads, use_rope=use_rope)
+            num_heads=num_heads, use_rope=use_rope, dropout=dropout)
         if predict_dur:
             dur_args = dur_args or {}
             self.midi_embed = Embedding(128, h)
             self.dur_predictor = DurationPredictor(
                 h, n_layers=dur_args.get("num_layers", 5), n_chans=dur_args.get("hidden_size", 512),
-                kernel_size=dur_args.get("kernel_size", 3), offset=dur_args.get("log_offset", 1.0))
+                kernel_size=dur_args.get("kernel_size", 3), dropout=dur_args.get("dropout", 0.1),
+                offset=dur_args.get("log_offset", 1.0))
 
     def forward(self, txt_tokens: torch.Tensor, midi: torch.Tensor, ph2word: torch.Tensor,
                 ph_dur: Optional[torch.Tensor] = None, word_dur: Optional[torch.Tensor] = None,
                 spk_embed: Optional[torch.Tensor] = None,
-                languages: Optional[torch.Tensor] = None):
+                languages: Optional[torch.Tensor] = None, infer: bool = True):
         """Returns (encoder_out [B, T_ph, H], dur_pred [B, T_ph] | None).
 
         In word mode (``predict_dur``) the word durations come from
         ``word_dur``, or are summed from ``ph_dur`` at ``ph2word`` (index 0 is
-        the padding slot) when there is none.
+        the padding slot) when there is none or in training (``infer=False``,
+        where ``dur_pred`` is the predictor's log-domain output).
         """
         txt_embed = self.txt_embed(txt_tokens)
         if self.predict_dur:
@@ -103,7 +110,7 @@ class FastSpeech2Variance(nn.Module):
             onset = (ph2word - prev) > 0
             extra_embed = self.onset_embed(onset.long())
             idx = ph2word.long()
-            if word_dur is None:
+            if word_dur is None or not infer:
                 b, t_w = ph2word.shape  # an upper bound on the word count
                 wd = torch.zeros((b, t_w + 1), dtype=torch.float32, device=ph2word.device)
                 word_dur = wd.scatter_add(1, idx, ph_dur.float())[:, 1:]
@@ -120,7 +127,7 @@ class FastSpeech2Variance(nn.Module):
         dur_cond = encoder_out + self.midi_embed(midi.long())
         if spk_embed is not None:
             dur_cond = dur_cond + spk_embed
-        return encoder_out, self.dur_predictor(dur_cond, txt_tokens == 0)
+        return encoder_out, self.dur_predictor(dur_cond, txt_tokens == 0, infer=infer)
 
     @classmethod
     def from_hparams(cls, hp: dict, vocab_size: int) -> "FastSpeech2Variance":
@@ -130,6 +137,7 @@ class FastSpeech2Variance(nn.Module):
             enc_layers=hp["enc_layers"],
             enc_ffn_kernel_size=hp["enc_ffn_kernel_size"],
             ffn_act=hp["ffn_act"],
+            dropout=hp["dropout"],
             num_heads=hp["num_heads"],
             use_rope=hp.get("use_rope", False),
             use_lang_id=hp.get("use_lang_id", False),
@@ -144,8 +152,8 @@ class MelodyEncoder(nn.Module):
     [B, T_note, out_size]."""
 
     def __init__(self, hidden_size: int = 128, out_size: int = 256, enc_layers: int = 4,
-                 enc_ffn_kernel_size: int = 9, ffn_act: str = "gelu", num_heads: int = 2,
-                 use_rope: bool = True, use_glide_embed: bool = False,
+                 enc_ffn_kernel_size: int = 9, ffn_act: str = "gelu", dropout: float = 0.1,
+                 num_heads: int = 2, use_rope: bool = True, use_glide_embed: bool = False,
                  glide_types: tuple = ("up", "down"),
                  glide_embed_scale: float = 11.313708498984760):
         super().__init__()
@@ -157,7 +165,7 @@ class MelodyEncoder(nn.Module):
                                  if use_glide_embed else None)
         self.encoder = FastSpeech2Encoder(
             h, enc_layers, ffn_kernel_size=enc_ffn_kernel_size, ffn_act=ffn_act,
-            num_heads=num_heads, use_rope=use_rope)
+            num_heads=num_heads, use_rope=use_rope, dropout=dropout)
         self.out_proj = Linear(h, out_size)
 
     def forward(self, note_midi: torch.Tensor, note_rest: torch.Tensor, note_dur: torch.Tensor,
@@ -183,6 +191,7 @@ class MelodyEncoder(nn.Module):
             enc_layers=get("enc_layers"),
             enc_ffn_kernel_size=get("enc_ffn_kernel_size"),
             ffn_act=get("ffn_act"),
+            dropout=get("dropout"),
             num_heads=get("num_heads"),
             use_rope=get("use_rope", False),
             use_glide_embed=hp.get("use_glide_embed", False),

@@ -130,6 +130,9 @@ class BaseTask:
         self.logger = SummaryLogger(self.work_dir / "lightning_logs" / "tb")
         self.global_step = 0
         self.epoch = 0
+        # streaming validation metrics, {name: state with ``value()``}: reset
+        # by each run_validation, updated by validation_extras
+        self.metric_states: Dict[str, object] = {}
 
     # -- subclass contract --------------------------------------------------
     def build_model(self):
@@ -143,7 +146,8 @@ class BaseTask:
         raise NotImplementedError()
 
     def validation_extras(self, valid_ds, batch: dict) -> None:
-        """Task-specific figures and audio for a validation batch."""
+        """Task-specific figures and audio for a validation batch, and updates
+        of ``self.metric_states``."""
 
     # ------------------------------------------------------------------
     def to_device(self, batch: dict) -> Dict[str, torch.Tensor]:
@@ -341,9 +345,12 @@ class BaseTask:
                        sanity: bool = False) -> Dict[str, float]:
         """Mean validation losses (float32, eval mode, draws from a generator
         seeded 42 for every batch); the task's extras unless ``sanity``, which
-        only checks that the losses are finite."""
+        only checks that the losses are finite. Each streaming metric is
+        logged once, after the last batch, as ``metrics/{name}``; the returned
+        dict holds it under that key beside the losses."""
         hp = self.hp
         self.module.eval()
+        self.metric_states = {}
         n = len(valid_ds)
         bs = max(1, hp.get("max_val_batch_size", 1))
         max_frames = int(hp.get("max_val_batch_frames", 60000) or 0)
@@ -375,7 +382,10 @@ class BaseTask:
             return means
         for k, v in means.items():
             self.logger.add_scalar(f"validation/{k}", v, self.global_step)
+        metrics = {f"metrics/{k}": st.value() for k, st in self.metric_states.items()}
+        for k, v in metrics.items():
+            self.logger.add_scalar(k, v, self.global_step)
         print(f"| validation @ {self.global_step}: "
-              + " ".join(f"{k}={v:.4f}" for k, v in means.items()))
+              + " ".join(f"{k}={v:.4f}" for k, v in {**means, **metrics}.items()))
         self.logger.flush()
-        return means
+        return {**means, **metrics}
