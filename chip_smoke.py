@@ -80,8 +80,10 @@ Phases, each printed as it ends; any failure exits non-zero:
    word) made by ``VarianceDataset.collater``: K3 and its backward against
    their plain versions at the encoder's shape and at the melody encoder's
    head width 64; one float32 step of a narrow model with the melody encoder
-   and glides on the card against the same step on CPU tensors; the loss
-   falling over 20 steps with fixed t, noise and retake masks; 10 timed steps
+   and glides on the card against the same step on CPU tensors; the
+   full-width melody encoder's forward and backward at the batch's notes
+   (its K3 launches, counted from 0); the loss falling over 20 steps with
+   fixed t, noise and retake masks; 10 timed steps
    after 3 warm-ups (optimizer steps/s, true frames/s, peak memory, launches
    per step: K3 4, K3's backward 4, K1 and K2 0); one step under the profiler
    (idle share, top device operations); a validation batch (losses and
@@ -874,7 +876,7 @@ def card_vs_cpu_step(tag, tasks, batch, draws, what=""):
     if not (grad_err <= 1e-3 and param_err <= 2 * lr and param_off <= 0.01):
         fail(f"[{tag}] the float32 training step on the card disagrees with the step on the CPU")
     return {"grad_rel_err": grad_err, "param_err": param_err, "param_share_off": param_off,
-            "k3_launches": launched[0]}, launched
+            "lr": lr, "k3_launches": launched[0]}, launched
 
 
 def timed_train_steps(tag, task, batch, per_step, reset_counts, read_counts):
@@ -1167,6 +1169,84 @@ def variance_train_items(rng, n, lo, hi, n_ph_first):
     return items
 
 
+def variance_hp(work_dir, **over):
+    """configs/variance.yaml with the four variances on, writing to work_dir."""
+    from diffsinger_tpu_torch.config import load_config
+
+    hp = load_config(ROOT / "configs" / "variance.yaml")
+    hp.update({f"predict_{v}": True for v in VARIANCES})
+    hp.update(work_dir=str(work_dir), num_valid_plots=1,
+              dictionary=str(ROOT / "dictionaries" / "opencpop-extension.txt"), **over)
+    return hp
+
+
+def memory_variance_dataset(items, hp):
+    """Variance items held in memory, behind ``VarianceDataset``'s collater."""
+    from diffsinger_tpu_torch.data.dataset import VarianceDataset
+
+    class MemoryDataset(VarianceDataset):
+        def __init__(self):
+            self.hp, self.items = hp, items
+            self.sizes = [len(it["mel2ph"]) for it in items]
+            self.metadata = {k: [len(it[k]) for it in items]
+                             for k in ("tokens", "pitch", *VARIANCES)}
+            self.frame_bucket, self.token_bucket = 128, 16
+            self.var_list = [v for v in VARIANCES if hp.get(f"predict_{v}", False)]
+
+    return MemoryDataset()
+
+
+def narrow_variance_step(work_dir):
+    """One float32 step of a narrow variance model with the melody encoder and
+    glides: the card (kernels) against the CPU (plain versions), same
+    weights, batch of 4 segments, t, noise and retake masks, dropout off,
+    within ``card_vs_cpu_step``'s tolerances. The encoder has two heads of
+    32, the melody encoder two heads of 64 (as at full width), two layers
+    each: K3 and its backward launch 4 times on the card and never on the
+    CPU. Returns ``card_vs_cpu_step``'s report."""
+    import numpy as np
+    import torch
+
+    from diffsinger_tpu_torch.training.variance_task import VarianceTask, random_retake_masks
+
+    base = variance_hp(work_dir)
+    narrow = dict(hidden_size=64, enc_layers=2, dropout=0.0, pl_trainer_precision="32-true",
+                  use_melody_encoder=True, use_glide_embed=True,
+                  melody_encoder_args=dict(hidden_size=128, enc_layers=2),
+                  dur_prediction_args=dict(base["dur_prediction_args"], hidden_size=64,
+                                           num_layers=2, dropout=0.0),
+                  pitch_prediction_args=dict(base["pitch_prediction_args"], backbone_args=dict(
+                      num_layers=4, num_channels=64, dilation_cycle_length=2)),
+                  variances_prediction_args=dict(
+                      base["variances_prediction_args"],
+                      backbone_args=dict(num_layers=2, num_channels=64, dilation_cycle_length=2)))
+    tasks = []
+    for device in ("cuda", "cpu"):
+        torch.manual_seed(42)
+        tasks.append(quiet(VarianceTask, variance_hp(Path(work_dir) / f"narrow_{device}", **narrow),
+                           device=device))
+        tasks[-1].configure_optimizer()
+    seeded_weights(tasks[0].module, 43)
+    tasks[1].module.load_state_dict(tasks[0].module.state_dict())
+    ds = memory_variance_dataset(variance_train_items(np.random.default_rng(44), 4, 150, 256, 30),
+                                 tasks[0].hp)
+    small = {k: v for k, v in ds.collater([ds[i] for i in range(4)]).items()
+             if isinstance(v, np.ndarray) and k != "indices"}
+    b_s, t_s = small["mel2ph"].shape
+    gen = torch.Generator().manual_seed(45)
+    draws = dict(t_pitch=torch.rand(b_s, generator=gen), t_var=torch.rand(b_s, generator=gen),
+                 noise_pitch=torch.randn(b_s, t_s, 64, generator=gen),
+                 noise_var=torch.randn(b_s, t_s, 48, generator=gen),
+                 pitch_retake=random_retake_masks(b_s, t_s, generator=gen),
+                 variance_retake={v: random_retake_masks(b_s, t_s, generator=gen)
+                                  for v in VARIANCES})
+    report, launched = card_vs_cpu_step("train_variance", tasks, small, draws,
+                                        " with the melody encoder")
+    if launched != [(4, 4), (0, 0)]:
+        fail(f"[train_variance] the narrow step's K3 launches {launched} != [(4, 4), (0, 0)]")
+    return report
+
+
 def train_variance_phase(card, reset_counts, read_counts, check):
     """[train_variance]: the variance model's training on the card through
     ``VarianceTask`` (the task ``cli.train`` builds for configs/variance.yaml):
@@ -1177,7 +1257,8 @@ def train_variance_phase(card, reset_counts, read_counts, check):
     ``VarianceDataset.collater``. K3 and its backward against their plain
     versions at the encoder's shape and at the melody encoder's head width 64;
     one float32 step of a narrow model with the melody encoder and glides on
-    the card against the same step on CPU tensors; the loss falling over 20
+    the card against the same step on CPU tensors; the full-width melody
+    encoder's forward and backward (its launches); the loss falling over 20
     steps on the fixed batch with fixed t, noise and retake masks; 10 timed
     steps after 3 warm-ups (steps/s, true frames/s, peak memory, launches per
     step); one step under the profiler; a validation batch (losses and
@@ -1186,21 +1267,9 @@ def train_variance_phase(card, reset_counts, read_counts, check):
     import numpy as np
     import torch
 
-    from diffsinger_tpu_torch.config import load_config
-    from diffsinger_tpu_torch.data.dataset import VarianceDataset
+    from diffsinger_tpu_torch.models.variance_encoder import MelodyEncoder
     from diffsinger_tpu_torch.ops import flash_attention
     from diffsinger_tpu_torch.training.variance_task import VarianceTask, random_retake_masks
-
-    class MemoryDataset(VarianceDataset):
-        """Variance items held in memory, behind the dataset's collater."""
-
-        def __init__(self, items, hp):
-            self.hp, self.items = hp, items
-            self.sizes = [len(it["mel2ph"]) for it in items]
-            self.metadata = {k: [len(it[k]) for it in items]
-                             for k in ("tokens", "pitch", *VARIANCES)}
-            self.frame_bucket, self.token_bucket = 128, 16
-            self.var_list = [v for v in VARIANCES if hp.get(f"predict_{v}", False)]
 
     def batch_of(task, ds, n):
         collated = ds.collater([ds[i] for i in range(n)])
@@ -1211,17 +1280,11 @@ def train_variance_phase(card, reset_counts, read_counts, check):
     report = {}
     tmp = Path(tempfile.mkdtemp(prefix="train_variance_", dir=OUT_DIR))
 
-    def task_hp(work_dir, **over):
-        hp = load_config(ROOT / "configs" / "variance.yaml")
-        hp.update({f"predict_{v}": True for v in VARIANCES})
-        hp.update(work_dir=str(work_dir), num_valid_plots=1,
-                  dictionary=str(ROOT / "dictionaries" / "opencpop-extension.txt"), **over)
-        return hp
-
     # the full-width batch first: its buckets are the kernels' shapes
-    hp = task_hp(tmp / "exp")
+    hp = variance_hp(tmp / "exp")
     rng = np.random.default_rng(40)
-    ds = MemoryDataset(variance_train_items(rng, VAR_TRAIN_B, *VAR_TRAIN_LENGTHS, 170), hp)
+    ds = memory_variance_dataset(variance_train_items(rng, VAR_TRAIN_B, *VAR_TRAIN_LENGTHS, 170),
+                                 hp)
     collated = ds.collater([ds[i] for i in range(VAR_TRAIN_B)])
     b_, t_txt = collated["tokens"].shape
     t_mel, t_note = collated["mel2ph"].shape[1], collated["note_midi"].shape[1]
@@ -1257,47 +1320,31 @@ def train_variance_phase(card, reset_counts, read_counts, check):
                            fwd_err=fwd_err, bwd_errs=errs)
     torch.cuda.synchronize()
 
-    # one float32 step of a narrow model with the melody encoder and glides:
-    # the card (kernels) against the CPU (plain versions), same weights,
-    # batch, t, noise and retake masks, dropout off. The encoder has two heads
-    # of 32, the melody encoder two heads of 64, as at full width.
-    narrow = dict(hidden_size=64, enc_layers=2, dropout=0.0, pl_trainer_precision="32-true",
-                  use_melody_encoder=True, use_glide_embed=True,
-                  melody_encoder_args=dict(hidden_size=128, enc_layers=2),
-                  dur_prediction_args=dict(hp["dur_prediction_args"], hidden_size=64,
-                                           num_layers=2, dropout=0.0),
-                  pitch_prediction_args=dict(hp["pitch_prediction_args"], backbone_args=dict(
-                      num_layers=4, num_channels=64, dilation_cycle_length=2)),
-                  variances_prediction_args=dict(hp["variances_prediction_args"], backbone_args=dict(
-                      num_layers=2, num_channels=64, dilation_cycle_length=2)))
-    tasks = []
-    for device in ("cuda", "cpu"):
-        torch.manual_seed(42)
-        tasks.append(quiet(VarianceTask, task_hp(tmp / f"narrow_{device}", **narrow),
-                           device=device))
-        tasks[-1].configure_optimizer()
-    seeded_weights(tasks[0].module, 43)
-    tasks[1].module.load_state_dict(tasks[0].module.state_dict())
-    rng = np.random.default_rng(44)
-    small_ds = MemoryDataset(variance_train_items(rng, 4, 150, 256, 30), tasks[0].hp)
-    small = {k: v for k, v in small_ds.collater([small_ds[i] for i in range(4)]).items()
-             if isinstance(v, np.ndarray) and k != "indices"}
-    b_s, t_s = small["mel2ph"].shape
-    gen = torch.Generator().manual_seed(45)
-    draws = dict(t_pitch=torch.rand(b_s, generator=gen), t_var=torch.rand(b_s, generator=gen),
-                 noise_pitch=torch.randn(b_s, t_s, 64, generator=gen),
-                 noise_var=torch.randn(b_s, t_s, 48, generator=gen),
-                 pitch_retake=random_retake_masks(b_s, t_s, generator=gen),
-                 variance_retake={v: random_retake_masks(b_s, t_s, generator=gen)
-                                  for v in VARIANCES})
-    report["f32_step_vs_cpu"], launched = card_vs_cpu_step(
-        "train_variance", tasks, small, draws, " with the melody encoder")
-    # two layers each of the encoder and the melody encoder, on the card only
-    melody_layers = narrow["melody_encoder_args"]["enc_layers"]
-    report["f32_step_vs_cpu"]["melody_k3_launches"] = (melody_layers, melody_layers)
-    if launched != [(4, 4), (0, 0)]:
-        fail(f"[train_variance] the narrow step's K3 launches {launched} != [(4, 4), (0, 0)]")
-    del tasks
+    report["f32_step_vs_cpu"] = narrow_variance_step(tmp)
+
+    # the full-width melody encoder (4 layers of two heads of 64) forward and
+    # backward under the step's bf16 autocast at the batch's note shape,
+    # its launches counted from 0: the shipped config has it off, so this
+    # is the one run of K3 and its backward at that shape
+    torch.manual_seed(49)
+    melody = MelodyEncoder.from_hparams(hp).to(dev)
+    seeded_weights(melody, 50)
+    notes = [torch.from_numpy(collated[k]).to(dev) for k in ("note_midi", "note_rest", "note_dur")]
+    reset_counts()
+    with torch.autocast("cuda", dtype=torch.bfloat16):
+        mel_out = melody(*notes)
+    mel_out.float().square().mean().backward()
+    torch.cuda.synchronize()
+    melody_counts = dict(read_counts(), K3bwd=flash_attention.bwd_launches)
+    n_layers = len(melody.encoder.layers)
+    log(f"[train_variance] the full-width melody encoder, forward and backward at B={b_}, "
+        f"T_note={t_note}: launches {melody_counts}")
+    if melody_counts != {"K1": 0, "K2": 0, "K3": n_layers, "K3bwd": n_layers} or \
+            not torch.isfinite(mel_out).all():
+        fail(f"[train_variance] the melody encoder's launches {melody_counts} are not "
+             f"{n_layers} K3 and {n_layers} K3-bwd, or its output is not finite")
+    report["melody_encoder_launches"] = melody_counts
+    del melody, mel_out, notes
 
     # the full-width task, bf16 autocast over float32 parameters and AdamW
     torch.manual_seed(46)
@@ -1360,7 +1407,7 @@ def train_variance_phase(card, reset_counts, read_counts, check):
             f"{k[:60]} {ms:.1f} ms" for k, ms in list(prof["top_kernels_ms"].items())[:8]))
 
     # one validation batch (float32, the kernels, forward_infer, metrics, figures)
-    val = quiet(task.run_validation, MemoryDataset(ds.items[:4], hp))
+    val = quiet(task.run_validation, memory_variance_dataset(ds.items[:4], hp))
     log(f"[train_variance] validation batch: {val}")
     want_keys = {"dur_loss", "pitch_loss", "var_loss", "metrics/rhythm_corr",
                  "metrics/ph_dur_acc", "metrics/pitch_acc", "metrics/pitch_r2",
@@ -1960,8 +2007,8 @@ def main() -> None:
 
     # K3 and its backward at the variance model's training shapes: the
     # encoder's (launched in [train_variance]'s timed steps) and the melody
-    # encoder's head width 64 (launched by its narrow float32 step)
-    narrow_launches = report["phases"]["train_variance"]["f32_step_vs_cpu"]["melody_k3_launches"]
+    # encoder's head width 64 (launched by its full-width forward and backward)
+    melody_counts = report["phases"]["train_variance"]["melody_encoder_launches"]
     bwd_replaces = kernels[-1]["replaces"]
     for what, case in var_cases.items():
         qv, kv, vv, padv = case["q"], case["k"], case["v"], case["pad"]
@@ -1973,9 +2020,9 @@ def main() -> None:
             fwd_n, bwd_n = var_train_counts["K3"], var_train_counts["K3bwd"]
             origin = f"[train_variance]'s {TRAIN_STEPS} timed steps"
         else:
-            fwd_n, bwd_n = narrow_launches
-            origin = ("[train_variance]'s narrow float32 step: its melody encoder's two "
-                      "layers of two heads of 64, at the narrow batch's note bucket")
+            fwd_n, bwd_n = melody_counts["K3"], melody_counts["K3bwd"]
+            origin = ("[train_variance]'s full-width melody encoder (4 layers of two heads of "
+                      "64), one forward and backward at this shape")
         fwd = {
             "name": f"flash_attention at {shape} ({what}, variance training)", "route": "cuda",
             "source": "diffsinger_tpu_torch/ops/csrc/flash_attention.cu",

@@ -554,91 +554,18 @@ def test_k3_and_its_backward_at_variance_training_shapes(dev, b, length, d):
         assert _max_err(a, w) <= 1e-4 * w.abs().max().item()
 
 
-def _small_variance_task(device, work_dir):
-    """A VarianceTask at narrow widths in float32 with the melody encoder (two
-    heads of 64, as at full width), glides and the four variances on, dropout
-    off."""
-    from pathlib import Path
-
-    from diffsinger_tpu_torch.config import load_config
-    from diffsinger_tpu_torch.training.variance_task import VarianceTask
-
-    root = Path(__file__).resolve().parents[1]
-    hp = load_config(root / "configs" / "variance.yaml")
-    hp.update({f"predict_{v}": True for v in ("energy", "breathiness", "voicing", "tension")})
-    hp.update(work_dir=str(work_dir), dictionary=str(root / "dictionaries" / "opencpop-extension.txt"),
-              hidden_size=64, enc_layers=2, dropout=0.0, pl_trainer_precision="32-true",
-              use_melody_encoder=True, use_glide_embed=True,
-              melody_encoder_args=dict(hidden_size=128, enc_layers=2))
-    hp["dur_prediction_args"] = dict(hp["dur_prediction_args"], hidden_size=64, num_layers=2,
-                                     dropout=0.0)
-    for key, layers in (("pitch_prediction_args", 4), ("variances_prediction_args", 2)):
-        hp[key] = dict(hp[key], backbone_args=dict(num_layers=layers, num_channels=64,
-                                                   dilation_cycle_length=2))
-    torch.manual_seed(0)
-    task = VarianceTask(hp, device=device)
-    task.configure_optimizer()
-    return task
-
-
 def test_variance_train_step_on_the_card_matches_the_cpu(dev, tmp_path):
-    """One float32 optimizer step of a narrow variance model: the kernels on
-    the card against the plain versions on the CPU, same weights, batch, t,
-    noise and retake masks. Gradients within 1e-3 of each one's largest
-    entry; parameters after AdamW within 2 lr, all but 1 % of the elements
-    within 1e-6 (as the acoustic step above)."""
-    import numpy as np
+    """One float32 optimizer step of a narrow variance model with the melody
+    encoder and glides: the kernels on the card against the plain versions on
+    the CPU, same weights, batch, t, noise and retake masks. Gradients within
+    1e-3 of each one's largest entry; parameters after AdamW within 2 lr, all
+    but 1 % of the elements within 1e-6 (as the acoustic step above). The
+    step is chip_smoke.py's ``[train_variance]`` one, which fails the run on
+    a larger error or on other launch counts than 4 K3 and 4 K3-bwd on the
+    card and none on the CPU."""
+    import chip_smoke
 
-    from diffsinger_tpu_torch.training.variance_task import random_retake_masks
-
-    card, cpu = (_small_variance_task(dev, tmp_path / "card"),
-                 _small_variance_task("cpu", tmp_path / "cpu"))
-    with torch.no_grad():  # the zero-initialised projections would mute the denoisers
-        g = torch.Generator().manual_seed(1)
-        for p in card.module.parameters():
-            p.add_(0.05 * torch.randn(p.shape, generator=g).to(dev))
-    cpu.module.load_state_dict(card.module.state_dict())
-    rng = np.random.default_rng(0)
-    b, t_ph, t_n, t_mel = 3, 32, 16, 256
-    tokens = rng.integers(1, 50, (b, t_ph)).astype(np.int32)
-    ph2word = np.repeat(np.arange(1, t_n + 1), 2)[None].repeat(b, 0).astype(np.int32)
-    mel2ph = np.repeat(np.arange(1, t_ph + 1), t_mel // t_ph)[None].repeat(b, 0).astype(np.int32)
-    mel2note = np.repeat(np.arange(1, t_n + 1), t_mel // t_n)[None].repeat(b, 0).astype(np.int32)
-    note_midi = rng.uniform(55, 70, (b, t_n)).astype(np.float32)
-    tokens[1, 20:], ph2word[1, 20:], note_midi[1, 10:] = 0, 0, -1
-    mel2ph[1][mel2ph[1] > 20] = 0
-    mel2note[1][mel2note[1] > 10] = 0
-    base_pitch = np.repeat(note_midi, t_mel // t_n, axis=1).clip(0)
-    batch = dict(tokens=tokens, ph2word=ph2word, midi=np.full((b, t_ph), 60, np.int32),
-                 ph_dur=np.full((b, t_ph), t_mel // t_ph, np.int32) * (tokens > 0),
-                 mel2ph=mel2ph, mel2note=mel2note, note_midi=note_midi, note_rest=note_midi < 0,
-                 note_dur=np.full((b, t_n), t_mel // t_n, np.int32),
-                 note_glide=rng.integers(0, 3, (b, t_n)).astype(np.int32), base_pitch=base_pitch,
-                 pitch=(base_pitch + rng.normal(0, 0.3, (b, t_mel))).astype(np.float32),
-                 uv=rng.random((b, t_mel)) < 0.1,
-                 **{v: rng.uniform(-60, -20, (b, t_mel)).astype(np.float32)
-                    for v in ("energy", "breathiness", "voicing", "tension")})
-    gen = torch.Generator().manual_seed(2)
-    draws = dict(t_pitch=torch.rand(b, generator=gen), t_var=torch.rand(b, generator=gen),
-                 noise_pitch=torch.randn(b, t_mel, 64, generator=gen),
-                 noise_var=torch.randn(b, t_mel, 48, generator=gen),
-                 pitch_retake=random_retake_masks(b, t_mel, generator=gen),
-                 variance_retake={v: random_retake_masks(b, t_mel, generator=gen)
-                                  for v in ("energy", "breathiness", "voicing", "tension")})
-    grads, launched = [], []
-    for task in (card, cpu):
-        on = {k: ({n: m.to(task.device) for n, m in x.items()} if isinstance(x, dict)
-                  else x.to(task.device)) for k, x in draws.items()}
-        n = flash_attention.bwd_launches
-        task.train_step(task.to_device(batch), **on)
-        launched.append(flash_attention.bwd_launches - n)
-        # a copy: apply_update clips the gradients in place (.cpu() of a CPU tensor is itself)
-        grads.append({k: p.grad.detach().cpu().clone() for k, p in task.module.named_parameters()})
-        task.apply_update()
-    assert launched == [4, 0]  # two encoder and two melody encoder layers, on the card only
-    lr = card.hp["optimizer_args"]["lr"]
-    for name, w in grads[1].items():
-        assert _max_err(grads[0][name], w) <= 1e-3 * max(w.abs().max().item(), 1e-8), name
-    for (name, a), w in zip(card.module.state_dict().items(), cpu.module.state_dict().values()):
-        d = (a.cpu() - w).abs()
-        assert d.max().item() <= 2 * lr and (d > 1e-6).float().mean().item() <= 0.01, name
+    report = chip_smoke.narrow_variance_step(tmp_path)
+    assert report["k3_launches"] == (4, 4)  # two encoder and two melody encoder layers
+    assert report["grad_rel_err"] <= 1e-3
+    assert report["param_err"] <= 2 * report["lr"] and report["param_share_off"] <= 0.01
