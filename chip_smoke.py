@@ -88,7 +88,24 @@ Phases, each printed as it ends; any failure exits non-zero:
    per step: K3 4, K3's backward 4, K1 and K2 0); one step under the profiler
    (idle share, top device operations); a validation batch (losses and
    metrics); a save and resume round trip (``[train_variance]`` lines);
-9. times: K1 at the long phrase's shape [1, 4096, 2048], K3 at the long
+9. binarize: a synthetic corpus of 120 sung phrases of 3-12 s (about 15
+   minutes at 44.1 kHz; 16-bit wavs, transcriptions.csv, .ds labels) made
+   from a seed and binarized through ``cli.binarize.binarize`` on the card:
+   configs/acoustic.yaml with every embed on, without augmentation, with
+   random pitch shifting and time stretching, with fixed pitch shifting;
+   configs/variance.yaml with the four curves (labels from the .ds files).
+   Per run: seconds of binarization per second of audio, items/s, the split
+   into wav read, mel, pitch (candidates on the card, path on the host),
+   harmonic split, curves (energy and smoothing) and store write, peak
+   memory, and the kernels' launch counters from 0 (all must stay 0). Five
+   items of each family under the profiler (idle share, launches an item);
+   the path finder on the host against a loop of torch operations on the
+   card; five items of each family (and a shifted, stretched copy of each
+   acoustic one) on the card against the CPU within the CPU tests'
+   tolerances; the card's stores (HDF5 where h5py imports, else kept in
+   memory) read back through the datasets into one step of a narrow
+   acoustic and variance task with finite losses (``[binarize]`` lines);
+10. times: K1 at the long phrase's shape [1, 4096, 2048], K3 at the long
    shape [16, 2, 512, 128], K2's two GEMMs alone and K3's backward at
    [48, 2, 128, 128] and [16, 2, 512, 128] with each of its kernels alone
    and its bound on the CUDA cores and in 3xTF32, then K3 and its backward
@@ -1426,6 +1443,494 @@ def train_variance_phase(card, reset_counts, read_counts, check):
     return report, counts, cases
 
 
+BIN_ITEMS = 120
+BIN_SECONDS = (3.0, 12.0)
+BIN_CHECK_ITEMS = 5  # items binarized on the card and on the CPU
+BIN_PROFILE_ITEMS = 5
+BIN_AUGMENTATION = {  # random and fixed pitch shifting exclude each other: two runs
+    "random pitch shift + time stretch": ("random_pitch_shifting", "random_time_stretching"),
+    "fixed pitch shift": ("fixed_pitch_shifting",),
+}
+
+
+def synth_corpus(root: Path, n_items: int, seed: int, lo: float, hi: float,
+                 dictionary: Path) -> float:
+    """A sung corpus made from a seed: ``n_items`` phrases of lo-hi seconds at
+    44.1 kHz as 16-bit wavs, their transcriptions.csv (both families'
+    columns) and a .ds file of the same labels each. A phrase is a breath,
+    then syllables of the dictionary (taken in a seeded order, so that every
+    phoneme occurs) of 0.25-0.6 s on a note each, a breath after some, and a
+    silence: harmonic voice (8 partials) on the vowels with glides between
+    notes and vibrato, noise on the consonants and breaths, a noise floor.
+    Returns the seconds of audio."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    sr, ctl = 44100, 64  # control curves every 64 samples
+    syllables = [line.split("\t")[1].split()
+                 for line in dictionary.read_text().splitlines() if line.strip()]
+    # one syllable for each phoneme first, so that a short corpus covers them all
+    first = {}
+    for phones in syllables:
+        for p in phones:
+            first.setdefault(p, phones)
+    order = list({tuple(ph): ph for ph in first.values()}.values())
+    raw = root / "raw"
+    (raw / "wavs").mkdir(parents=True)
+    (raw / "ds").mkdir()
+    rows = ["name,ph_seq,ph_dur,ph_num,note_seq,note_dur,note_glide"]
+    total = 0.0
+    for i in range(n_items):
+        n = int(sr * rng.uniform(lo, hi))
+        seconds = n / sr
+        # words: (phonemes, their seconds, midi or None)
+        words = [(["AP"], [rng.uniform(0.15, 0.4)], None)]
+        tail = rng.uniform(0.15, 0.4)
+        t, midi = words[0][1][0], int(rng.integers(57, 69))
+        while t < seconds - tail - 0.3:
+            if len(words) % 7 == 0 and rng.random() < 0.6:
+                words.append((["AP"], [rng.uniform(0.2, 0.35)], None))
+            else:
+                if not order:
+                    order = [syllables[j] for j in rng.permutation(len(syllables))]
+                phones = order.pop(0)
+                dur = min(rng.uniform(0.25, 0.6), seconds - tail - t)
+                durs = ([dur * rng.uniform(0.15, 0.3)] if len(phones) > 1 else []) + [0.0]
+                durs[-1] = dur - sum(durs)
+                midi = int(np.clip(midi + rng.integers(-4, 5), 52, 74))
+                words.append((phones, durs, midi))
+            t += sum(words[-1][1])
+        words.append((["SP"], [seconds - t], None))
+        # control curves: midi, voiced and noise amplitude per 64 samples
+        n_ctl = n // ctl + 1
+        midi_c = np.zeros(n_ctl)
+        voiced_c = np.zeros(n_ctl)
+        noise_c = np.full(n_ctl, 0.002)
+        pos = 0.0
+        for phones, durs, note in words:
+            for ph, d in zip(phones, durs):
+                a, b = int(pos * sr / ctl), int((pos + d) * sr / ctl)
+                if note is not None:
+                    midi_c[a:b] = note
+                    if ph == phones[-1]:
+                        voiced_c[a:b] = rng.uniform(0.5, 1.0)
+                    else:
+                        noise_c[a:b] = rng.uniform(0.02, 0.06)
+                elif ph == "AP":
+                    noise_c[a:b] = rng.uniform(0.01, 0.03)
+                pos += d
+        sung_c = midi_c > 0  # carry the notes through breaths for a continuous f0
+        idx = np.arange(n_ctl)
+        midi_c = np.interp(idx, idx[sung_c], midi_c[sung_c])
+        k = np.hanning(int(0.06 * sr / ctl)) + 1e-6  # 60 ms glides between notes
+        midi_c = np.convolve(midi_c, k / k.sum(), mode="same")
+        edge = len(k) // 2
+        midi_c[:edge], midi_c[-edge:] = midi_c[edge], midi_c[-edge - 1]
+        midi_c += 0.3 * np.sin(2 * np.pi * rng.uniform(4.5, 6.5) * idx * ctl / sr)
+        k = np.hanning(int(0.02 * sr / ctl)) + 1e-6  # 20 ms fades
+        voiced_c = np.convolve(voiced_c, k / k.sum(), mode="same")
+        ts = np.arange(n) / ctl
+        f0 = 440.0 * 2 ** ((np.interp(ts, idx, midi_c) - 69) / 12)
+        phase = 2 * np.pi * np.cumsum(f0) / sr
+        y = np.interp(ts, idx, voiced_c) * sum(
+            (0.25 / h) * np.sin(h * phase + h) for h in range(1, 9))
+        y += np.interp(ts, idx, noise_c) * rng.standard_normal(n)
+        name = f"song{i:03d}"
+        data = np.clip(y * 32767, -32768, 32767).astype(np.int16)
+        with wave.open(str(raw / "wavs" / f"{name}.wav"), "wb") as f:
+            f.setnchannels(1)
+            f.setsampwidth(2)
+            f.setframerate(sr)
+            f.writeframes(data.tobytes())
+        labels = {
+            "ph_seq": " ".join(p for w in words for p in w[0]),
+            "ph_dur": " ".join(f"{d:.6f}" for w in words for d in w[1]),
+            "ph_num": " ".join(str(len(w[0])) for w in words),
+            "note_seq": " ".join("rest" if w[2] is None else
+                                 ["C", "C#", "D", "D#", "E", "F", "F#", "G", "G#", "A", "A#",
+                                  "B"][w[2] % 12] + str(w[2] // 12 - 1) for w in words),
+            "note_dur": " ".join(f"{sum(w[1]):.6f}" for w in words),
+            "note_glide": " ".join("none" for _ in words),
+        }
+        rows.append(",".join([name, *labels.values()]))
+        (raw / "ds" / f"{name}.ds").write_text(json.dumps([dict(offset=0.0, **labels)]))
+        total += seconds
+    (raw / "transcriptions.csv").write_text("\n".join(rows) + "\n")
+    return total
+
+
+def binarize_hp(family: str, raw: Path, out: Path, augmentation=()) -> dict:
+    """The shipped config of a family (``vr`` harmonic split without a
+    checkpoint, so ``comb``) over the synthetic corpus: the acoustic one
+    with every embed on and the named augmentations at the config's ranges
+    and scales, the variance one with the four curves and its labels read
+    from the .ds files."""
+    from diffsinger_tpu_torch.config import load_config
+
+    hp = load_config(ROOT / "configs" / f"{family}.yaml")
+    hp.update(binary_data_dir=str(out), work_dir="",
+              dictionary=str(ROOT / "dictionaries" / "opencpop-extension.txt"),
+              datasets=[{"raw_data_dir": str(raw), "speaker": "synth", "language": "zh",
+                         "test_prefixes": ["song000", "song001"]}])
+    if family == "acoustic":
+        hp.update({f"use_{v}_embed": True for v in (*VARIANCES, "key_shift", "speed")})
+        hp.update(use_spk_id=True, num_spk=3)
+        hp["augmentation_args"] = {k: dict(v, enabled=k in augmentation)
+                                   for k, v in hp["augmentation_args"].items()}
+    else:
+        hp.update({f"predict_{v}": True for v in VARIANCES})
+        hp["binarization_args"] = dict(hp["binarization_args"], prefer_ds=True)
+    return hp
+
+
+# Breathiness is the energy of the aperiodic part, the waveform less the
+# comb's harmonic part: a residual 40-60 dB under the voice. An f0 one float32
+# step away (the card's FFTs against the CPU's) moves a bin at the comb's edge
+# (3.5 bins from a harmonic, still on the Nuttall window's main lobe) in or
+# out, and the residual's energy by up to about 0.02 dB (a one-step jitter of
+# f0 on the CPU moves it by up to 0.0096 dB on this corpus). The card is held
+# to 0.05 dB there; every other curve to 1e-4.
+BREATHINESS_CARD_TOL = 0.05
+
+
+def binarized_item_errors(got: dict, want: dict, breathiness_tol: float = 1e-4) -> tuple:
+    """Two binarizations of one item, attribute by attribute: tokens, frame
+    maps, lengths, ids, key shift and speed exact; the mel within mean |diff|
+    2e-4 and max 5e-3; uv exact and f0 within 1e-3 relative (pitch within
+    12 log2(1.001) semitones) on 99.5 % of frames; curves (dB, semitones,
+    tension's logit) within 1e-4, breathiness within ``breathiness_tol``.
+    Returns (worst error by attribute, list of failures)."""
+    import numpy as np
+
+    exact = {"tokens", "languages", "mel2ph", "spk_id", "key_shift", "speed", "ph_dur", "midi",
+             "ph2word", "note_midi", "note_rest", "note_dur", "note_glide", "mel2note", "uv",
+             "length", "seconds", "name", "wav_fn", "spk_name", "ph_text"}
+    curves = {"energy", "breathiness", "voicing", "tension", "base_pitch"}
+    worst, failures = {}, []
+    if set(got) != set(want):
+        return worst, [f"attributes {sorted(set(got) ^ set(want))} differ"]
+    for k, w in want.items():
+        g = got[k]
+        if np.shape(g) != np.shape(w) or np.asarray(g).dtype != np.asarray(w).dtype:
+            failures.append(f"{k}: {np.shape(g)} {np.asarray(g).dtype} against "
+                            f"{np.shape(w)} {np.asarray(w).dtype}")
+            continue
+        if k in exact:
+            ok = np.array_equal(g, w)
+            worst[k] = 0.0 if ok else float("inf")
+        elif k == "mel":
+            diff = np.abs(g - w)
+            worst[k] = float(diff.max())
+            ok = diff.mean() <= 2e-4 and diff.max() <= 5e-3
+        elif k in ("f0", "pitch"):
+            close = (np.isclose(g, w, rtol=1e-3, atol=0) if k == "f0"
+                     else np.abs(g - w) <= 12 * np.log2(1.001))
+            worst[k] = float(1 - close.mean())  # the share of frames off
+            ok = close.mean() >= 0.995
+        elif k in curves:
+            worst[k] = float(np.abs(g - w).max())
+            ok = worst[k] <= (breathiness_tol if k == "breathiness" else 1e-4)
+        else:
+            ok = False
+            failures.append(f"{k}: no tolerance")
+        if not ok:
+            failures.append(f"{k}: off by {worst.get(k)}")
+    return worst, failures
+
+
+def binarize_card_vs_cpu(raw: Path, work: Path, n_items: int) -> dict:
+    """The first ``n_items`` of the corpus through both binarizers' items on
+    the card and on the CPU (float32), with a pitch-shifted and time-stretched
+    copy of each acoustic item (key shift 3, speed 1.2), compared by
+    ``binarized_item_errors`` (breathiness within ``BREATHINESS_CARD_TOL``).
+    Returns the worst error by attribute and the failures."""
+    from diffsinger_tpu_torch.cli.binarize import binarizer_class
+    from diffsinger_tpu_torch.data.augmentation import SpectrogramStretchAugmentation
+
+    worst, failures = {}, []
+    for family in ("acoustic", "variance"):
+        hp = binarize_hp(family, raw, work / f"check_{family}")
+        outs = []
+        for device in ("cuda", "cpu"):
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                b = quiet(binarizer_class(hp["binarizer_cls"]), hp, device=device)
+                meta = b.load_meta_data(raw, 0, "synth", "zh")
+                items = []
+                for name in sorted(meta)[:n_items]:
+                    item = b.process_item(name, meta[name], b.binarization_args)
+                    items.append(item)
+                    if family == "acoustic":
+                        aug = SpectrogramStretchAugmentation(b, {})
+                        items.append(aug.process_item(item, key_shift=3.0, speed=1.2))
+            outs.append(items)
+        for i, (g, w) in enumerate(zip(*outs)):
+            errs, fails = binarized_item_errors(g, w, BREATHINESS_CARD_TOL)
+            for k, e in errs.items():
+                worst[f"{family}.{k}"] = max(worst.get(f"{family}.{k}", 0.0), e)
+            failures += [f"{family} item {i}: {f}" for f in fails]
+    return {"worst": worst, "failures": failures}
+
+
+def binarize_phase(card, reset_counts, read_counts):
+    """[binarize]: both families' binarization on the card through
+    ``cli.binarize.binarize`` (what ``python -m diffsinger_tpu_torch.cli.binarize``
+    runs) over a synthetic corpus of ``BIN_ITEMS`` sung phrases of 3-12 s:
+    configs/acoustic.yaml with every embed on, without augmentation, then
+    with random pitch shifting and time stretching, then with fixed pitch
+    shifting (the two pitch shifts exclude each other); configs/variance.yaml
+    with the four curves. Each run: seconds of binarization per second of
+    audio, items/s, the stages' split, peak memory, launch counters from 0
+    (K1, K2, K3 and K3-bwd must stay at 0). Then five items of each family
+    under the profiler (idle share, launches an item), the path finder on the
+    host against a loop of torch operations on the card, five items of each
+    family on the card against the CPU (``binarize_card_vs_cpu``), and the
+    card's stores read back through the datasets and collaters into one
+    optimizer step of a narrow acoustic and variance task (finite losses).
+    The stores are HDF5 where h5py imports, else kept in memory by the same
+    interface. Returns the report and the launch counts."""
+    import pickle
+    import random
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from diffsinger_tpu_torch.cli.binarize import binarize, binarizer_class
+    from diffsinger_tpu_torch.data import dataset as dataset_mod
+    from diffsinger_tpu_torch.dsp import pe
+    from diffsinger_tpu_torch.ops import flash_attention
+    from diffsinger_tpu_torch.training.acoustic_task import AcousticTask
+    from diffsinger_tpu_torch.training.variance_task import VarianceTask
+
+    report = {}
+    tmp = Path(tempfile.mkdtemp(prefix="binarize_", dir=OUT_DIR))
+    t0 = time.perf_counter()
+    audio_s = synth_corpus(tmp, BIN_ITEMS, 60, *BIN_SECONDS,
+                           ROOT / "dictionaries" / "opencpop-extension.txt")
+    raw = tmp / "raw"
+    log(f"[binarize] corpus: {BIN_ITEMS} phrases, {audio_s:.1f} s of audio at 44.1 kHz, made in "
+        f"{time.perf_counter() - t0:.1f} s")
+    report["corpus_audio_s"] = audio_s
+
+    try:
+        import h5py  # noqa: F401
+
+        memory = None
+        store_kind = "HDF5 files (h5py)"
+    except ImportError:
+        memory = {}
+        store_kind = "in memory (no h5py on this machine: the file write is left out)"
+
+    class MemoryBuilder:
+        """``IndexedDatasetBuilder``'s interface over a list."""
+
+        def __init__(self, path, prefix, allowed_attr):
+            self.allowed = set(allowed_attr)
+            self.items = memory[Path(path), prefix] = []
+
+        def add_item(self, item):
+            self.items.append({k: v for k, v in item.items()
+                               if k in self.allowed and v is not None})
+            return len(self.items) - 1
+
+        def finalize(self):
+            pass
+
+    def dataset(cls, data_dir, hp, prefix):
+        if memory is None:
+            return cls(data_dir, hp, prefix)
+        with mock.patch.object(dataset_mod, "IndexedDataset",
+                               lambda path, prefix_: memory[Path(path), prefix_]):
+            return cls(data_dir, hp, prefix)
+
+    extra = {} if memory is None else {"builder": MemoryBuilder}
+    runs = [("acoustic", "no augmentation", ())]
+    runs += [("acoustic", what, names) for what, names in BIN_AUGMENTATION.items()]
+    runs += [("variance", "no augmentation (the family has none)", ())]
+    stores = {}
+    counts = {"K1": 0, "K2": 0, "K3": 0, "K3bwd": 0}
+    report["runs"] = []
+    for i, (family, what, aug) in enumerate(runs):
+        out = tmp / f"{family}_{i}"
+        hp = binarize_hp(family, raw, out, aug)
+        random.seed(70 + i)
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()  # by the earlier phases
+        reset_counts()
+        t0 = time.perf_counter()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # vr without a checkpoint: comb
+            b = quiet(binarize, hp, **extra)
+        wall = time.perf_counter() - t0
+        run_counts = dict(read_counts(), K3bwd=flash_attention.bwd_launches)
+        counts = {k: counts[k] + v for k, v in run_counts.items()}
+        stores[family] = (out, hp)
+        audio = sum(t["seconds"] for t in b.totals.values())
+        items = sum(t["items"] for t in b.totals.values())
+        split = dict(b.timer.seconds, **{f"pitch {k}": v for k, v in b.pe.seconds.items()})
+        peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+        rec = {"family": family, "augmentation": what, "items": items, "audio_s": audio,
+               "wall_s": wall, "s_per_audio_s": wall / audio, "items_per_s": items / wall,
+               "split_s": split, "peak_mem_gib": peak, "launches": run_counts}
+        report["runs"].append(rec)
+        log(f"[binarize] {family}, {what}: {items} items ({audio:.1f} s of audio) in {wall:.2f} "
+            f"s: {wall / audio:.5f} s of binarization a second of audio, {items / wall:.2f} "
+            f"items/s, peak memory {peak:.3f} GiB above what the earlier phases hold, store "
+            f"{store_kind}, on {card}")
+        log(f"[binarize]   split: " + ", ".join(f"{k} {v:.3f} s" for k, v in split.items())
+            + f"; unaccounted {wall - sum(b.timer.seconds.values()):.3f} s; launches {run_counts}")
+        if any(run_counts.values()):
+            fail(f"[binarize] the binarization launched a model kernel: {run_counts}")
+
+    # cuFFT makes a plan for each new (length, batch) of an FFT and keeps it:
+    # the mel of one item at a key shift no run used (FFT length 2092), twice
+    from diffsinger_tpu_torch.dsp.common import as_signal
+    from diffsinger_tpu_torch.dsp.mel import MelSpectrogram
+    from diffsinger_tpu_torch.utils.infer_utils import load_wav
+
+    first_wav = as_signal(load_wav(raw / "wavs" / "song000.wav")[0], "cuda")
+    plan_s = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        MelSpectrogram().bucketed(first_wav, keyshift=0.37)
+        plan_s.append(time.perf_counter() - t0)
+    report["mel_new_fft_length"] = {"first_s": plan_s[0], "again_s": plan_s[1],
+                                    "plans_cached": torch.backends.cuda.cufft_plan_cache[0].size}
+    log(f"[binarize] one mel at a new FFT length (key shift 0.37, {len(first_wav) / 44100:.2f} s): "
+        f"first call {plan_s[0] * 1e3:.2f} ms, again {plan_s[1] * 1e3:.2f} ms; cuFFT plans cached "
+        f"after the runs: {torch.backends.cuda.cufft_plan_cache[0].size}")
+
+    # five items of each family under the profiler
+    for family in ("acoustic", "variance"):
+        out, hp = stores[family]
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            b = quiet(binarizer_class(hp["binarizer_cls"]), hp)
+            meta = b.load_meta_data(raw, 0, "synth", "zh")
+            names = sorted(meta)[2:2 + BIN_PROFILE_ITEMS]
+            b.process_item(names[0], meta[names[0]], b.binarization_args)  # warm-up
+            prof = profile_request(
+                lambda: [b.process_item(n, meta[n], b.binarization_args) for n in names],
+                f"{BIN_PROFILE_ITEMS} {family} items", table=f"chip_smoke_binarize_{family}.txt")
+        if prof.get("measured"):
+            prof["launches_per_item"] = prof["kernel_launches"] / BIN_PROFILE_ITEMS
+            log(f"[binarize] {family}: {prof['launches_per_item']:.0f} kernel launches an item, "
+                f"idle share {prof['idle_share']:.3f}; top device operations: " + "; ".join(
+                    f"{k[:50]} {ms:.2f} ms" for k, ms in list(prof["top_kernels_ms"].items())[:5]))
+        report[f"profile_{family}"] = prof
+
+    # the path finder: on the host over arrays fetched once (the design) against
+    # a loop of torch operations on the card, on the longest item's trellis
+    longest = max(raw.glob("wavs/*.wav"), key=lambda p: p.stat().st_size)
+    y, _ = load_wav(longest)
+    # AcfPE.get_pitch's window, padding and lags for the configs' hop and 65-1100 Hz
+    hop, win, lag_min, lag_max = 512, 2048, 40, 679
+    yp = torch.nn.functional.pad(torch.from_numpy(y).cuda(), (win // 2, win // 2 + hop))
+    strength, f0c, voiced = pe.acf_candidates(yp, 44100.0, win_size=win, hop=hop,
+                                              lag_min=lag_min, lag_max=lag_max)
+    cost = pe.transition_costs(f0c, voiced, hop=hop, sr=44100.0)
+    torch.cuda.synchronize()
+
+    def host_path():
+        return pe.viterbi_path(strength.cpu().numpy(), cost.cpu().numpy())
+
+    def device_path():
+        n_frames, n_states = strength.shape
+        cols = torch.arange(n_states, device=strength.device)
+        delta, back = strength[0], []
+        for t in range(1, n_frames):
+            total = delta[:, None] - cost[t - 1]
+            best = total.argmax(dim=0)
+            back.append(best)
+            delta = strength[t] + total[best, cols]
+        back = torch.stack(back).cpu().numpy()
+        path = np.empty(n_frames, np.int64)
+        path[-1] = int(delta.argmax())
+        for t in range(n_frames - 2, -1, -1):
+            path[t] = back[t, path[t + 1]]
+        return path
+
+    timed = {}
+    for name, fn in (("host", host_path), ("device", device_path), ("host", host_path),
+                     ("device", device_path)):
+        t0 = time.perf_counter()
+        path = fn()
+        timed.setdefault(name, []).append(time.perf_counter() - t0)
+        timed[name + "_path"] = path
+    same = float((timed["host_path"] == timed["device_path"]).mean())
+    report["path_finder"] = {"frames": int(strength.shape[0]), "host_s": min(timed["host"]),
+                             "device_loop_s": min(timed["device"]), "paths_agree": same}
+    log(f"[binarize] path finder over {strength.shape[0]} frames ({len(y) / 44100:.2f} s): host "
+        f"{min(timed['host']) * 1e3:.2f} ms (the design: one fetch, a numpy loop), a loop of "
+        f"torch operations on the card {min(timed['device']) * 1e3:.2f} ms; paths agree on "
+        f"{same:.4f} of frames")
+
+    # five items of each family on the card against the CPU
+    t0 = time.perf_counter()
+    check = binarize_card_vs_cpu(raw, tmp, BIN_CHECK_ITEMS)
+    report["card_vs_cpu"] = check
+    log(f"[binarize] {BIN_CHECK_ITEMS} items of each family (and a shifted, stretched copy of each "
+        f"acoustic one) on the card against the CPU in {time.perf_counter() - t0:.1f} s: every "
+        f"exact attribute equal; worst " + ", ".join(
+            f"{k} {v:.3g}" for k, v in check["worst"].items()
+            if k.split(".")[1] in ("mel", "f0", "pitch", *VARIANCES, "base_pitch"))
+        + " (mel, curves: max |diff|; f0, pitch: share of frames off)")
+    if check["failures"]:
+        fail("[binarize] the card's features disagree with the CPU's: "
+             + "; ".join(check["failures"][:10]))
+
+    # the card's stores through the datasets and collaters into one narrow step each
+    from diffsinger_tpu_torch.data.dataset import AcousticDataset, VarianceDataset
+
+    steps = {}
+    for family, cls, task_cls, narrow in (
+            ("acoustic", AcousticDataset, AcousticTask,
+             dict(hidden_size=64, enc_layers=2, backbone_args=dict(
+                 num_channels=128, num_layers=2, kernel_size=31, dropout_rate=0.0,
+                 strong_cond=True), val_with_vocoder=False)),
+            ("variance", VarianceDataset, VarianceTask,
+             dict(hidden_size=64, enc_layers=2,
+                  dur_prediction_args=dict(stores["variance"][1]["dur_prediction_args"],
+                                           hidden_size=64, num_layers=2),
+                  pitch_prediction_args=dict(stores["variance"][1]["pitch_prediction_args"],
+                                             backbone_args=dict(num_layers=4, num_channels=64,
+                                                                dilation_cycle_length=2)),
+                  variances_prediction_args=dict(
+                      stores["variance"][1]["variances_prediction_args"],
+                      backbone_args=dict(num_layers=2, num_channels=64,
+                                         dilation_cycle_length=2))))):
+        out, hp = stores[family]
+        hp = dict(hp, **narrow, work_dir=str(tmp / f"task_{family}"))
+        ds = dataset(cls, out, hp, "train")
+        with open(out / "train.meta", "rb") as f:
+            n_meta = len(pickle.load(f)["lengths"])
+        collated = ds.collater([ds[i] for i in range(8)])
+        torch.manual_seed(80)
+        task = quiet(task_cls, hp)
+        task.configure_optimizer()
+        batch = task.to_device({k: v for k, v in collated.items()
+                                if isinstance(v, np.ndarray) and k != "indices"})
+        losses = task.train_step(batch)
+        norm = task.apply_update()
+        losses = {k: float(v) for k, v in losses.items()}
+        steps[family] = {"items": len(ds), "meta_items": n_meta, "losses": losses,
+                         "grad_norm": float(norm)}
+        log(f"[binarize] {family} store ({store_kind}): {len(ds)} items read back, "
+            f"a batch of 8 ({', '.join(f'{k} {list(v.shape)}' for k, v in batch.items())}), one "
+            f"step of a narrow {task_cls.__name__}: " + " ".join(
+                f"{k}={v:.4f}" for k, v in losses.items()))
+        if len(ds) != n_meta or not all(math.isfinite(v) for v in losses.values()):
+            fail(f"[binarize] the {family} store did not train: {steps[family]}")
+        del task, batch
+    report["train_steps"] = steps
+    report["store"] = store_kind
+    shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return report, counts
+
+
 def main() -> None:
     t_script = time.perf_counter()
     import torch
@@ -1806,6 +2311,7 @@ def main() -> None:
         card, reset_counts, read_counts, check)
     if not all(c["ok"] for c in checks):
         fail("K3 or its backward disagrees with its plain version at a variance training shape")
+    report["phases"]["binarize"], bin_counts = binarize_phase(card, reset_counts, read_counts)
 
     # ------------------------------------------------------------ 6. kernel line
     x_t = s.transpose(1, 2).contiguous()
@@ -1921,6 +2427,7 @@ def main() -> None:
             "launches_ddpm_request": {acc: c[key] for acc, c in ddpm_counts.items()},
             "launches_train_steps": train_counts[key],
             "launches_train_variance_steps": var_train_counts[key],
+            "launches_binarize": bin_counts[key],
             "max_abs_err": err,
             "ms": time_ms(fn),
             "plain_ms": time_ms(plain, iters=5, warmup=1),
@@ -2002,6 +2509,7 @@ def main() -> None:
         "launches": train_counts["K3bwd"],
         "launches_per_train_step": train_counts["K3bwd"] // TRAIN_STEPS,
         "launches_train_variance_steps": var_train_counts["K3bwd"],
+        "launches_binarize": bin_counts["K3bwd"],
         **train_times,
     })
 

@@ -1,16 +1,15 @@
-"""Reader of the binarized HDF5 item store
-(counterpart of the reader in diffsinger_tpu/data/indexed_datasets.py).
+"""The binarized HDF5 item store (counterpart of
+diffsinger_tpu/data/indexed_datasets.py): its reader and its writer.
 
 ``{prefix}.data`` holds one HDF5 group per item, keyed by the item's index;
 items come back as dicts of numpy arrays. ``h5py`` is imported when a file is
-opened, so the package imports on hosts without it. The writer comes with the
-port's binarizers.
+opened, so the package imports on hosts without it.
 """
 
 from __future__ import annotations
 
 import pathlib
-from typing import Dict
+from typing import Dict, Optional, Sequence
 
 
 class IndexedDataset:
@@ -43,3 +42,31 @@ class IndexedDataset:
         if self.dset is not None:
             self.dset.close()
             self.dset = None
+
+
+class IndexedDatasetBuilder:
+    """Writes items, numbered from 0 in the order they come, as the groups of
+    ``{path}/{prefix}.data``; only the attributes in ``allowed_attr`` (all
+    when None) are kept, and None values are left out."""
+
+    def __init__(self, path, prefix: str, allowed_attr: Optional[Sequence[str]] = None):
+        import h5py
+
+        self.path = pathlib.Path(path) / f"{prefix}.data"
+        self.path.parent.mkdir(parents=True, exist_ok=True)
+        self.dset = h5py.File(self.path, "w")
+        self.counter = 0
+        self.allowed_attr = set(allowed_attr) if allowed_attr is not None else None
+
+    def add_item(self, item: Dict) -> int:
+        if self.allowed_attr is not None:
+            item = {k: item[k] for k in self.allowed_attr if k in item}
+        item_no = self.counter
+        self.counter += 1
+        for k, v in item.items():
+            if v is not None:
+                self.dset.create_dataset(f"{item_no}/{k}", data=v)
+        return item_no
+
+    def finalize(self):
+        self.dset.close()

@@ -1,8 +1,9 @@
-"""Curve helpers of the variance runtime (own copy of the parts of
-diffsinger_tpu/dsp/common.py that inference uses): the half-sine smoothing of
-the base pitch and the log-domain f0 interpolation through unvoiced frames.
-The numpy versions run on the host in preprocessing; :func:`sinusoidal_smooth`
-is the same smoothing on a tensor.
+"""Frame-level DSP helpers (own copy of diffsinger_tpu/dsp/common.py): RMS
+energy, the half-sine smoothing of curves and the log-domain f0
+interpolation through unvoiced frames.
+
+The numpy versions run on the host in preprocessing; :func:`rms_frames` and
+:func:`sinusoidal_smooth` run on a tensor's device, the card in binarization.
 """
 
 from __future__ import annotations
@@ -10,6 +11,51 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from diffsinger_tpu_torch.utils import no_tf32, resolve_device
+
+
+def as_signal(x, device=None) -> torch.Tensor:
+    """x as a float32 tensor. A tensor stays on its device unless ``device``
+    names another; an array goes to ``device``, the card unless the caller
+    names another."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=torch.float32)
+    return torch.as_tensor(np.asarray(x, np.float32), device=resolve_device(device))
+
+
+def rms_frames(y: torch.Tensor, *, frame_length: int, hop: int) -> torch.Tensor:
+    """librosa.feature.rms: zero-pad by frame_length // 2 on both sides,
+    frame, sqrt(mean(x^2)). [L] -> [F] with F = 1 + L // hop."""
+    pad = frame_length // 2
+    frames = F.pad(y, (pad, pad)).unfold(-1, frame_length, hop)
+    return torch.sqrt(torch.mean(frames * frames, dim=-1))
+
+
+def amplitude_to_db(x: np.ndarray, amin: float = 1e-5, top_db: float = 80.0) -> np.ndarray:
+    """librosa.amplitude_to_db with ref=1.0: 20*log10(max(|x|, amin)), clipped to
+    [max - top_db, max]."""
+    db = 20.0 * np.log10(np.maximum(amin, np.abs(x)))
+    if top_db is not None:
+        db = np.maximum(db, db.max() - top_db)
+    return db
+
+
+def get_energy(waveform, length: int, *, hop_size: int, win_size: int, domain: str = "db",
+               device=None) -> np.ndarray:
+    """RMS energy per frame, padded or cut to ``length``, in dB or amplitude.
+    ``waveform`` is a tensor (computed on its device) or an array (sent to
+    ``device``)."""
+    energy = rms_frames(as_signal(waveform, device), frame_length=win_size, hop=hop_size)
+    energy = energy.cpu().numpy()
+    if len(energy) < length:
+        energy = np.pad(energy, (0, length - len(energy)))
+    energy = energy[:length]
+    if domain == "db":
+        energy = amplitude_to_db(energy)
+    elif domain != "amplitude":
+        raise ValueError(f"Invalid domain: {domain}")
+    return energy
 
 
 def sinusoidal_smoothing_kernel(kernel_size: int) -> np.ndarray:
@@ -32,8 +78,9 @@ def sinusoidal_smooth_np(curve: np.ndarray, kernel_size: int) -> np.ndarray:
     return out.reshape(*curve.shape[:-1], -1).astype(np.float32)
 
 
+@no_tf32()
 def sinusoidal_smooth(curve: torch.Tensor, kernel_size: int) -> torch.Tensor:
-    """:func:`sinusoidal_smooth_np` on a float tensor [..., T]."""
+    """:func:`sinusoidal_smooth_np` on a float tensor [..., T], in float32."""
     kernel = torch.from_numpy(sinusoidal_smoothing_kernel(kernel_size)).to(curve.device)
     pad_l = (kernel_size - 1) // 2
     flat = curve.float().reshape(-1, 1, curve.shape[-1])

@@ -1,5 +1,5 @@
-"""Host-side inference helpers (numpy): note and pitch conversions, curve
-resampling, cross-fade, wav output, speaker-mix parsing, key transposition.
+"""Host-side helpers (numpy): note and pitch conversions, curve resampling,
+cross-fade, wav input and output, speaker-mix parsing, key transposition.
 
 Own copy of the helpers of diffsinger_tpu/utils/infer_utils.py that the
 inference runtime uses; the arithmetic is the same line for line, so both
@@ -142,3 +142,30 @@ def save_wav(wav: np.ndarray, path, sr: int, norm: bool = False) -> None:
         f.setsampwidth(2)
         f.setframerate(sr)
         f.writeframes(data.tobytes())
+
+
+def load_wav(path, target_sr: int | None = None) -> tuple[np.ndarray, int]:
+    """Read a 16- or 32-bit PCM WAV as float32 in [-1, 1] (channels averaged),
+    resampled on the host to ``target_sr`` where its rate differs."""
+    import wave
+
+    with wave.open(str(path), "rb") as f:
+        sr = f.getframerate()
+        n = f.getnframes()
+        width = f.getsampwidth()
+        channels = f.getnchannels()
+        raw = f.readframes(n)
+    if width == 2:
+        data = np.frombuffer(raw, dtype=np.int16).astype(np.float32) / 32768.0
+    elif width == 4:
+        data = np.frombuffer(raw, dtype=np.int32).astype(np.float32) / 2147483648.0
+    else:
+        raise ValueError(f"Unsupported WAV sample width: {width}")
+    if channels > 1:
+        data = data.reshape(-1, channels).mean(axis=1)
+    if target_sr is not None and target_sr != sr:
+        from diffsinger_tpu_torch.dsp.resample import resample_poly_np
+
+        data = resample_poly_np(data, sr, target_sr)
+        sr = target_sr
+    return data, sr

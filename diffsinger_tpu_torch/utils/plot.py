@@ -1,6 +1,7 @@
-"""Validation figures (counterpart of diffsinger_tpu/utils/plot.py): the mel
-figure of the acoustic model and the duration, pitch and curve figures of the
-variance model. matplotlib is imported when a figure is drawn."""
+"""Figures (counterpart of diffsinger_tpu/utils/plot.py): the validation
+figures (the acoustic model's mel; the variance model's durations, pitch and
+curves) and the binarizers' distribution summaries. matplotlib is imported
+when a figure is drawn."""
 
 from __future__ import annotations
 
@@ -89,3 +90,17 @@ def curve_to_figure(curve_gt, curve_pred=None, curve_base=None, grid=None, title
         plt.title(title)
     plt.tight_layout()
     return fig
+
+
+def distribution_to_figure(title, x_label, y_label, items, values, zoom=0.8, rotate=False):
+    """A bar chart of ``values`` over ``items``; returns pyplot, whose current
+    figure it is."""
+    plt = _plt()
+    plt.figure(figsize=(int(len(items) * zoom), 10))
+    plt.bar(x=items, height=values)
+    plt.xlabel(x_label)
+    plt.ylabel(y_label)
+    plt.title(title)
+    if rotate:
+        plt.xticks(rotation=90)
+    return plt

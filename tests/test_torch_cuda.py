@@ -569,3 +569,17 @@ def test_variance_train_step_on_the_card_matches_the_cpu(dev, tmp_path):
     assert report["k3_launches"] == (4, 4)  # two encoder and two melody encoder layers
     assert report["grad_rel_err"] <= 1e-3
     assert report["param_err"] <= 2 * report["lr"] and report["param_share_off"] <= 0.01
+
+
+def test_binarization_on_the_card_matches_the_cpu(dev, tmp_path):
+    """Two items of a synthetic sung corpus through both binarizers' items on
+    the card and on the CPU (float32), with a pitch-shifted and time-stretched
+    copy of each acoustic item: every attribute within the CPU parity tests'
+    tolerances (chip_smoke.py's ``[binarize]`` check, on five items there)."""
+    import chip_smoke
+
+    chip_smoke.synth_corpus(tmp_path, 2, 7, 2.0, 4.0,
+                            chip_smoke.ROOT / "dictionaries" / "opencpop-extension.txt")
+    report = chip_smoke.binarize_card_vs_cpu(tmp_path / "raw", tmp_path, 2)
+    assert not report["failures"], report["failures"]
+    assert report["worst"]["acoustic.mel"] <= 5e-3 and report["worst"]["variance.tension"] <= 1e-4
