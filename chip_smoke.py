@@ -105,7 +105,21 @@ Phases, each printed as it ends; any failure exits non-zero:
    tolerances; the card's stores (HDF5 where h5py imports, else kept in
    memory) read back through the datasets into one step of a narrow
    acoustic and variance task with finite losses (``[binarize]`` lines);
-10. times: K1 at the long phrase's shape [1, 4096, 2048], K3 at the long
+10. binarize_ext: the extractors that voicebank makers configure, over the
+   first 4 phrases of that corpus with seeded checkpoints at the published
+   widths (RMVPE ``E2E0(4, 1, (2, 2))``; CascadedNet nout 32, nout_lstm
+   128, stereo, n_fft 2048, hop 512): acoustic with ``pe: rmvpe`` and
+   ``hnsep: vr``, variance with the same, variance with ``pe: harvest`` and
+   ``hnsep: world`` on the card twin. Per run: seconds a second of audio,
+   items/s, the stage split, peak memory, launch counters from 0 (all 0),
+   one item under the profiler (idle share, launches); RMVPE alone on the
+   longest phrase (frontend, U-Net, GRU and head, decoding), CascadedNet
+   alone, the WORLD twin against the float64 host golden on one phrase
+   (seconds, bounds, two runs equal) and within ``tests/test_world_device.py``'s
+   bounds on its fixtures, three items of each run on the card against the
+   CPU (``binarize_ext_card_vs_cpu``), one narrow training step from each
+   store (``[binarize_ext]`` lines);
+11. times: K1 at the long phrase's shape [1, 4096, 2048], K3 at the long
    shape [16, 2, 512, 128], K2's two GEMMs alone and K3's backward at
    [48, 2, 128, 128] and [16, 2, 512, 128] with each of its kernels alone
    and its bound on the CUDA cores and in 3xTF32, then K3 and its backward
@@ -1593,13 +1607,16 @@ def binarize_hp(family: str, raw: Path, out: Path, augmentation=()) -> dict:
 BREATHINESS_CARD_TOL = 0.05
 
 
-def binarized_item_errors(got: dict, want: dict, breathiness_tol: float = 1e-4) -> tuple:
+def binarized_item_errors(got: dict, want: dict, breathiness_tol: float = 1e-4,
+                          curve_tol: dict | None = None) -> tuple:
     """Two binarizations of one item, attribute by attribute: tokens, frame
     maps, lengths, ids, key shift and speed exact; the mel within mean |diff|
     2e-4 and max 5e-3; uv exact and f0 within 1e-3 relative (pitch within
     12 log2(1.001) semitones) on 99.5 % of frames; curves (dB, semitones,
-    tension's logit) within 1e-4, breathiness within ``breathiness_tol``.
+    tension's logit) within 1e-4, breathiness within ``breathiness_tol``,
+    any curve named in ``curve_tol`` within its value there.
     Returns (worst error by attribute, list of failures)."""
+    curve_tol = dict({"breathiness": breathiness_tol}, **(curve_tol or {}))
     import numpy as np
 
     exact = {"tokens", "languages", "mel2ph", "spk_id", "key_shift", "speed", "ph_dur", "midi",
@@ -1629,7 +1646,7 @@ def binarized_item_errors(got: dict, want: dict, breathiness_tol: float = 1e-4) 
             ok = close.mean() >= 0.995
         elif k in curves:
             worst[k] = float(np.abs(g - w).max())
-            ok = worst[k] <= (breathiness_tol if k == "breathiness" else 1e-4)
+            ok = worst[k] <= curve_tol.get(k, 1e-4)
         else:
             ok = False
             failures.append(f"{k}: no tolerance")
@@ -1672,46 +1689,13 @@ def binarize_card_vs_cpu(raw: Path, work: Path, n_items: int) -> dict:
     return {"worst": worst, "failures": failures}
 
 
-def binarize_phase(card, reset_counts, read_counts):
-    """[binarize]: both families' binarization on the card through
-    ``cli.binarize.binarize`` (what ``python -m diffsinger_tpu_torch.cli.binarize``
-    runs) over a synthetic corpus of ``BIN_ITEMS`` sung phrases of 3-12 s:
-    configs/acoustic.yaml with every embed on, without augmentation, then
-    with random pitch shifting and time stretching, then with fixed pitch
-    shifting (the two pitch shifts exclude each other); configs/variance.yaml
-    with the four curves. Each run: seconds of binarization per second of
-    audio, items/s, the stages' split, peak memory, launch counters from 0
-    (K1, K2, K3 and K3-bwd must stay at 0). Then five items of each family
-    under the profiler (idle share, launches an item), the path finder on the
-    host against a loop of torch operations on the card, five items of each
-    family on the card against the CPU (``binarize_card_vs_cpu``), and the
-    card's stores read back through the datasets and collaters into one
-    optimizer step of a narrow acoustic and variance task (finite losses).
-    The stores are HDF5 where h5py imports, else kept in memory by the same
-    interface. Returns the report and the launch counts."""
-    import pickle
-    import random
+def store_interface():
+    """(extra arguments of ``binarize``, a dataset constructor, the store's
+    kind): HDF5 files where h5py imports, else the stores kept in memory by
+    ``IndexedDatasetBuilder``'s interface and read back by the datasets."""
     from unittest import mock
 
-    import numpy as np
-    import torch
-
-    from diffsinger_tpu_torch.cli.binarize import binarize, binarizer_class
     from diffsinger_tpu_torch.data import dataset as dataset_mod
-    from diffsinger_tpu_torch.dsp import pe
-    from diffsinger_tpu_torch.ops import flash_attention
-    from diffsinger_tpu_torch.training.acoustic_task import AcousticTask
-    from diffsinger_tpu_torch.training.variance_task import VarianceTask
-
-    report = {}
-    tmp = Path(tempfile.mkdtemp(prefix="binarize_", dir=OUT_DIR))
-    t0 = time.perf_counter()
-    audio_s = synth_corpus(tmp, BIN_ITEMS, 60, *BIN_SECONDS,
-                           ROOT / "dictionaries" / "opencpop-extension.txt")
-    raw = tmp / "raw"
-    log(f"[binarize] corpus: {BIN_ITEMS} phrases, {audio_s:.1f} s of audio at 44.1 kHz, made in "
-        f"{time.perf_counter() - t0:.1f} s")
-    report["corpus_audio_s"] = audio_s
 
     try:
         import h5py  # noqa: F401
@@ -1744,7 +1728,102 @@ def binarize_phase(card, reset_counts, read_counts):
                                lambda path, prefix_: memory[Path(path), prefix_]):
             return cls(data_dir, hp, prefix)
 
-    extra = {} if memory is None else {"builder": MemoryBuilder}
+    return ({} if memory is None else {"builder": MemoryBuilder}), dataset, store_kind
+
+
+def narrow_store_steps(tag: str, stores: dict, tmp: Path, dataset, store_kind: str,
+                       n_batch: int = 8) -> dict:
+    """Each store ({name: (folder, hp)}) read back through its family's
+    dataset and collater into one optimizer step of a narrow task on the
+    card; fails on a store whose item count is not its .meta's or on a loss
+    that is not finite. Returns the steps' losses by store."""
+    import pickle
+
+    import numpy as np
+    import torch
+
+    from diffsinger_tpu_torch.data.dataset import AcousticDataset, VarianceDataset
+    from diffsinger_tpu_torch.training.acoustic_task import AcousticTask
+    from diffsinger_tpu_torch.training.variance_task import VarianceTask
+
+    steps = {}
+    for name, (out, hp) in stores.items():
+        if hp["binarizer_cls"].endswith("AcousticBinarizer"):
+            cls, task_cls, narrow = AcousticDataset, AcousticTask, dict(
+                hidden_size=64, enc_layers=2, backbone_args=dict(
+                    num_channels=128, num_layers=2, kernel_size=31, dropout_rate=0.0,
+                    strong_cond=True), val_with_vocoder=False)
+        else:
+            cls, task_cls, narrow = VarianceDataset, VarianceTask, dict(
+                hidden_size=64, enc_layers=2,
+                dur_prediction_args=dict(hp["dur_prediction_args"], hidden_size=64, num_layers=2),
+                pitch_prediction_args=dict(hp["pitch_prediction_args"], backbone_args=dict(
+                    num_layers=4, num_channels=64, dilation_cycle_length=2)),
+                variances_prediction_args=dict(hp["variances_prediction_args"], backbone_args=dict(
+                    num_layers=2, num_channels=64, dilation_cycle_length=2)))
+        hp = dict(hp, **narrow, work_dir=str(tmp / f"task_{name}".replace(" ", "_")))
+        ds = dataset(cls, out, hp, "train")
+        with open(out / "train.meta", "rb") as f:
+            n_meta = len(pickle.load(f)["lengths"])
+        n = min(n_batch, len(ds))
+        collated = ds.collater([ds[i] for i in range(n)])
+        torch.manual_seed(80)
+        task = quiet(task_cls, hp)
+        task.configure_optimizer()
+        batch = task.to_device({k: v for k, v in collated.items()
+                                if isinstance(v, np.ndarray) and k != "indices"})
+        losses = task.train_step(batch)
+        norm = task.apply_update()
+        losses = {k: float(v) for k, v in losses.items()}
+        steps[name] = {"items": len(ds), "meta_items": n_meta, "losses": losses,
+                       "grad_norm": float(norm)}
+        log(f"{tag} {name} store ({store_kind}): {len(ds)} items read back, "
+            f"a batch of {n} ({', '.join(f'{k} {list(v.shape)}' for k, v in batch.items())}), one "
+            f"step of a narrow {task_cls.__name__}: " + " ".join(
+                f"{k}={v:.4f}" for k, v in losses.items()))
+        if len(ds) != n_meta or not all(math.isfinite(v) for v in losses.values()):
+            fail(f"{tag} the {name} store did not train: {steps[name]}")
+        del task, batch
+    return steps
+
+
+def binarize_phase(card, reset_counts, read_counts):
+    """[binarize]: both families' binarization on the card through
+    ``cli.binarize.binarize`` (what ``python -m diffsinger_tpu_torch.cli.binarize``
+    runs) over a synthetic corpus of ``BIN_ITEMS`` sung phrases of 3-12 s:
+    configs/acoustic.yaml with every embed on, without augmentation, then
+    with random pitch shifting and time stretching, then with fixed pitch
+    shifting (the two pitch shifts exclude each other); configs/variance.yaml
+    with the four curves. Each run: seconds of binarization per second of
+    audio, items/s, the stages' split, peak memory, launch counters from 0
+    (K1, K2, K3 and K3-bwd must stay at 0). Then five items of each family
+    under the profiler (idle share, launches an item), the path finder on the
+    host against a loop of torch operations on the card, five items of each
+    family on the card against the CPU (``binarize_card_vs_cpu``), and the
+    card's stores read back through the datasets and collaters into one
+    optimizer step of a narrow acoustic and variance task (finite losses).
+    The stores are HDF5 where h5py imports, else kept in memory by the same
+    interface. Returns the report and the launch counts."""
+    import random
+
+    import numpy as np
+    import torch
+
+    from diffsinger_tpu_torch.cli.binarize import binarize, binarizer_class
+    from diffsinger_tpu_torch.dsp import pe
+    from diffsinger_tpu_torch.ops import flash_attention
+
+    report = {}
+    tmp = Path(tempfile.mkdtemp(prefix="binarize_", dir=OUT_DIR))
+    t0 = time.perf_counter()
+    audio_s = synth_corpus(tmp, BIN_ITEMS, 60, *BIN_SECONDS,
+                           ROOT / "dictionaries" / "opencpop-extension.txt")
+    raw = tmp / "raw"
+    log(f"[binarize] corpus: {BIN_ITEMS} phrases, {audio_s:.1f} s of audio at 44.1 kHz, made in "
+        f"{time.perf_counter() - t0:.1f} s")
+    report["corpus_audio_s"] = audio_s
+
+    extra, dataset, store_kind = store_interface()
     runs = [("acoustic", "no augmentation", ())]
     runs += [("acoustic", what, names) for what, names in BIN_AUGMENTATION.items()]
     runs += [("variance", "no augmentation (the family has none)", ())]
@@ -1882,50 +1961,400 @@ def binarize_phase(card, reset_counts, read_counts):
              + "; ".join(check["failures"][:10]))
 
     # the card's stores through the datasets and collaters into one narrow step each
-    from diffsinger_tpu_torch.data.dataset import AcousticDataset, VarianceDataset
-
-    steps = {}
-    for family, cls, task_cls, narrow in (
-            ("acoustic", AcousticDataset, AcousticTask,
-             dict(hidden_size=64, enc_layers=2, backbone_args=dict(
-                 num_channels=128, num_layers=2, kernel_size=31, dropout_rate=0.0,
-                 strong_cond=True), val_with_vocoder=False)),
-            ("variance", VarianceDataset, VarianceTask,
-             dict(hidden_size=64, enc_layers=2,
-                  dur_prediction_args=dict(stores["variance"][1]["dur_prediction_args"],
-                                           hidden_size=64, num_layers=2),
-                  pitch_prediction_args=dict(stores["variance"][1]["pitch_prediction_args"],
-                                             backbone_args=dict(num_layers=4, num_channels=64,
-                                                                dilation_cycle_length=2)),
-                  variances_prediction_args=dict(
-                      stores["variance"][1]["variances_prediction_args"],
-                      backbone_args=dict(num_layers=2, num_channels=64,
-                                         dilation_cycle_length=2))))):
-        out, hp = stores[family]
-        hp = dict(hp, **narrow, work_dir=str(tmp / f"task_{family}"))
-        ds = dataset(cls, out, hp, "train")
-        with open(out / "train.meta", "rb") as f:
-            n_meta = len(pickle.load(f)["lengths"])
-        collated = ds.collater([ds[i] for i in range(8)])
-        torch.manual_seed(80)
-        task = quiet(task_cls, hp)
-        task.configure_optimizer()
-        batch = task.to_device({k: v for k, v in collated.items()
-                                if isinstance(v, np.ndarray) and k != "indices"})
-        losses = task.train_step(batch)
-        norm = task.apply_update()
-        losses = {k: float(v) for k, v in losses.items()}
-        steps[family] = {"items": len(ds), "meta_items": n_meta, "losses": losses,
-                         "grad_norm": float(norm)}
-        log(f"[binarize] {family} store ({store_kind}): {len(ds)} items read back, "
-            f"a batch of 8 ({', '.join(f'{k} {list(v.shape)}' for k, v in batch.items())}), one "
-            f"step of a narrow {task_cls.__name__}: " + " ".join(
-                f"{k}={v:.4f}" for k, v in losses.items()))
-        if len(ds) != n_meta or not all(math.isfinite(v) for v in losses.values()):
-            fail(f"[binarize] the {family} store did not train: {steps[family]}")
-        del task, batch
+    steps = narrow_store_steps("[binarize]", stores, tmp, dataset, store_kind)
     report["train_steps"] = steps
     report["store"] = store_kind
+    shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return report, counts
+
+
+EXT_ITEMS = 4  # the first phrases of [binarize]'s corpus (same seed): every phoneme occurs
+EXT_CHECK_ITEMS = 3  # items of each run binarized on the card and on the CPU
+EXT_RUNS = (  # (family, pe, hnsep)
+    ("acoustic", "rmvpe", "vr"),
+    ("variance", "rmvpe", "vr"),
+    ("variance", "harvest", "world"),
+)
+# Card against CPU in [binarize_ext]: exact attributes equal, the mel, f0 and
+# pitch as in [binarize]; the curves that come from a harmonic split within
+# 0.05 (dB; tension's logit), [binarize]'s bound for the comb's breathiness.
+# The split's float32 rounding differs between cuDNN/cuFFT and the CPU's
+# kernels: the vocal remover's mask moves the harmonic part, the WORLD twin's
+# D4C rounds the group delay of a clean harmonic spectrum differently on each
+# (the port's and the JAX twin differ by up to 1e-2 in aperiodicity on tones,
+# tests/test_torch_world.py), and tension's kth-harmonic mask keeps or drops
+# a bin at its edge. Measured on an H100 (PERF.md): breathiness
+# 0.0035, voicing 2.0e-4, tension 3.6e-4.
+EXT_CARD_TOL = {"breathiness": 0.05, "voicing": 0.05, "tension": 0.05}
+
+
+def ext_checkpoints(folder: Path) -> dict:
+    """Seeded checkpoints of RMVPE and the vocal remover at their published
+    widths in the reference's formats: ``E2E0(4, 1, (2, 2))`` (5 levels, 4
+    intermediate layers, 16 channels, BiGRU 256) as ``{"model": state dict}``;
+    CascadedNet at its class defaults (nout 32, nout_lstm 128, complex,
+    stereo) with a ``config.yaml`` of n_fft 2048 and hop_length 512 (the
+    published config is not in the repository). BatchNorm statistics moved
+    off their defaults. Returns the two paths and the parameter counts."""
+    import torch
+    import yaml
+
+    from diffsinger_tpu_torch.models.hnsep import CascadedNet
+    from diffsinger_tpu_torch.models.rmvpe import E2E0
+
+    torch.manual_seed(90)
+    nets = {"rmvpe": E2E0(4, 1, (2, 2)),
+            "vr": CascadedNet(2048, 512, nout=32, nout_lstm=128, is_complex=True, is_mono=False)}
+    with torch.no_grad():
+        for net in nets.values():
+            for m in net.modules():
+                if isinstance(m, (torch.nn.BatchNorm1d, torch.nn.BatchNorm2d)):
+                    m.running_mean.normal_(0, 0.3)
+                    m.running_var.uniform_(0.5, 2.0)
+    for name in nets:
+        (folder / name).mkdir(parents=True, exist_ok=True)
+    torch.save({"model": nets["rmvpe"].state_dict()}, folder / "rmvpe" / "model.pt")
+    torch.save(nets["vr"].state_dict(), folder / "vr" / "model.pt")
+    (folder / "vr" / "config.yaml").write_text(yaml.safe_dump(
+        {"n_fft": 2048, "hop_length": 512, "n_out": 32, "n_out_lstm": 128, "is_mono": False}))
+    return {"pe_ckpt": str(folder / "rmvpe" / "model.pt"),
+            "hnsep_ckpt": str(folder / "vr" / "model.pt"),
+            "parameters": {k: sum(p.numel() for p in v.parameters()) for k, v in nets.items()}}
+
+
+def binarize_ext_hp(family: str, pe: str, hnsep: str, raw: Path, out: Path, ckpts: dict) -> dict:
+    """``binarize_hp``'s config (no augmentation) with the named extractors."""
+    hp = binarize_hp(family, raw, out)
+    hp.update(pe=pe, hnsep=hnsep, pe_ckpt=ckpts["pe_ckpt"], hnsep_ckpt=ckpts["hnsep_ckpt"])
+    return hp
+
+
+def binarize_ext_card_vs_cpu(raw: Path, work: Path, ckpts: dict, n_items: int) -> dict:
+    """The first ``n_items`` of the corpus through each [binarize_ext] run's
+    binarizer on the card and on the CPU (float32; WORLD on the twin on both,
+    DS_WORLD_BACKEND=device, with the same noise), compared by
+    ``binarized_item_errors`` within ``EXT_CARD_TOL``. Returns the worst
+    error by attribute and the failures."""
+    from unittest import mock
+
+    from diffsinger_tpu_torch.cli.binarize import binarizer_class
+
+    worst, failures = {}, []
+    with mock.patch.dict(os.environ, {"DS_WORLD_BACKEND": "device"}):
+        for family, pe, hnsep in EXT_RUNS:
+            run = f"{family} {pe}+{hnsep}"
+            hp = binarize_ext_hp(family, pe, hnsep, raw, work / "check", ckpts)
+            outs = []
+            for device in ("cuda", "cpu"):
+                with warnings.catch_warnings():
+                    warnings.simplefilter("ignore")
+                    b = quiet(binarizer_class(hp["binarizer_cls"]), hp, device=device)
+                    meta = b.load_meta_data(raw, 0, "synth", "zh")
+                    outs.append([b.process_item(n, meta[n], b.binarization_args)
+                                 for n in sorted(meta)[:n_items]])
+            for i, (g, w) in enumerate(zip(*outs)):
+                errs, fails = binarized_item_errors(g, w, curve_tol=EXT_CARD_TOL)
+                for k, e in errs.items():
+                    worst[f"{run}.{k}"] = max(worst.get(f"{run}.{k}", 0.0), e)
+                failures += [f"{run} item {i}: {f}" for f in fails]
+    return {"worst": worst, "failures": failures}
+
+
+def world_twin_checks(dev) -> dict:
+    """tests/test_world_device.py's bounds with the port's twin on ``dev``
+    against the float64 goldens: on a WORLD-synthesized fixture (f0 220 Hz
+    after 6 unvoiced frames, a speech-like envelope, aperiodicity 0.3 under
+    4 kHz and 0.8 above) the twin's D4C keeps the golden's voicing on 97 % of
+    frames with a voiced-frame MAE <= 0.05 and recovers the two bands within
+    0.25; its synthesis with ap 0 within 2e-3 of the golden's peak, with the
+    constructed ap within 1.5 dB in every third-octave band; the split of the
+    vowel fixture correlates >= 0.98 with the golden's harmonic part, its
+    aperiodic energy within 2 dB; pure noise leaves at most 10 % of its
+    energy harmonic, a clean tone at most 15 % aperiodic. Returns the values
+    and the failures."""
+    import numpy as np
+    import torch
+
+    from diffsinger_tpu_torch.dsp import golden_signals as gs
+    from diffsinger_tpu_torch.dsp.d4c import d4c
+    from diffsinger_tpu_torch.dsp.world import synthesize_world, world_harmonic_aperiodic
+    from diffsinger_tpu_torch.dsp.world_device import d4c_device, synthesize_world_device
+
+    fs, hop, fft = gs.FS, 512, 2048
+    freqs = np.arange(fft // 2 + 1) * fs / fft
+    env = np.tile(10 ** ((-10.0 - 20 * np.log10(1 + (freqs / 1200.0) ** 2)) / 10.0), (128, 1))
+    ap_true = np.tile(np.where(freqs < 4000.0, 0.3, 0.8), (128, 1))
+    f0 = np.full(128, 220.0)
+    f0[:6] = 0.0
+    y = synthesize_world(f0, env, ap_true, fs, hop, seed=3)
+    out, failures = {}, []
+
+    def bound(name, value, ok):
+        out[name] = float(value)
+        if not ok:
+            failures.append(f"{name} {value:.4g}")
+
+    ap_host = d4c(y, f0, np.arange(128) * (hop / fs), fs, fft)
+    ap_dev = d4c_device(torch.from_numpy(y.astype(np.float32)).to(dev),
+                        torch.from_numpy(f0.astype(np.float32)).to(dev),
+                        fs=fs, fft_size=fft, hop=hop).cpu().numpy()
+    host_uv, dev_uv = ap_host[:, 0] > 0.99, ap_dev[:, 0] > 0.99
+    same = (host_uv == dev_uv).mean()
+    bound("d4c_voicing_agreement", same, same >= 0.97)
+    mae = np.abs(ap_dev - ap_host)[~host_uv & ~dev_uv].mean()
+    bound("d4c_voiced_mae", mae, mae <= 0.05)
+    mid = ap_dev[20:-20]
+    at = {hz: float(mid[:, int(round(hz * fft / fs))].mean()) for hz in (3000, 9000)}
+    bound("d4c_3k_minus_0.3", at[3000] - 0.3, abs(at[3000] - 0.3) <= 0.25)
+    bound("d4c_9k_minus_0.8", at[9000] - 0.8, abs(at[9000] - 0.8) <= 0.25 and at[9000] > at[3000])
+
+    f0_v = np.where(f0 > 0, f0, 220.0)
+    y_host = synthesize_world(f0_v, env, np.zeros_like(env), fs, hop, seed=0)
+    y_dev = synthesize_world_device(f0_v, env, np.zeros_like(env), fs, hop, device=dev)
+    err = np.abs(y_dev.cpu().numpy() - y_host).max() / np.abs(y_host).max()
+    bound("synthesis_ap0_rel_err", err, err <= 2e-3)
+    y_host = synthesize_world(f0, env, ap_true, fs, hop, seed=0)[10 * hop:120 * hop]
+    y_dev = synthesize_world_device(f0, env, ap_true, fs, hop, device=dev).cpu().numpy()
+    ph, pd = (np.abs(np.fft.rfft(v)) ** 2 for v in (y_host, y_dev[10 * hop:120 * hop]))
+    band_hz = np.fft.rfftfreq(len(y_host), 1 / fs)
+    edges = np.geomspace(100, 16000, 16)
+    worst_db = max(abs(10 * np.log10(pd[(band_hz >= lo) & (band_hz < hi)].sum()
+                                     / ph[(band_hz >= lo) & (band_hz < hi)].sum()))
+                   for lo, hi in zip(edges[:-1], edges[1:]))
+    bound("synthesis_band_db", worst_db, worst_db <= 1.5)
+
+    bank = gs.signal_bank()
+    wave, f0_true = bank["vowel_pulse"]
+    f0_b = np.full(int(np.ceil((len(wave) + 1) / hop)), f0_true, np.float32)
+    h_host, a_host = (v.numpy() for v in world_harmonic_aperiodic(
+        wave, f0_b, fs=fs, fft_size=fft, hop=hop, backend="host", device="cpu"))
+    h_dev, a_dev = (v.cpu().numpy() for v in world_harmonic_aperiodic(
+        wave, f0_b, fs=fs, fft_size=fft, hop=hop, backend="device", device=dev))
+    corr = np.dot(h_dev, h_host) / (np.linalg.norm(h_dev) * np.linalg.norm(h_host) + 1e-12)
+    bound("split_harmonic_correlation", corr, corr >= 0.98)
+    ratio_db = 10 * np.log10((np.mean(a_dev ** 2) + 1e-12) / (np.mean(a_host ** 2) + 1e-12))
+    bound("split_aperiodic_db", ratio_db, abs(ratio_db) <= 2.0)
+    for name, limit in (("noise", 0.1), ("steady_mid", 0.15)):
+        wave, f0_true = bank[name]
+        f0_b = np.full(int(np.ceil((len(wave) + 1) / hop)), f0_true, np.float32)
+        h, a = world_harmonic_aperiodic(wave, f0_b, fs=fs, fft_size=fft, hop=hop,
+                                        backend="device", device=dev)
+        eh, ea = float((h ** 2).mean()), float((a ** 2).mean())
+        share = eh / (eh + ea) if name == "noise" else ea / (eh + ea)
+        bound(f"split_{name}_leak_share", share, share <= limit)
+    return {"values": out, "failures": failures}
+
+
+def binarize_ext_phase(card, reset_counts, read_counts):
+    """[binarize_ext]: the extractors that voicebank makers configure, on the
+    card through ``cli.binarize.binarize``, over the first ``EXT_ITEMS``
+    phrases of [binarize]'s corpus (same seed), with seeded checkpoints of
+    both networks at their published widths (``ext_checkpoints``):
+    (a) acoustic with RMVPE and the vocal remover, (b) variance with the
+    same, (c) variance with Harvest and WORLD on the card twin. Each run:
+    seconds of binarization a second of audio, items/s, the stage split,
+    peak memory, launch counters from 0 (all must stay 0), one item under
+    the profiler (idle share, launches). Then RMVPE alone on the longest item
+    (frontend, U-Net, GRU and head, decoding), the vocal remover alone, the
+    WORLD twin against the float64 golden on one item (seconds, the bounds,
+    two runs of the twin), ``world_twin_checks``, ``EXT_CHECK_ITEMS`` items of
+    each run on the card against the CPU (``binarize_ext_card_vs_cpu``) and
+    one narrow training step from each store. Returns the report and the
+    launch counts."""
+    import random
+
+    import numpy as np
+    import torch
+
+    from diffsinger_tpu_torch.cli.binarize import binarize
+    from diffsinger_tpu_torch.dsp.common import as_signal
+    from diffsinger_tpu_torch.dsp.pe import HarvestPE
+    from diffsinger_tpu_torch.dsp.resample import resample
+    from diffsinger_tpu_torch.dsp.world import world_harmonic_aperiodic
+    from diffsinger_tpu_torch.models import rmvpe as rmvpe_mod
+    from diffsinger_tpu_torch.models.hnsep import predict_harmonic
+    from diffsinger_tpu_torch.ops import flash_attention
+    from diffsinger_tpu_torch.utils import no_tf32
+    from diffsinger_tpu_torch.utils.infer_utils import load_wav
+
+    tag = "[binarize_ext]"
+    report = {}
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    held0 = torch.cuda.memory_allocated()
+    peaks = []  # the allocator's peak at the end of each run (runs reset it)
+    tmp = Path(tempfile.mkdtemp(prefix="binarize_ext_", dir=OUT_DIR))
+    t0 = time.perf_counter()
+    audio_s = synth_corpus(tmp, EXT_ITEMS, 60, *BIN_SECONDS,
+                           ROOT / "dictionaries" / "opencpop-extension.txt")
+    raw = tmp / "raw"
+    ckpts = ext_checkpoints(tmp / "ckpt")
+    log(f"{tag} corpus: the first {EXT_ITEMS} phrases of [binarize]'s ({audio_s:.1f} s of audio); "
+        f"seeded checkpoints: RMVPE {ckpts['parameters']['rmvpe']:,} parameters, CascadedNet "
+        f"{ckpts['parameters']['vr']:,}; made in {time.perf_counter() - t0:.1f} s")
+    report["corpus_audio_s"] = audio_s
+    report["parameters"] = ckpts["parameters"]
+    extra, dataset, store_kind = store_interface()
+    stores, counts, report["runs"] = {}, {"K1": 0, "K2": 0, "K3": 0, "K3bwd": 0}, []
+    wavs = sorted(raw.glob("wavs/*.wav"))
+    shortest = min(wavs, key=lambda p: p.stat().st_size).stem
+    for i, (family, pe, hnsep) in enumerate(EXT_RUNS):
+        run = f"{family} {pe}+{hnsep}"
+        out = tmp / f"run{i}"
+        hp = binarize_ext_hp(family, pe, hnsep, raw, out, ckpts)
+        random.seed(90 + i)
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        reset_counts()
+        t0 = time.perf_counter()
+        b = quiet(binarize, hp, **extra)
+        wall = time.perf_counter() - t0
+        run_counts = dict(read_counts(), K3bwd=flash_attention.bwd_launches)
+        counts = {k: counts[k] + v for k, v in run_counts.items()}
+        stores[run] = (out, hp)
+        audio = sum(t["seconds"] for t in b.totals.values())
+        items = sum(t["items"] for t in b.totals.values())
+        split = dict(b.timer.seconds, **{f"pitch {k}": v
+                                         for k, v in getattr(b.pe, "seconds", {}).items()})
+        peaks.append(torch.cuda.max_memory_allocated())
+        peak = (peaks[-1] - held) / 2**30
+        provenance = b.feature_provenance()
+        rec = {"run": run, "items": items, "audio_s": audio, "wall_s": wall,
+               "s_per_audio_s": wall / audio, "items_per_s": items / wall, "split_s": split,
+               "peak_mem_gib": peak, "launches": run_counts, "provenance": provenance}
+        log(f"{tag} {run}: {items} items ({audio:.1f} s of audio) in {wall:.2f} s: "
+            f"{wall / audio:.5f} s of binarization a second of audio, {items / wall:.2f} items/s, "
+            f"peak memory {peak:.3f} GiB, store {store_kind}, provenance {provenance['pe']} / "
+            f"{provenance['hnsep']}, on {card}")
+        log(f"{tag}   split: " + ", ".join(f"{k} {v:.3f} s" for k, v in split.items())
+            + f"; unaccounted {wall - sum(b.timer.seconds.values()):.3f} s; launches {run_counts}")
+        if any(run_counts.values()):
+            fail(f"{tag} the binarization launched a model kernel: {run_counts}")
+        if hnsep == "world" and not provenance["hnsep"].endswith(",device)"):
+            fail(f"{tag} hnsep: world on the card did not resolve to the twin: {provenance}")
+        # one item (the shortest phrase) under the profiler, after the run's warm-up
+        meta = b.load_meta_data(raw, 0, "synth", "zh")
+        name = next(n for n in meta if n.endswith(shortest))
+        prof = profile_request(lambda: b.process_item(name, meta[name], b.binarization_args),
+                               f"{run}, one item ({shortest})",
+                               table=f"chip_smoke_binarize_ext_{i}.txt")
+        if prof.get("measured"):
+            log(f"{tag} {run}: {prof['kernel_launches']} kernel launches an item, idle share "
+                f"{prof['idle_share']:.3f}; top device operations: " + "; ".join(
+                    f"{k[:50]} {ms:.2f} ms" for k, ms in list(prof["top_kernels_ms"].items())[:5]))
+        rec["profile"] = prof
+        report["runs"].append(rec)
+        del b
+
+    # RMVPE alone on the longest phrase, stage by stage (synchronised)
+    longest = max(wavs, key=lambda p: p.stat().st_size)
+    y, sr = load_wav(longest)
+    x = as_signal(y, "cuda")
+    pe = rmvpe_mod.RMVPE(ckpts["pe_ckpt"])
+    model = pe.model
+
+    def stages():
+        ms = {}
+        t = time.perf_counter()
+        with torch.no_grad(), no_tf32():
+            mel = pe.mel(resample(x[None], sr, rmvpe_mod.SAMPLE_RATE))
+            n_frames = mel.shape[1]
+            mel = torch.nn.functional.pad(mel, (0, 0, 0, 32 * ((n_frames - 1) // 32 + 1) - n_frames))
+            torch.cuda.synchronize()
+            ms["frontend"], t = (time.perf_counter() - t) * 1e3, time.perf_counter()
+            h = model.cnn(model.unet(mel.unsqueeze(1))).transpose(1, 2).flatten(-2)
+            torch.cuda.synchronize()
+            ms["unet"], t = (time.perf_counter() - t) * 1e3, time.perf_counter()
+            hidden = model.fc(h)[0, :n_frames]
+            torch.cuda.synchronize()
+            ms["gru_and_head"], t = (time.perf_counter() - t) * 1e3, time.perf_counter()
+        rmvpe_mod.to_local_average_f0(hidden.cpu().numpy())
+        ms["decode"] = (time.perf_counter() - t) * 1e3
+        return ms, n_frames
+
+    stages()
+    runs = [stages()[0] for _ in range(3)]
+    rm = {k: float(np.median([r[k] for r in runs])) for k in runs[0]}
+    rm["frames"] = stages()[1]
+    report["rmvpe_alone"] = rm
+    log(f"{tag} RMVPE alone on the longest phrase ({len(y) / sr:.2f} s, {rm['frames']} frames of "
+        f"10 ms): frontend {rm['frontend']:.2f} ms, U-Net {rm['unet']:.2f} ms, GRU and head "
+        f"{rm['gru_and_head']:.2f} ms, decoding {rm['decode']:.2f} ms (medians of 3) on {card}")
+
+    # the vocal remover alone on the longest phrase
+    predict_harmonic(ckpts["hnsep_ckpt"], x)
+    vr_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        predict_harmonic(ckpts["hnsep_ckpt"], x)
+        torch.cuda.synchronize()
+        vr_ms.append((time.perf_counter() - t) * 1e3)
+    report["cascaded_net_alone"] = {"ms": float(np.median(vr_ms))}
+    log(f"{tag} CascadedNet alone on the longest phrase (STFT, mask, iSTFT): "
+        f"{np.median(vr_ms):.2f} ms (median of 3) on {card}")
+    del pe, model
+
+    # the WORLD twin against the float64 host golden on the shortest phrase
+    y, sr = load_wav(raw / "wavs" / f"{shortest}.wav")
+    hp = binarize_ext_hp("variance", "harvest", "world", raw, tmp / "unused", ckpts)
+    f0, _ = HarvestPE().get_pitch(y, sr, len(y) // hp["hop_size"] + 1, hop_size=hp["hop_size"],
+                                  f0_min=hp["f0_min"], f0_max=hp["f0_max"])
+    kw = dict(fs=sr, fft_size=hp["fft_size"], hop=hp["hop_size"])
+    x = as_signal(y, "cuda")
+    world_harmonic_aperiodic(x, f0, backend="device", **kw)
+    twin_s, twin = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        twin.append(world_harmonic_aperiodic(x, f0, backend="device", **kw))
+        torch.cuda.synchronize()
+        twin_s.append(time.perf_counter() - t)
+    t = time.perf_counter()
+    h_host, a_host = (v.numpy() for v in world_harmonic_aperiodic(y, f0, backend="host",
+                                                                  device="cpu", **kw))
+    host_s = time.perf_counter() - t
+    h_dev, a_dev = (v.cpu().numpy() for v in twin[0])
+    spread = max(float((p - q).abs().max()) for p, q in zip(*twin))
+    corr = float(np.dot(h_dev, h_host) / (np.linalg.norm(h_dev) * np.linalg.norm(h_host) + 1e-12))
+    ap_db = float(10 * np.log10((np.mean(a_dev ** 2) + 1e-12) / (np.mean(a_host ** 2) + 1e-12)))
+    report["world_twin_vs_host"] = {"audio_s": len(y) / sr, "twin_s": min(twin_s), "host_s": host_s,
+                                    "speed_up": host_s / min(twin_s), "run_to_run_max_abs": spread,
+                                    "harmonic_correlation": corr, "aperiodic_db": ap_db}
+    log(f"{tag} WORLD split of {shortest} ({len(y) / sr:.2f} s, Harvest f0): the card twin "
+        f"{min(twin_s):.3f} s, the float64 host golden {host_s:.3f} s ({host_s / min(twin_s):.1f}x); "
+        f"harmonic correlation {corr:.4f} (>= 0.98), aperiodic energy {ap_db:+.3f} dB (within 2); "
+        f"two runs of the twin differ by at most {spread:.3g}")
+    if corr < 0.98 or abs(ap_db) > 2.0:
+        fail(f"{tag} the WORLD twin left the host golden's bounds: {report['world_twin_vs_host']}")
+    checks = world_twin_checks(torch.device("cuda"))
+    report["world_twin_checks"] = checks
+    log(f"{tag} the WORLD twin on the card within tests/test_world_device.py's bounds: " + ", ".join(
+        f"{k} {v:.4g}" for k, v in checks["values"].items()))
+    if checks["failures"]:
+        fail(f"{tag} the WORLD twin on the card left its bounds: {checks['failures']}")
+
+    # items of each run on the card against the CPU
+    t0 = time.perf_counter()
+    check = binarize_ext_card_vs_cpu(raw, tmp, ckpts, EXT_CHECK_ITEMS)
+    report["card_vs_cpu"] = check
+    log(f"{tag} {EXT_CHECK_ITEMS} items of each run on the card against the CPU in "
+        f"{time.perf_counter() - t0:.1f} s: every exact attribute equal; worst " + ", ".join(
+            f"{k} {v:.3g}" for k, v in check["worst"].items()
+            if k.split(".")[1] in ("mel", "f0", "pitch", *VARIANCES))
+        + f" (mel, curves: max |diff|, curves within {EXT_CARD_TOL} and 1e-4; f0, pitch: share "
+          "of frames off)")
+    if check["failures"]:
+        fail(f"{tag} the card's features disagree with the CPU's: " + "; ".join(check["failures"][:10]))
+
+    report["train_steps"] = narrow_store_steps(tag, stores, tmp, dataset, store_kind)
+    report["store"] = store_kind
+    report["phase_peak_mem_gib"] = (max(peaks + [torch.cuda.max_memory_allocated()])
+                                    - held0) / 2**30
+    report["phase_s"] = time.perf_counter() - t_phase
+    log(f"{tag} the phase's peak memory: {report['phase_peak_mem_gib']:.3f} GiB above what the "
+        f"earlier phases hold; the phase took {report['phase_s']:.1f} s")
     shutil.rmtree(tmp, ignore_errors=True)
     torch.cuda.empty_cache()
     return report, counts
@@ -2312,6 +2741,8 @@ def main() -> None:
     if not all(c["ok"] for c in checks):
         fail("K3 or its backward disagrees with its plain version at a variance training shape")
     report["phases"]["binarize"], bin_counts = binarize_phase(card, reset_counts, read_counts)
+    report["phases"]["binarize_ext"], ext_counts = binarize_ext_phase(card, reset_counts,
+                                                                      read_counts)
 
     # ------------------------------------------------------------ 6. kernel line
     x_t = s.transpose(1, 2).contiguous()
@@ -2428,6 +2859,7 @@ def main() -> None:
             "launches_train_steps": train_counts[key],
             "launches_train_variance_steps": var_train_counts[key],
             "launches_binarize": bin_counts[key],
+            "launches_binarize_ext": ext_counts[key],
             "max_abs_err": err,
             "ms": time_ms(fn),
             "plain_ms": time_ms(plain, iters=5, warmup=1),
@@ -2510,6 +2942,7 @@ def main() -> None:
         "launches_per_train_step": train_counts["K3bwd"] // TRAIN_STEPS,
         "launches_train_variance_steps": var_train_counts["K3bwd"],
         "launches_binarize": bin_counts["K3bwd"],
+        "launches_binarize_ext": ext_counts["K3bwd"],
         **train_times,
     })
 

@@ -55,13 +55,13 @@ class AcousticBinarizer(BaseBinarizer):
             n_fft=hp["fft_size"], win_size=hp["win_size"], hop_size=hp["hop_size"],
             fmin=hp["fmin"], fmax=hp["fmax"],
         )
-        self.pe = initialize_pe(hp)
+        self.pe = initialize_pe(hp, device=self.device)
 
     def feature_provenance(self) -> dict:
         info = super().feature_provenance()
         info["pe"] = self.pe.provenance()
         if any(self.need.get(v) for v in ("breathiness", "voicing", "tension")):
-            info["hnsep"] = self.hparams.get("hnsep", "comb")
+            info["hnsep"] = self.hnsep_provenance()
         return info
 
     def load_meta_data(self, raw_data_dir: pathlib.Path, ds_id, spk, lang):

@@ -63,13 +63,13 @@ class VarianceBinarizer(BaseBinarizer):
         self.predict_variances = bool(self.var_list)
         self.prefer_ds = self.binarization_args.get("prefer_ds", False)
         self.cached_ds = {}
-        self.pe = initialize_pe(hp)
+        self.pe = initialize_pe(hp, device=self.device)
 
     def feature_provenance(self) -> dict:
         info = super().feature_provenance()
         info["pe"] = self.pe.provenance()
         if any(v in self.var_list for v in ("breathiness", "voicing", "tension")):
-            info["hnsep"] = self.hparams.get("hnsep", "comb")
+            info["hnsep"] = self.hnsep_provenance()
         return info
 
     # ------------------------------------------------------------------

@@ -8,8 +8,13 @@ multiple at once), resynthesised by the iSTFT; the aperiodic part is the
 waveform minus the harmonic part. The kth harmonic alone masks the harmonic
 part around (k + 1) f0. Everything runs on the waveform's device.
 
-``vr`` without a checkpoint falls back to ``comb`` with the JAX package's
-warning; ``vr`` with one, and ``world``, are not ported yet.
+``world``: WORLD's analysis (CheapTrick, D4C) and two re-syntheses
+(:mod:`diffsinger_tpu_torch.dsp.world`): the float32 twin on the card when
+the waveform is on one, the float64 host goldens on the CPU or when
+DS_WORLD_BACKEND=host asks for them. ``vr``: the vocal-remover CascadedNet
+(:mod:`diffsinger_tpu_torch.models.hnsep`) from ``hnsep_ckpt`` on the
+waveform's device, the aperiodic part the waveform less the harmonic one;
+without a checkpoint it falls back to ``comb`` with the JAX package's warning.
 """
 
 from __future__ import annotations
@@ -93,12 +98,10 @@ class DecomposedWaveform:
                 f"falling back to 'comb'."
             )
             algorithm = "comb"
-        if algorithm != "comb":
-            raise NotImplementedError(
-                f"hnsep algorithm '{algorithm}'"
-                f"{' with a checkpoint' if algorithm == 'vr' else ''} is not ported to "
-                f"diffsinger_tpu_torch yet; use hnsep: comb")
+        if algorithm not in ("comb", "world", "vr"):
+            raise ValueError(f"unknown hnsep algorithm '{algorithm}'")
         self.algorithm = algorithm
+        self._hnsep_ckpt = hnsep_ckpt
         self._waveform = as_signal(waveform, device)
         self._samplerate = samplerate
         self._f0 = np.asarray(f0, np.float32)
@@ -147,12 +150,29 @@ class DecomposedWaveform:
 
     def _decompose(self):
         n = len(self._waveform)
-        voiced = np.repeat(self._f0 > 0, self._hop_size)[:n]
-        voiced = np.pad(voiced, (0, n - len(voiced)), constant_values=False)
-        harm = _comb_harmonic_resynth(
-            self._waveform, self._aligned_f0(), hop_size=self._hop_size,
-            win_size=self._win_size, samplerate=self._samplerate, half_width=self._half_width)
-        self._harmonic_part = harm * torch.from_numpy(voiced).to(harm.device)
+        if self.algorithm == "world":
+            from diffsinger_tpu_torch.dsp.world import world_harmonic_aperiodic
+
+            # zeros (unvoiced) kept, the frame axis padded with zeros
+            n_frames = int(np.ceil((n + 1) / self._hop_size))
+            f0 = np.zeros(n_frames, np.float32)
+            f0[: min(n_frames, len(self._f0))] = self._f0[:n_frames]
+            self._harmonic_part, self._aperiodic_part = world_harmonic_aperiodic(
+                self._waveform, f0, fs=self._samplerate, fft_size=self._fft_size,
+                hop=self._hop_size)
+            return
+        if self.algorithm == "vr":
+            from diffsinger_tpu_torch.models.hnsep import predict_harmonic
+
+            self._harmonic_part = predict_harmonic(self._hnsep_ckpt, self._waveform)
+        else:
+            voiced = np.repeat(self._f0 > 0, self._hop_size)[:n]
+            voiced = np.pad(voiced, (0, n - len(voiced)), constant_values=False)
+            harm = _comb_harmonic_resynth(
+                self._waveform, self._aligned_f0(), hop_size=self._hop_size,
+                win_size=self._win_size, samplerate=self._samplerate,
+                half_width=self._half_width)
+            self._harmonic_part = harm * torch.from_numpy(voiced).to(harm.device)
         self._aperiodic_part = self._waveform - self._harmonic_part
 
     def harmonic(self, k: Optional[int] = None) -> torch.Tensor:

@@ -12,7 +12,9 @@ the signal's device; the path finder's forward pass, a max-plus recursion of
 15 states per frame, runs on the host over those arrays, fetched once (a loop
 of torch operations on the card would cost about eight launches a frame).
 
-``harvest`` and ``rmvpe`` are not ported yet.
+``harvest`` is the JAX package's native Harvest (float64 numpy on the host,
+:mod:`diffsinger_tpu_torch.dsp.harvest`); ``rmvpe`` the neural extractor of
+:mod:`diffsinger_tpu_torch.models.rmvpe`, on the binarizer's device.
 """
 
 from __future__ import annotations
@@ -234,13 +236,47 @@ class AcfPE(BasePE):
         return f0, uv
 
 
-def initialize_pe(hparams: dict) -> BasePE:
-    """The config's ``pe``: 'parselmouth' is the native ACF extractor."""
+class HarvestPE(BasePE):
+    """Native Harvest (reference modules/pe/pw.py:7-29 contract: pw.harvest
+    at frame_period = 1000*hop/sr, padded or cut to ``length``), in float64
+    numpy on the host whatever the waveform's device."""
+
+    def provenance(self) -> str:
+        from diffsinger_tpu_torch.dsp.harvest import ALGO_VERSION
+
+        return f"native-harvest-v{ALGO_VERSION}"
+
+    def get_pitch(self, waveform, samplerate, length, *, hop_size, f0_min=65, f0_max=1100,
+                  speed=1, interp_uv=False, device=None):
+        from diffsinger_tpu_torch.dsp.harvest import harvest
+
+        if isinstance(waveform, torch.Tensor):
+            waveform = waveform.cpu().numpy()
+        hop = int(np.round(hop_size * speed))
+        f0, _ = harvest(np.asarray(waveform, np.float64), samplerate, f0_floor=f0_min,
+                        f0_ceil=f0_max, frame_period=1000 * hop / samplerate)
+        f0 = f0.astype(np.float32)
+        if f0.size < length:
+            f0 = np.pad(f0, (0, length - f0.size))
+        f0 = f0[:length]
+        uv = f0 == 0
+        if interp_uv:
+            f0, uv = interp_f0(f0, uv)
+        return f0, uv
+
+
+def initialize_pe(hparams: dict, device=None) -> BasePE:
+    """The config's ``pe`` (reference modules/pe/__init__.py:8-18):
+    'parselmouth' (the native ACF extractor), 'harvest', or 'rmvpe' (the
+    checkpoint ``pe_ckpt`` on ``device``, the card unless the caller names
+    another)."""
     name = hparams.get("pe", "parselmouth")
     if name == "parselmouth":
         return AcfPE(very_accurate=bool(hparams.get("pe_very_accurate", False)))
-    if name in ("harvest", "rmvpe"):
-        raise NotImplementedError(
-            f"pitch extractor '{name}' is not ported to diffsinger_tpu_torch yet; "
-            f"use pe: parselmouth")
+    if name == "harvest":
+        return HarvestPE()
+    if name == "rmvpe":
+        from diffsinger_tpu_torch.models.rmvpe import RMVPE
+
+        return RMVPE(hparams["pe_ckpt"], device=device)
     raise ValueError(f" [x] Unknown pitch extractor: {name}")

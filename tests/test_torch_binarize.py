@@ -11,7 +11,7 @@ mel within mean |diff| <= 2e-4 and max <= 5e-3; uv exactly and f0 within
 logit) within 1e-4. Then the maps and ``.meta``, each package's store read by the other's
 reader, two workers against none, the whole pipeline
 (``cli.binarize`` then ``cli.train``) in a process that imports nothing of
-the JAX package, and the extractors that are not ported yet.
+the JAX package, and the other extractors (harvest, rmvpe, world) building.
 """
 
 import json
@@ -260,12 +260,23 @@ def test_binarize_then_train_without_the_jax_package(stores, tmp_path):
 @pytest.mark.parametrize("over,error", [
     ({"pe": "harvest"}, "harvest"), ({"pe": "rmvpe"}, "rmvpe"), ({"hnsep": "world"}, "world")])
 def test_extractors_of_the_next_slice_raise(stores, over, error):
-    from diffsinger_tpu_torch.cli.binarize import binarize
+    """The extractors this file's slice left out are ported now
+    (``tests/test_torch_binarize_ext.py`` holds them to the JAX package):
+    each builds, and only a checkpoint that is missing raises (the shipped
+    config's ``pe_ckpt``, for rmvpe)."""
+    from diffsinger_tpu_torch.cli.binarize import binarizer_class
 
     hp = hparams("variance", stores["root"], f"raises_{error}")
     hp.update(over)
-    with pytest.raises(NotImplementedError, match=error):
-        binarize(hp, device="cpu")
+    cls = binarizer_class(hp["binarizer_cls"])
+    if error == "rmvpe":
+        with pytest.raises(FileNotFoundError, match=hp["pe_ckpt"].split("/")[-1]):
+            cls(hp, device="cpu")
+        return
+    provenance = cls(hp, device="cpu").feature_provenance()
+    assert provenance["pe"] == ("native-harvest-v3" if error == "harvest"
+                                else "native-acf-viterbi(very_accurate=False)")
+    assert provenance["hnsep"] == ("native-world-v2(d4c-v1,host)" if error == "world" else "vr")
 
 
 def test_cli_wants_the_card_unless_the_cpu_is_asked_for(stores):

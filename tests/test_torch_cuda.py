@@ -583,3 +583,68 @@ def test_binarization_on_the_card_matches_the_cpu(dev, tmp_path):
     report = chip_smoke.binarize_card_vs_cpu(tmp_path / "raw", tmp_path, 2)
     assert not report["failures"], report["failures"]
     assert report["worst"]["acoustic.mel"] <= 5e-3 and report["worst"]["variance.tension"] <= 1e-4
+
+
+def test_world_twin_on_the_card_within_the_host_bounds(dev):
+    """The WORLD twin on CUDA tensors within tests/test_world_device.py's
+    bounds of the float64 goldens (chip_smoke.py's ``[binarize_ext]`` check)."""
+    import chip_smoke
+
+    report = chip_smoke.world_twin_checks(dev)
+    assert not report["failures"], report
+
+
+def test_world_twin_is_the_same_on_every_run_and_close_to_the_cpu(dev):
+    """The placement of the pulses' responses sums in a fixed order on the
+    card (two runs equal), and the card's split is the CPU's (same noise)
+    within 1e-3 of each part's peak (float32 rounding of cuFFT and D4C)."""
+    import numpy as np
+
+    from diffsinger_tpu_torch.dsp import golden_signals as gs
+    from diffsinger_tpu_torch.dsp.world_device import world_harmonic_aperiodic_device
+
+    wave, f0_true = gs.signal_bank()["breathy"]
+    f0 = np.full(int(np.ceil((len(wave) + 1) / 512)), f0_true, np.float32)
+    kw = dict(fs=gs.FS, fft_size=2048, hop=512)
+    a = world_harmonic_aperiodic_device(wave, f0, device=dev, **kw)
+    b = world_harmonic_aperiodic_device(wave, f0, device=dev, **kw)
+    c = world_harmonic_aperiodic_device(wave, f0, device="cpu", **kw)
+    for x, y, z in zip(a, b, c):
+        assert x.is_cuda and torch.equal(x, y)
+        assert _max_err(x.cpu(), z) <= 1e-3 * z.abs().max().item()
+
+
+def test_rmvpe_and_the_vocal_remover_on_the_card_match_the_cpu(dev, tmp_path):
+    """RMVPE's activations (full width, seeded) and the vocal remover's
+    harmonic part (published widths, n_fft 2048) on the card against the
+    same checkpoints on the CPU, float32 with TF32 off: within 1e-4 and 1e-4
+    of the peak."""
+    import numpy as np
+
+    import chip_smoke
+    from diffsinger_tpu_torch.models.hnsep import predict_harmonic
+    from diffsinger_tpu_torch.models.rmvpe import RMVPE
+
+    ckpts = chip_smoke.ext_checkpoints(tmp_path)
+    t = np.arange(2 * 44100) / 44100
+    y = (0.3 * np.sin(2 * np.pi * 220 * t) + 0.01 * np.random.default_rng(0).standard_normal(len(t)))
+    y = y.astype(np.float32)
+    got = RMVPE(ckpts["pe_ckpt"], device=dev).activations(y, 44100)
+    want = RMVPE(ckpts["pe_ckpt"], device="cpu").activations(y, 44100)
+    assert got.is_cuda and _max_err(got.cpu(), want) <= 1e-4
+    got = predict_harmonic(ckpts["hnsep_ckpt"], y, device=dev)
+    want = predict_harmonic(ckpts["hnsep_ckpt"], y, device="cpu")
+    assert got.is_cuda and _max_err(got.cpu(), want) <= 1e-4 * want.abs().max().item()
+
+
+def test_binarization_with_rmvpe_vr_harvest_and_world_on_the_card_matches_the_cpu(dev, tmp_path):
+    """One item of a synthetic sung corpus through each ``[binarize_ext]``
+    run's binarizer on the card and on the CPU: every attribute within
+    chip_smoke.py's ``EXT_CARD_TOL`` (three items there)."""
+    import chip_smoke
+
+    chip_smoke.synth_corpus(tmp_path, 1, 7, 2.0, 3.0,
+                            chip_smoke.ROOT / "dictionaries" / "opencpop-extension.txt")
+    ckpts = chip_smoke.ext_checkpoints(tmp_path / "ckpt")
+    report = chip_smoke.binarize_ext_card_vs_cpu(tmp_path / "raw", tmp_path, ckpts, 1)
+    assert not report["failures"], report["failures"]

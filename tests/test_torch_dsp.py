@@ -162,19 +162,30 @@ def test_decomposed_waveform_comb(wav):
 
 
 def test_decomposed_waveform_vr_falls_back_and_world_raises(wav, tmp_path):
+    """``vr`` without a checkpoint falls back to ``comb`` with the JAX
+    package's warning; ``world`` and ``vr`` with one are ported now
+    (tests/test_torch_world.py, tests/test_torch_hnsep.py): ``world`` splits,
+    a ``vr`` checkpoint that does not load raises at the split, and an
+    unknown algorithm raises."""
     f0 = np.full(1 + len(wav) // HOP, 220.0, np.float32)
     with pytest.warns(UserWarning, match="falling back to 'comb'"):
         d = decomposed_waveform.DecomposedWaveform(wav, SR, f0, hop_size=HOP, win_size=WIN,
                                                    algorithm="vr", device="cpu")
     assert d.algorithm == "comb"
-    with pytest.raises(NotImplementedError, match="world"):
-        decomposed_waveform.DecomposedWaveform(wav, SR, f0, hop_size=HOP, win_size=WIN,
+    d = decomposed_waveform.DecomposedWaveform(wav, SR, f0, hop_size=HOP, win_size=WIN,
                                                algorithm="world", device="cpu")
+    assert d.harmonic().shape == d.aperiodic().shape == (len(wav),)
     ckpt = tmp_path / "model.ckpt"
     ckpt.write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="with a checkpoint"):
-        decomposed_waveform.DecomposedWaveform(wav, SR, f0, hop_size=HOP, win_size=WIN,
+    (tmp_path / "config.yaml").write_text("{n_fft: 256, hop_length: 64, n_out: 8, n_out_lstm: 16, "
+                                          "is_mono: true}\n")
+    d = decomposed_waveform.DecomposedWaveform(wav, SR, f0, hop_size=HOP, win_size=WIN,
                                                algorithm="vr", hnsep_ckpt=str(ckpt), device="cpu")
+    with pytest.raises(EOFError):
+        d.harmonic()
+    with pytest.raises(ValueError, match="unknown hnsep"):
+        decomposed_waveform.DecomposedWaveform(wav, SR, f0, hop_size=HOP, win_size=WIN,
+                                               algorithm="crepe", device="cpu")
 
 
 @pytest.mark.parametrize("orig,target", [(48000, 44100), (22050, 44100), (44100, 16000)])
@@ -188,12 +199,12 @@ def test_resample(orig, target):
                                   jres.resample_poly_np(y, orig, target))
 
 
-def test_initialize_pe():
+def test_initialize_pe(tmp_path):
     assert isinstance(pe.initialize_pe({"pe": "parselmouth"}), pe.AcfPE)
     assert pe.initialize_pe({"pe": "parselmouth", "pe_very_accurate": True}).very_accurate
-    for name in ("harvest", "rmvpe"):
-        with pytest.raises(NotImplementedError, match=name):
-            pe.initialize_pe({"pe": name})
+    assert isinstance(pe.initialize_pe({"pe": "harvest"}), pe.HarvestPE)
+    with pytest.raises(FileNotFoundError):  # rmvpe: the checkpoint must load
+        pe.initialize_pe({"pe": "rmvpe", "pe_ckpt": str(tmp_path / "missing.pt")}, device="cpu")
     with pytest.raises(ValueError):
         pe.initialize_pe({"pe": "crepe"})
 
