@@ -105,16 +105,19 @@ Phases, each printed as it ends; any failure exits non-zero:
    tolerances; the card's stores (HDF5 where h5py imports, else kept in
    memory) read back through the datasets into one step of a narrow
    acoustic and variance task with finite losses (``[binarize]`` lines);
-10. binarize_ext: the extractors that voicebank makers configure, over the
-   first 4 phrases of that corpus with seeded checkpoints at the published
-   widths (RMVPE ``E2E0(4, 1, (2, 2))``; CascadedNet nout 32, nout_lstm
-   128, stereo, n_fft 2048, hop 512): acoustic with ``pe: rmvpe`` and
-   ``hnsep: vr``, variance with the same, variance with ``pe: harvest`` and
-   ``hnsep: world`` on the card twin. Per run: seconds a second of audio,
-   items/s, the stage split, peak memory, launch counters from 0 (all 0),
-   one item under the profiler (idle share, launches); RMVPE alone on the
-   longest phrase (frontend, U-Net, GRU and head, decoding), CascadedNet
-   alone, the WORLD twin against the float64 host golden on one phrase
+10. binarize_ext: the extractors that voicebank makers configure, with
+   seeded checkpoints at the published widths (RMVPE ``E2E0(4, 1, (2, 2))``;
+   CascadedNet nout 32, nout_lstm 128, stereo, n_fft 2048, hop 512): over
+   that whole corpus, acoustic with ``pe: rmvpe`` and ``hnsep: vr`` twice
+   (the first pass pays cuDNN's benchmark once for each new length bucket,
+   the second is warm: their difference is the one-time cost a bucket),
+   variance with the same; over its first 4 phrases, variance with
+   ``pe: harvest`` and ``hnsep: world`` on the card twin. Per run: seconds
+   a second of audio, items/s, the stage split, peak memory, launch counters
+   from 0 (all 0), one item under the profiler (idle share, launches); the
+   vocal remover at a length bucket no phrase met (first call, again);
+   RMVPE alone on the longest phrase (frontend, U-Net, GRU and head,
+   decoding), CascadedNet alone, the WORLD twin against the float64 host golden on one phrase
    (seconds, bounds, two runs equal) and within ``tests/test_world_device.py``'s
    bounds on its fixtures, three items of each run on the card against the
    CPU (``binarize_ext_card_vs_cpu``), one narrow training step from each
@@ -1969,7 +1972,8 @@ def binarize_phase(card, reset_counts, read_counts):
     return report, counts
 
 
-EXT_ITEMS = 4  # the first phrases of [binarize]'s corpus (same seed): every phoneme occurs
+EXT_ITEMS = BIN_ITEMS  # rmvpe + vr: [binarize]'s whole corpus (same seed)
+EXT_WORLD_ITEMS = 4  # harvest + world: its first phrases (Harvest is float64 numpy on the host)
 EXT_CHECK_ITEMS = 3  # items of each run binarized on the card and on the CPU
 EXT_RUNS = (  # (family, pe, hnsep)
     ("acoustic", "rmvpe", "vr"),
@@ -1984,8 +1988,8 @@ EXT_RUNS = (  # (family, pe, hnsep)
 # D4C rounds the group delay of a clean harmonic spectrum differently on each
 # (the port's and the JAX twin differ by up to 1e-2 in aperiodicity on tones,
 # tests/test_torch_world.py), and tension's kth-harmonic mask keeps or drops
-# a bin at its edge. Measured on an H100 (PERF.md): breathiness
-# 0.0035, voicing 2.0e-4, tension 3.6e-4.
+# a bin at its edge. Measured on an H100 (PERF.md), the twin carrying
+# float32: breathiness 0.0040, voicing 1.1e-4, tension 0.038.
 EXT_CARD_TOL = {"breathiness": 0.05, "voicing": 0.05, "tension": 0.05}
 
 
@@ -2148,20 +2152,25 @@ def world_twin_checks(dev) -> dict:
 
 def binarize_ext_phase(card, reset_counts, read_counts):
     """[binarize_ext]: the extractors that voicebank makers configure, on the
-    card through ``cli.binarize.binarize``, over the first ``EXT_ITEMS``
-    phrases of [binarize]'s corpus (same seed), with seeded checkpoints of
-    both networks at their published widths (``ext_checkpoints``):
-    (a) acoustic with RMVPE and the vocal remover, (b) variance with the
-    same, (c) variance with Harvest and WORLD on the card twin. Each run:
+    card through ``cli.binarize.binarize``, with seeded checkpoints of both
+    networks at their published widths (``ext_checkpoints``), over
+    [binarize]'s corpus (same seed): (a) acoustic with RMVPE and the vocal
+    remover over ``EXT_ITEMS`` phrases, twice (the first pass meets each
+    length bucket of the vocal remover, 32 frames of its hop, for the first
+    time and pays cuDNN's benchmark there; the second runs warm), (b)
+    variance with the same over the same phrases, (c) variance with Harvest
+    and WORLD on the card twin over the first ``EXT_WORLD_ITEMS``. Each run:
     seconds of binarization a second of audio, items/s, the stage split,
     peak memory, launch counters from 0 (all must stay 0), one item under
-    the profiler (idle share, launches). Then RMVPE alone on the longest item
-    (frontend, U-Net, GRU and head, decoding), the vocal remover alone, the
-    WORLD twin against the float64 golden on one item (seconds, the bounds,
-    two runs of the twin), ``world_twin_checks``, ``EXT_CHECK_ITEMS`` items of
-    each run on the card against the CPU (``binarize_ext_card_vs_cpu``) and
-    one narrow training step from each store. Returns the report and the
-    launch counts."""
+    the profiler (idle share, launches). Then the one-time cost a length
+    bucket (the two passes' difference over the buckets met, and the vocal
+    remover at a bucket no phrase met: first call, again), RMVPE alone on
+    the longest phrase (frontend, U-Net, GRU and head, decoding), the vocal
+    remover alone, the WORLD twin against the float64 golden on one phrase
+    (seconds, the bounds, two runs of the twin), ``world_twin_checks``,
+    ``EXT_CHECK_ITEMS`` items of each run on the card against the CPU
+    (``binarize_ext_card_vs_cpu``) and one narrow training step from each
+    store. Returns the report and the launch counts."""
     import random
 
     import numpy as np
@@ -2186,23 +2195,34 @@ def binarize_ext_phase(card, reset_counts, read_counts):
     peaks = []  # the allocator's peak at the end of each run (runs reset it)
     tmp = Path(tempfile.mkdtemp(prefix="binarize_ext_", dir=OUT_DIR))
     t0 = time.perf_counter()
-    audio_s = synth_corpus(tmp, EXT_ITEMS, 60, *BIN_SECONDS,
-                           ROOT / "dictionaries" / "opencpop-extension.txt")
-    raw = tmp / "raw"
+    dictionary = ROOT / "dictionaries" / "opencpop-extension.txt"
+    audio_s = synth_corpus(tmp / "all", EXT_ITEMS, 60, *BIN_SECONDS, dictionary)
+    world_s = synth_corpus(tmp / "first", min(EXT_WORLD_ITEMS, EXT_ITEMS), 60, *BIN_SECONDS,
+                           dictionary)
+    raw, raw_w = tmp / "all" / "raw", tmp / "first" / "raw"
     ckpts = ext_checkpoints(tmp / "ckpt")
-    log(f"{tag} corpus: the first {EXT_ITEMS} phrases of [binarize]'s ({audio_s:.1f} s of audio); "
-        f"seeded checkpoints: RMVPE {ckpts['parameters']['rmvpe']:,} parameters, CascadedNet "
-        f"{ckpts['parameters']['vr']:,}; made in {time.perf_counter() - t0:.1f} s")
-    report["corpus_audio_s"] = audio_s
+    log(f"{tag} corpus: [binarize]'s {EXT_ITEMS} phrases ({audio_s:.1f} s of audio) and its first "
+        f"{EXT_WORLD_ITEMS} ({world_s:.1f} s); seeded checkpoints: RMVPE "
+        f"{ckpts['parameters']['rmvpe']:,} parameters, CascadedNet {ckpts['parameters']['vr']:,}; "
+        f"made in {time.perf_counter() - t0:.1f} s")
+    report["corpus_audio_s"] = {"rmvpe_vr": audio_s, "harvest_world": world_s}
     report["parameters"] = ckpts["parameters"]
+    # the vocal remover's length buckets: 32 k - 1 frames of its hop (models/hnsep.py)
+    vr_hop = 512
+    lengths = {}
+    for wav_fn in raw.glob("wavs/*.wav"):
+        with wave.open(str(wav_fn)) as f:
+            lengths[wav_fn.stem] = f.getnframes()
+    buckets = sorted({(n // vr_hop + 1) // 32 for n in lengths.values()})
     extra, dataset, store_kind = store_interface()
     stores, counts, report["runs"] = {}, {"K1": 0, "K2": 0, "K3": 0, "K3bwd": 0}, []
-    wavs = sorted(raw.glob("wavs/*.wav"))
-    shortest = min(wavs, key=lambda p: p.stat().st_size).stem
-    for i, (family, pe, hnsep) in enumerate(EXT_RUNS):
-        run = f"{family} {pe}+{hnsep}"
+    shortest = min(raw_w.glob("wavs/*.wav"), key=lambda p: p.stat().st_size).stem
+    runs = [(*EXT_RUNS[0], raw, "first pass"), (*EXT_RUNS[0], raw, "again"),
+            (*EXT_RUNS[1], raw, ""), (*EXT_RUNS[2], raw_w, "")]
+    for i, (family, pe, hnsep, corpus, what) in enumerate(runs):
+        run = f"{family} {pe}+{hnsep}" + (f", {what}" if what else "")
         out = tmp / f"run{i}"
-        hp = binarize_ext_hp(family, pe, hnsep, raw, out, ckpts)
+        hp = binarize_ext_hp(family, pe, hnsep, corpus, out, ckpts)
         random.seed(90 + i)
         torch.cuda.reset_peak_memory_stats()
         held = torch.cuda.memory_allocated()
@@ -2233,8 +2253,8 @@ def binarize_ext_phase(card, reset_counts, read_counts):
             fail(f"{tag} the binarization launched a model kernel: {run_counts}")
         if hnsep == "world" and not provenance["hnsep"].endswith(",device)"):
             fail(f"{tag} hnsep: world on the card did not resolve to the twin: {provenance}")
-        # one item (the shortest phrase) under the profiler, after the run's warm-up
-        meta = b.load_meta_data(raw, 0, "synth", "zh")
+        # one item (the shortest of the first phrases) under the profiler, after the run's warm-up
+        meta = b.load_meta_data(corpus, 0, "synth", "zh")
         name = next(n for n in meta if n.endswith(shortest))
         prof = profile_request(lambda: b.process_item(name, meta[name], b.binarization_args),
                                f"{run}, one item ({shortest})",
@@ -2247,10 +2267,34 @@ def binarize_ext_phase(card, reset_counts, read_counts):
         report["runs"].append(rec)
         del b
 
-    # RMVPE alone on the longest phrase, stage by stage (synchronised)
-    longest = max(wavs, key=lambda p: p.stat().st_size)
-    y, sr = load_wav(longest)
+    # the one-time cost of a length bucket: the two passes' difference over
+    # the buckets the first met, and the vocal remover at a bucket no phrase met
+    first, again = report["runs"][0], report["runs"][1]
+    longest = max(lengths, key=lengths.get)
+    y, sr = load_wav(raw / "wavs" / f"{longest}.wav")
     x = as_signal(y, "cuda")
+    x_new = torch.nn.functional.pad(x, (0, (buckets[-1] + 1) * 32 * vr_hop - x.shape[0]))
+    new_s = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        predict_harmonic(ckpts["hnsep_ckpt"], x_new)
+        torch.cuda.synchronize()
+        new_s.append(time.perf_counter() - t)
+    report["vr_length_buckets"] = {
+        "buckets": len(buckets), "first_pass_s": first["wall_s"], "again_s": again["wall_s"],
+        "one_time_s_per_bucket": (first["wall_s"] - again["wall_s"]) / len(buckets),
+        "warm_s_per_audio_s": again["s_per_audio_s"],
+        "new_bucket_audio_s": x_new.shape[0] / sr, "new_bucket_first_s": new_s[0],
+        "new_bucket_again_s": new_s[1]}
+    log(f"{tag} the vocal remover's length buckets (32 frames of {vr_hop}): the corpus meets "
+        f"{len(buckets)}; the first pass took {first['wall_s']:.2f} s, the warm one "
+        f"{again['wall_s']:.2f} s ({again['s_per_audio_s']:.5f} s a second of audio): "
+        f"{report['vr_length_buckets']['one_time_s_per_bucket']:.3f} s once a bucket; at a bucket "
+        f"no phrase met ({x_new.shape[0] / sr:.2f} s) the first call {new_s[0]:.3f} s, again "
+        f"{new_s[1] * 1e3:.2f} ms, on {card}")
+
+    # RMVPE alone on the longest phrase, stage by stage (synchronised)
     pe = rmvpe_mod.RMVPE(ckpts["pe_ckpt"])
     model = pe.model
 
@@ -2297,8 +2341,8 @@ def binarize_ext_phase(card, reset_counts, read_counts):
     del pe, model
 
     # the WORLD twin against the float64 host golden on the shortest phrase
-    y, sr = load_wav(raw / "wavs" / f"{shortest}.wav")
-    hp = binarize_ext_hp("variance", "harvest", "world", raw, tmp / "unused", ckpts)
+    y, sr = load_wav(raw_w / "wavs" / f"{shortest}.wav")
+    hp = binarize_ext_hp("variance", "harvest", "world", raw_w, tmp / "unused", ckpts)
     f0, _ = HarvestPE().get_pitch(y, sr, len(y) // hp["hop_size"] + 1, hop_size=hp["hop_size"],
                                   f0_min=hp["f0_min"], f0_max=hp["f0_max"])
     kw = dict(fs=sr, fft_size=hp["fft_size"], hop=hp["hop_size"])
@@ -2337,7 +2381,7 @@ def binarize_ext_phase(card, reset_counts, read_counts):
 
     # items of each run on the card against the CPU
     t0 = time.perf_counter()
-    check = binarize_ext_card_vs_cpu(raw, tmp, ckpts, EXT_CHECK_ITEMS)
+    check = binarize_ext_card_vs_cpu(raw_w, tmp, ckpts, EXT_CHECK_ITEMS)
     report["card_vs_cpu"] = check
     log(f"{tag} {EXT_CHECK_ITEMS} items of each run on the card against the CPU in "
         f"{time.perf_counter() - t0:.1f} s: every exact attribute equal; worst " + ", ".join(

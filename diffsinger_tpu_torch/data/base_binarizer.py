@@ -392,17 +392,16 @@ class BaseBinarizer:
 
     def hnsep_provenance(self) -> str:
         """The harmonic split's name as the JAX package records it: for
-        ``world`` its versions and the backend that runs (worker processes
-        run the host goldens, see ``dsp.world.resolve_world_backend``)."""
+        ``world`` its versions and the backend that runs, resolved as the
+        split resolves it in this process and in the workers
+        (``dsp.world.resolve_world_backend``)."""
         algo = self.hparams.get("hnsep", "comb")
         if algo != "world":
             return algo
         from diffsinger_tpu_torch.dsp.d4c import ALGO_VERSION as D4C_VERSION
         from diffsinger_tpu_torch.dsp.world import ALGO_VERSION, resolve_world_backend
 
-        backend = ("host" if int(self.binarization_args.get("num_workers", 0) or 0) > 0
-                   else resolve_world_backend(self.device))
-        return f"native-world-v{ALGO_VERSION}(d4c-v{D4C_VERSION},{backend})"
+        return f"native-world-v{ALGO_VERSION}(d4c-v{D4C_VERSION},{resolve_world_backend(self.device)})"
 
     # ------------------------------------------------------------------
     def load_waveform(self, wav_fn) -> torch.Tensor:

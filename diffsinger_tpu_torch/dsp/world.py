@@ -7,9 +7,6 @@ the native replacement for pyworld in the reference's ``world`` harmonic split
   periods, DC correction, a box smoothing of width 2/3 f0 over the power
   spectrum, and cepstral liftering (the sinc smoothing lifter and the q1
   recovery lifter).
-* :func:`estimate_aperiodicity` and :func:`synthesize`: the fast
-  alternatives (a spectral-floor aperiodicity; an overlap-add synthesis of a
-  pulse train and noise), in torch too. The split below does not use them.
 * :func:`synthesize_world`: WORLD's exact pulse-synchronous synthesis
   (synthesis.cpp) in float64 numpy on the host, with :func:`_minimum_phase_spectrum`,
   :func:`_dc_remover` and :func:`_interp_frames`: the goldens, copied as they
@@ -18,11 +15,14 @@ the native replacement for pyworld in the reference's ``world`` harmonic split
   (CheapTrick in float32 on the CPU, D4C and both syntheses in float64);
   ``device`` runs the float32 twin of :mod:`diffsinger_tpu_torch.dsp.world_device`
   on the waveform's device.
+
+The JAX module's fast alternatives (``estimate_aperiodicity``, a
+spectral-floor aperiodicity, and ``synthesize``, an overlap-add synthesis)
+have no caller in either package and are not carried over.
 """
 
 from __future__ import annotations
 
-import multiprocessing
 import os
 
 import numpy as np
@@ -154,93 +154,6 @@ def cheaptrick(x: torch.Tensor, f0: torch.Tensor, *, fs: int, fft_size: int,
     recovery_lifter = (1.0 + 2.0 * q1) - 2.0 * q1 * torch.cos(2.0 * arg)
     log_env = torch.fft.rfft(ceps * smoothing_lifter * recovery_lifter, dim=1).real
     return torch.exp(log_env)
-
-
-def estimate_aperiodicity(x: torch.Tensor, f0: torch.Tensor, *, fs: int, fft_size: int,
-                          hop: int) -> torch.Tensor:
-    """Per-frame, per-bin aperiodicity in [0, 1] from the ratio of the
-    inter-harmonic floor to the harmonic peaks. Unvoiced frames -> 1.
-
-    Computed in float64 (returned in float32): the floors of a clean voice
-    lie far under its harmonics, where float32's FFT and cumulative sums
-    (the JAX package's) leave rounding noise."""
-    n_frames = f0.shape[0]
-    n_bins = fft_size // 2 + 1
-    dev = x.device
-    x, f0 = x.double(), f0.double()
-    voiced = f0 > 0
-    f0_eff = torch.where(voiced, f0, DEFAULT_F0)
-
-    frames = frames_by_blocks(x, n_frames, hop, -(fft_size // 2), fft_size)
-    window = torch.from_numpy(np.blackman(fft_size).astype(np.float32)).to(dev)
-    power = torch.fft.rfft(frames * window, dim=1).abs() ** 2 + 1e-12
-
-    bin_hz = fs / fft_size
-    # distance of each bin from the nearest harmonic in units of f0
-    ratio = (torch.arange(n_bins, device=dev)[None, :] * bin_hz) / f0_eff[:, None]
-    frac = torch.abs(ratio - torch.round(ratio))  # 0 at harmonics, 0.5 between
-
-    def band_stat(p, mask):
-        # a masked mean over a band of ~2 f0 either side
-        w = mask.to(p.dtype)
-        csum_p = torch.cumsum(F.pad(p * w, (1, 0)), dim=1)
-        csum_w = torch.cumsum(F.pad(w, (1, 0)), dim=1)
-        width = torch.clamp((2.0 * f0_eff / bin_hz).int(), min=4)[:, None]
-        pos = torch.arange(n_bins, device=dev)[None, :]
-        lo = torch.clamp(pos - width, 0, n_bins).long()
-        hi = torch.clamp(pos + width, 0, n_bins).long()
-        num = torch.gather(csum_p, 1, hi) - torch.gather(csum_p, 1, lo)
-        den = torch.gather(csum_w, 1, hi) - torch.gather(csum_w, 1, lo)
-        return num / torch.clamp(den, min=1.0)
-
-    peak_env = band_stat(power, frac < 0.15)
-    floor_env = band_stat(power, frac > 0.35)
-    ap = torch.sqrt(torch.clamp(floor_env / torch.clamp(peak_env, min=1e-12), 0.0, 1.0))
-    return torch.where(voiced[:, None], ap, 1.0).float()
-
-
-@no_tf32()
-def synthesize(f0: torch.Tensor, envelope: torch.Tensor, aperiodicity: torch.Tensor, *,
-               fs: int, fft_size: int, hop: int, generator: torch.Generator | None = None,
-               noise: torch.Tensor | None = None) -> torch.Tensor:
-    """Overlap-add synthesis from (f0, spectral envelope, aperiodicity).
-
-    The periodic part is a pulse train at f0 filtered by the envelope, the
-    aperiodic part white noise filtered by it; each weighted per bin by
-    sqrt(1 - ap^2) and ap. ``noise`` [F*hop] is the white noise, else drawn
-    from ``generator`` on the envelope's device. Returns [F*hop].
-    """
-    from diffsinger_tpu_torch.dsp.stft import istft, stft_complex
-
-    n_frames, _ = envelope.shape
-    length = n_frames * hop
-    dev = envelope.device
-    voiced = f0 > 0
-    f0_eff = torch.where(voiced, f0, DEFAULT_F0)
-
-    f0_up = torch.repeat_interleave(f0_eff, hop)  # [L]
-    phase = torch.cumsum(f0_up / fs, dim=0)
-    prev = torch.cat([torch.zeros(1, device=dev), phase[:-1]])
-    pulse = (torch.floor(phase) - torch.floor(prev)) > 0
-    periodic_exc = pulse.float() * torch.sqrt(torch.clamp(fs / f0_up, min=1.0))
-    periodic_exc = periodic_exc * torch.repeat_interleave(voiced, hop)
-    if noise is None:
-        noise = torch.randn(length, generator=generator, device=dev)
-
-    window = torch.from_numpy(np.hanning(fft_size + 1)[:-1].astype(np.float32)).to(dev)
-    amp = torch.sqrt(envelope)
-    per_w = torch.sqrt(torch.clamp(1.0 - aperiodicity ** 2, 0.0, 1.0))
-    stft = dict(n_fft=fft_size, hop=hop, win_size=fft_size, window=window, center=True)
-    spec_p = stft_complex(periodic_exc[None], **stft)
-    spec_n = stft_complex(noise[None].float(), **stft)
-    fcount = spec_p.shape[1]
-
-    def fit(a):
-        a = a[:fcount]
-        return F.pad(a, (0, 0, 0, fcount - a.shape[0]))
-
-    spec = spec_p * (fit(amp) * fit(per_w))[None] + spec_n * (fit(amp) * fit(aperiodicity))[None]
-    return istft(spec, length=length, **stft)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -395,17 +308,12 @@ def synthesize_world(
 
 def resolve_world_backend(device, backend: str = "auto") -> str:
     """'auto' -> 'device' when ``device`` is a CUDA card, else 'host';
-    DS_WORLD_BACKEND=host|device overrides. Spawned binarizer workers resolve
-    'auto' to 'host' (the JAX package's rule, so that both packages write the
-    same provenance strings; binarizers record the resolved value)."""
+    DS_WORLD_BACKEND=host|device overrides. Binarizer workers resolve it the
+    same way (they run on the card too), and binarizers record the resolved
+    value."""
     if backend == "auto":
-        env = os.environ.get("DS_WORLD_BACKEND")
-        if env:
-            backend = env
-        elif multiprocessing.current_process().name != "MainProcess":
-            backend = "host"
-        else:
-            backend = "device" if torch.device(device).type == "cuda" else "host"
+        backend = os.environ.get("DS_WORLD_BACKEND") or (
+            "device" if torch.device(device).type == "cuda" else "host")
     if backend not in ("host", "device"):
         raise ValueError(f"unknown WORLD backend {backend!r}")
     return backend

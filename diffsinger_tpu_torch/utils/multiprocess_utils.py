@@ -9,6 +9,7 @@ in the order of the jobs whatever each one takes.
 from __future__ import annotations
 
 import multiprocessing
+import queue
 import traceback
 
 
@@ -16,7 +17,8 @@ def _worker(fn, args_chunk, queue, device):
     import torch
 
     if device is not None and torch.device(device).type == "cuda":
-        torch.cuda.set_device(torch.device(device))
+        # "cuda" without an index is the default card, which set_device refuses
+        torch.cuda.set_device(torch.device(device).index or 0)
     for job_idx, args in args_chunk:
         try:
             result = fn(*args)
@@ -25,6 +27,22 @@ def _worker(fn, args_chunk, queue, device):
             break
         except Exception:
             queue.put((job_idx, None, traceback.format_exc()))
+
+
+def _next_result(q, proc, i: int, poll_s: float = 5.0):
+    """The next result of a worker's queue; raises when the worker has ended
+    without putting one (it died outside a job, or was killed)."""
+    while True:
+        try:
+            return q.get(timeout=poll_s)
+        except queue.Empty:
+            if proc.is_alive():
+                continue
+            try:  # it may have put the result just before it ended
+                return q.get(timeout=poll_s)
+            except queue.Empty:
+                raise RuntimeError(f"the worker of item {i} ended (exit code {proc.exitcode}) "
+                                   "without its result") from None
 
 
 def chunked_multiprocess_run(fn, args_list, num_workers: int, device=None,
@@ -52,7 +70,7 @@ def chunked_multiprocess_run(fn, args_list, num_workers: int, device=None,
         p.start()
     try:
         for i in range(n):
-            job_idx, result, err = queues[i % num_workers].get()
+            job_idx, result, err = _next_result(queues[i % num_workers], procs[i % num_workers], i)
             if job_idx != i:
                 raise RuntimeError(f"result order broken: expected {i}, got {job_idx}")
             if err is not None:

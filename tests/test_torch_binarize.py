@@ -259,11 +259,11 @@ def test_binarize_then_train_without_the_jax_package(stores, tmp_path):
 
 @pytest.mark.parametrize("over,error", [
     ({"pe": "harvest"}, "harvest"), ({"pe": "rmvpe"}, "rmvpe"), ({"hnsep": "world"}, "world")])
-def test_extractors_of_the_next_slice_raise(stores, over, error):
-    """The extractors this file's slice left out are ported now
-    (``tests/test_torch_binarize_ext.py`` holds them to the JAX package):
-    each builds, and only a checkpoint that is missing raises (the shipped
-    config's ``pe_ckpt``, for rmvpe)."""
+def test_other_extractors_build_with_the_jax_provenance(stores, over, error):
+    """``harvest`` and ``world`` build and record the JAX package's
+    provenance strings (``tests/test_torch_binarize_ext.py`` holds their
+    features to the JAX package); ``rmvpe`` with the shipped config's
+    ``pe_ckpt``, which is missing, raises."""
     from diffsinger_tpu_torch.cli.binarize import binarizer_class
 
     hp = hparams("variance", stores["root"], f"raises_{error}")
@@ -277,6 +277,30 @@ def test_extractors_of_the_next_slice_raise(stores, over, error):
     assert provenance["pe"] == ("native-harvest-v3" if error == "harvest"
                                 else "native-acf-viterbi(very_accurate=False)")
     assert provenance["hnsep"] == ("native-world-v2(d4c-v1,host)" if error == "world" else "vr")
+
+
+def test_a_worker_that_ends_without_its_result_raises():
+    import os
+
+    from diffsinger_tpu_torch.utils.multiprocess_utils import chunked_multiprocess_run
+
+    with pytest.raises(RuntimeError, match=r"ended \(exit code 3\)"):
+        list(chunked_multiprocess_run(os._exit, [(3,)], 1))
+
+
+def test_world_provenance_is_the_backend_that_the_workers_run(stores, monkeypatch):
+    """With worker processes, ``hnsep: world`` records the backend that the
+    split resolves in them: the host goldens on the CPU, the twin when
+    DS_WORLD_BACKEND=device asks for it."""
+    from diffsinger_tpu_torch.cli.binarize import binarizer_class
+
+    monkeypatch.delenv("DS_WORLD_BACKEND", raising=False)
+    hp = hparams("variance", stores["root"], "world_workers", num_workers=2)
+    hp.update(hnsep="world")
+    cls = binarizer_class(hp["binarizer_cls"])
+    assert cls(hp, device="cpu").feature_provenance()["hnsep"] == "native-world-v2(d4c-v1,host)"
+    monkeypatch.setenv("DS_WORLD_BACKEND", "device")
+    assert cls(hp, device="cpu").feature_provenance()["hnsep"] == "native-world-v2(d4c-v1,device)"
 
 
 def test_cli_wants_the_card_unless_the_cpu_is_asked_for(stores):

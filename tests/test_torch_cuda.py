@@ -648,3 +648,27 @@ def test_binarization_with_rmvpe_vr_harvest_and_world_on_the_card_matches_the_cp
     ckpts = chip_smoke.ext_checkpoints(tmp_path / "ckpt")
     report = chip_smoke.binarize_ext_card_vs_cpu(tmp_path / "raw", tmp_path, ckpts, 1)
     assert not report["failures"], report["failures"]
+
+
+def test_binarizer_workers_run_the_world_twin_on_the_card(dev, tmp_path):
+    """``hnsep: world`` with ``num_workers`` > 0 on the card: a spawned
+    worker runs the twin on the card as the main process does (the items are
+    equal), and the provenance records ``device``."""
+    import chip_smoke
+    from diffsinger_tpu_torch.cli.binarize import binarizer_class
+    from diffsinger_tpu_torch.utils.multiprocess_utils import chunked_multiprocess_run
+
+    chip_smoke.synth_corpus(tmp_path, 2, 7, 2.0, 3.0,
+                            chip_smoke.ROOT / "dictionaries" / "opencpop-extension.txt")
+    raw = tmp_path / "raw"
+    hp = chip_smoke.binarize_ext_hp("variance", "harvest", "world", raw, tmp_path / "out",
+                                    {"pe_ckpt": "", "hnsep_ckpt": ""})
+    hp["binarization_args"] = dict(hp["binarization_args"], num_workers=1)
+    b = chip_smoke.quiet(binarizer_class(hp["binarizer_cls"]), hp, device=dev)
+    assert b.feature_provenance()["hnsep"] == "native-world-v2(d4c-v1,device)"
+    meta = b.load_meta_data(raw, 0, "synth", "zh")
+    args = [(n, meta[n], b.binarization_args) for n in sorted(meta)]
+    in_worker = list(chunked_multiprocess_run(b.process_item, args, 1, device=dev))
+    for got, arg in zip(in_worker, args):
+        _, failures = chip_smoke.binarized_item_errors(got, b.process_item(*arg))
+        assert not failures, failures

@@ -161,12 +161,12 @@ def test_decomposed_waveform_comb(wav):
     assert np.abs(td.harmonic().numpy()).max() > 0.1 * peak  # the comb kept the voice
 
 
-def test_decomposed_waveform_vr_falls_back_and_world_raises(wav, tmp_path):
+def test_decomposed_waveform_vr_fallback_world_and_unknown(wav, tmp_path):
     """``vr`` without a checkpoint falls back to ``comb`` with the JAX
-    package's warning; ``world`` and ``vr`` with one are ported now
-    (tests/test_torch_world.py, tests/test_torch_hnsep.py): ``world`` splits,
-    a ``vr`` checkpoint that does not load raises at the split, and an
-    unknown algorithm raises."""
+    package's warning; ``world`` splits (tests/test_torch_world.py holds it
+    to the JAX package); a ``vr`` checkpoint that does not load raises at the
+    split (tests/test_torch_hnsep.py holds one that loads); an unknown
+    algorithm raises."""
     f0 = np.full(1 + len(wav) // HOP, 220.0, np.float32)
     with pytest.warns(UserWarning, match="falling back to 'comb'"):
         d = decomposed_waveform.DecomposedWaveform(wav, SR, f0, hop_size=HOP, win_size=WIN,

@@ -5,22 +5,20 @@ Tolerances, each against the largest entry of the JAX output:
 
 - the numpy copies (D4C, Harvest, WORLD's float64 synthesis and pulse
   extraction): 1e-12;
-- CheapTrick, the overlap-add synthesis and the twin's per-pulse responses
-  (fed the JAX draws): 1e-4;
+- CheapTrick and the twin's per-pulse responses (fed the JAX draws): 1e-4;
 - the twin's D4C: 1e-4 on a breathy voice; on tones with the split's 1e-5
   dither, max |diff| 1e-2 and mean 1e-3 with the same voicing (both float32
   twins round the group delay of a clean harmonic spectrum differently; each
   stays within the JAX package's own bound to the float64 golden);
 - the twin's whole split, fed the JAX draws: 5e-4 of each part's peak (the
-  D4C rounding above, plus the int16 transport's step of 1/32000);
-- the host split (float64 goldens, float32 CheapTrick): 1e-4;
-- the spectral-floor aperiodicity, which the port computes in float64: 1e-6
-  against a float64 evaluation of the JAX formula (the JAX function's
-  float32 cumulative sums are rounding noise on a clean voice), and the JAX
-  function itself where its float32 holds (noise: 1e-6, breathy: 1e-3).
+  D4C rounding above, plus the JAX twin's int16 transport of its outputs,
+  half a step of 1/32000 of the peak; the port carries float32, and the
+  test gives both twins the samples that the JAX transport makes);
+- the host split (float64 goldens, float32 CheapTrick): 1e-4.
 """
 
 import json
+import multiprocessing
 import pathlib
 
 import jax
@@ -94,64 +92,14 @@ def test_frames_by_blocks_equals_the_jax_framing(start, width, pad_mode):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
-def aperiodicity_f64(x, f0, fs, fft_size, hop):
-    """diffsinger_tpu/dsp/world.py::estimate_aperiodicity in float64 numpy."""
-    n_bins = fft_size // 2 + 1
-    voiced = f0 > 0
-    f0_eff = np.where(voiced, f0, jworld.DEFAULT_F0).astype(np.float64)
-    idx = np.arange(len(f0))[:, None] * hop + np.arange(fft_size)[None, :] - fft_size // 2
-    frames = np.pad(x.astype(np.float64), (fft_size, fft_size))[idx + fft_size]
-    window = np.blackman(fft_size).astype(np.float32)
-    power = np.abs(np.fft.rfft(frames * window, axis=1)) ** 2 + 1e-12
-    bin_hz = fs / fft_size
-    ratio = np.arange(n_bins)[None, :] * bin_hz / f0_eff[:, None]
-    frac = np.abs(ratio - np.round(ratio))
-    width = np.maximum((2.0 * f0_eff / bin_hz).astype(np.int32), 4)[:, None]
-    pos = np.arange(n_bins)[None, :]
-    lo, hi = np.clip(pos - width, 0, n_bins), np.clip(pos + width, 0, n_bins)
-    rows = np.arange(len(f0))[:, None]
-
-    def band_stat(mask):
-        w = mask.astype(np.float64)
-        cp = np.cumsum(np.pad(power * w, ((0, 0), (1, 0))), axis=1)
-        cw = np.cumsum(np.pad(w, ((0, 0), (1, 0))), axis=1)
-        return (cp[rows, hi] - cp[rows, lo]) / np.maximum(cw[rows, hi] - cw[rows, lo], 1.0)
-
-    ap = np.sqrt(np.clip(band_stat(frac > 0.35) / np.maximum(band_stat(frac < 0.15), 1e-12), 0, 1))
-    return np.where(voiced[:, None], ap, 1.0)
-
-
 @pytest.mark.parametrize("name", ["vowel_pulse", "breathy", "noise"])
-def test_cheaptrick_and_the_fast_aperiodicity(name):
+def test_cheaptrick(name):
     wave, f0_true = bank(name)
     x = wave.astype(np.float32)
     f0 = frame_f0(wave, f0_true if name != "noise" else 0.0)
     kw = dict(fs=FS, fft_size=FFT, hop=HOP)
     near(world.cheaptrick(torch.from_numpy(x), torch.from_numpy(f0), **kw),
          jworld.cheaptrick(jnp.asarray(x), jnp.asarray(f0), **kw))
-    got = world.estimate_aperiodicity(torch.from_numpy(x), torch.from_numpy(f0), **kw)
-    near(got, aperiodicity_f64(x, f0, **kw), 1e-6)
-    if name != "vowel_pulse":
-        near(got, jworld.estimate_aperiodicity(jnp.asarray(x), jnp.asarray(f0), **kw),
-             1e-6 if name == "noise" else 1e-3)
-
-
-def test_overlap_add_synthesis_with_the_jax_noise():
-    # fs / f0 a power of two: the float32 phase accumulator is exact in any
-    # summation order, so both place the pulses on the same samples
-    fs, fft, hop, n = 32000, 1024, 256, 40
-    f0 = np.full(n, 250.0, np.float32)
-    f0[[0, 1, 17, 18]] = 0.0
-    rng = np.random.default_rng(2)
-    env = (np.geomspace(1.0, 1e-4, fft // 2 + 1)[None] * rng.uniform(0.5, 1.5, (n, 1))).astype(np.float32)
-    ap = rng.uniform(0.05, 0.95, (n, fft // 2 + 1)).astype(np.float32)
-    key = jax.random.PRNGKey(5)
-    want = jworld.synthesize(jnp.asarray(f0), jnp.asarray(env), jnp.asarray(ap), fs=fs,
-                             fft_size=fft, hop=hop, rng=key)
-    noise = np.array(jax.random.normal(key, (n * hop,), jnp.float32))
-    got = world.synthesize(torch.from_numpy(f0), torch.from_numpy(env), torch.from_numpy(ap),
-                           fs=fs, fft_size=fft, hop=hop, noise=torch.from_numpy(noise))
-    near(got, want)
 
 
 @pytest.mark.parametrize("name", ["breathy", "vowel_pulse", "steady_mid"])
@@ -209,6 +157,11 @@ def jax_split_noise(x_len: int, pb: int, fft: int):
 @pytest.mark.parametrize("name,f0_scale", [("vowel_pulse", 1.0), ("breathy", 1.0), ("noise", 0.0)])
 def test_split_twin_with_the_jax_noise(name, f0_scale):
     wave, f0_true = bank(name)
+    # the samples the JAX twin analyzes: its int16 transport (peak / 32000)
+    # applied beforehand, so that both twins see the same input (on a clean
+    # tone a step of the input moves D4C's group delay by up to 1e-2)
+    scale = np.abs(wave).max() / 32000.0 + 1e-30
+    wave = np.clip(np.round(wave / scale), -32767, 32767).astype(np.float32) * np.float32(scale)
     f0 = frame_f0(wave, f0_true * f0_scale)
     kw = dict(fs=FS, fft_size=FFT, hop=HOP)
     want = jwd.world_harmonic_aperiodic_device(wave, f0, **kw)
@@ -248,6 +201,9 @@ def test_backend_resolution(monkeypatch):
     monkeypatch.delenv("DS_WORLD_BACKEND", raising=False)
     assert world.resolve_world_backend("cpu") == "host"
     assert world.resolve_world_backend(torch.device("cuda")) == "device"
+    # a spawned binarizer worker resolves from its device too
+    with multiprocessing.get_context("spawn").Pool(1) as pool:
+        assert pool.starmap(world.resolve_world_backend, [("cuda",), ("cpu",)]) == ["device", "host"]
     assert world.resolve_world_backend("cpu", "device") == "device"
     monkeypatch.setenv("DS_WORLD_BACKEND", "device")
     assert world.resolve_world_backend("cpu") == "device"

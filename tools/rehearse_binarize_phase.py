@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Rehearse chip_smoke.py's binarization phases on the CPU.
 
-    python3 tools/rehearse_binarize_phase.py binarize_ext [--items 4] [--out DIR]
+    python3 tools/rehearse_binarize_phase.py binarize_ext [--items 6] [--out DIR]
     python3 tools/rehearse_binarize_phase.py binarize [--items 40]
 
 Runs ``binarize_phase`` or ``binarize_ext_phase`` as the script does, with
@@ -31,8 +31,9 @@ def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("phase", choices=("binarize", "binarize_ext"))
     parser.add_argument("--items", type=int, default=None,
-                        help="phrases of the seeded corpus (default: 40 for binarize, "
-                             "chip_smoke.EXT_ITEMS for binarize_ext)")
+                        help="phrases of the seeded corpus (default: 40 for binarize, 6 for "
+                             "binarize_ext's rmvpe + vr runs, whose harvest + world run takes "
+                             "the first chip_smoke.EXT_WORLD_ITEMS)")
     parser.add_argument("--out", type=Path, default=None,
                         help="folder for the phase's files and report (default: a new temporary one)")
     args = parser.parse_args(argv)
@@ -74,7 +75,7 @@ def main(argv=None) -> None:
         chip_smoke.BIN_SECONDS = (2.0, 4.0)
         phase = chip_smoke.binarize_phase
     else:
-        chip_smoke.EXT_ITEMS = args.items or chip_smoke.EXT_ITEMS
+        chip_smoke.EXT_ITEMS = args.items or 6
         phase = chip_smoke.binarize_ext_phase
     t0 = time.perf_counter()
     report, counts = phase("the CPU (a rehearsal, not a device number)", lambda: None,
