@@ -88,7 +88,21 @@ Phases, each printed as it ends; any failure exits non-zero:
    per step: K3 4, K3's backward 4, K1 and K2 0); one step under the profiler
    (idle share, top device operations); a validation batch (losses and
    metrics); a save and resume round trip (``[train_variance]`` lines);
-9. binarize: a synthetic corpus of 120 sung phrases of 3-12 s (about 15
+9. train_dist: training over ranks and serving over replicas on the one
+   card. (a) two gloo ranks, each its own process on the card, train a
+   narrow float32 variance model with the melody encoder through
+   ``BaseTask.start`` (4 + 4 rows, accumulation 2, 3 updates) against one
+   process on the 8 stitched rows: the ranks' parameters equal, the one
+   process's within 1e-4 of its largest update but for at most a 1e-4 share
+   of the elements (none beyond 2 lr), rank 0 alone writing the checkpoint;
+   (b) one NCCL rank with DDP around [train]'s task, batch and timed steps:
+   steps/s with and without DDP in turns, peak memory, launches per step as
+   [train]'s; (c) ``AcousticServer`` and ``VarianceServer`` with
+   ``devices=[cuda:0, cuda:0]`` against the one-device servers on
+   [serve]'s and [variance]'s segments, each chunk whole on a replica in
+   turn (enqueue seconds a chunk, the replica it ran on, true frames/s;
+   float32 and bf16 outputs within 1e-3) (``[train_dist]`` lines);
+10. binarize: a synthetic corpus of 120 sung phrases of 3-12 s (about 15
    minutes at 44.1 kHz; 16-bit wavs, transcriptions.csv, .ds labels) made
    from a seed and binarized through ``cli.binarize.binarize`` on the card:
    configs/acoustic.yaml with every embed on, without augmentation, with
@@ -105,7 +119,7 @@ Phases, each printed as it ends; any failure exits non-zero:
    tolerances; the card's stores (HDF5 where h5py imports, else kept in
    memory) read back through the datasets into one step of a narrow
    acoustic and variance task with finite losses (``[binarize]`` lines);
-10. binarize_ext: the extractors that voicebank makers configure, with
+11. binarize_ext: the extractors that voicebank makers configure, with
    seeded checkpoints at the published widths (RMVPE ``E2E0(4, 1, (2, 2))``;
    CascadedNet nout 32, nout_lstm 128, stereo, n_fft 2048, hop 512): over
    that whole corpus, acoustic with ``pe: rmvpe`` and ``hnsep: vr`` twice
@@ -122,7 +136,7 @@ Phases, each printed as it ends; any failure exits non-zero:
    bounds on its fixtures, three items of each run on the card against the
    CPU (``binarize_ext_card_vs_cpu``), one narrow training step from each
    store (``[binarize_ext]`` lines);
-11. times: K1 at the long phrase's shape [1, 4096, 2048], K3 at the long
+12. times: K1 at the long phrase's shape [1, 4096, 2048], K3 at the long
    shape [16, 2, 512, 128], K2's two GEMMs alone and K3's backward at
    [48, 2, 128, 128] and [16, 2, 512, 128] with each of its kernels alone
    and its bound on the CUDA cores and in 3xTF32, then K3 and its backward
@@ -221,12 +235,53 @@ def seeded_weights(module, seed: int) -> None:
 # our kernels by the names nvcc gives them, for the profile's breakdown
 KERNEL_GROUPS = (("K2 GEMMs + LN stats", ("gemm_bf16_kernel", "gemm_f32_kernel", "ln_stats_kernel")),
                  ("K1 depthwise", ("dwconv_prelu_",)),
-                 ("K3 attention", ("flash_fwd_kernel", "flash_bwd_")))
+                 ("K3 attention", ("flash_fwd_kernel", "flash_bwd_")),
+                 ("NCCL collectives", ("nccl",)))
+
+
+def union_us(intervals) -> float:
+    """The length of the union of (start, end) intervals."""
+    total, reach = 0.0, float("-inf")
+    for start, end in sorted(intervals):
+        if end > reach:
+            total += end - max(start, reach)
+            reach = end
+    return total
+
+
+def device_activities(events, cuda) -> list:
+    """The kernels, copies and sets among a profile's events, as (name, start
+    us, end us). The profiler also draws ranges on the device's timeline over
+    the kernels they launched (DDP's forward, the optimizer's step, any
+    ``record_function``): such a range has the name of a range on the host,
+    or holds another event of its stream, which a kernel never does. They are
+    left out, else their time counts twice and fills the device's gaps."""
+    host_names = {e.name for e in events if e.device_type != cuda}
+    streams = {}
+    for e in events:
+        if e.device_type == cuda and not getattr(e, "is_user_annotation", False) \
+                and e.name not in host_names:
+            streams.setdefault((e.device_index, getattr(e, "device_resource_id", 0)), []).append(
+                (e.time_range.start, e.time_range.end, e.name))
+    out = []
+    for evs in streams.values():
+        evs.sort(key=lambda s: (s[0], -s[1]))
+        for i, (start, end, name) in enumerate(evs):
+            j = i + 1
+            while j < len(evs) and evs[j][0] < end and evs[j][1] > end:
+                j += 1
+            if j < len(evs) and evs[j][0] < end:  # it holds evs[j]: a range
+                continue
+            out.append((name, start, end))
+    return out
 
 
 def profile_request(fn, what: str = "one request", table: str = "chip_smoke_profile.txt") -> dict:
     """Run fn under torch.profiler; device time by kernel group and the share
-    of the request's wall time in which the device ran no kernel."""
+    of the request's wall time in which the device ran no kernel (the union of
+    the kernels' intervals over every stream, so that kernels which overlap,
+    such as NCCL's beside the backward, count once). ``nccl_exposed_ms`` is
+    the time in which NCCL's kernels alone ran."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -236,34 +291,35 @@ def profile_request(fn, what: str = "one request", table: str = "chip_smoke_prof
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    acts = device_activities(prof.events(), torch.autograd.DeviceType.CUDA)
     kernels = {}
-    n_launches = 0
-    for ev in prof.key_averages():
-        us = getattr(ev, "self_device_time_total", None)
-        if us is None:
-            us = getattr(ev, "self_cuda_time_total", 0.0)
-        if us and getattr(ev, "device_type", None) == torch.autograd.DeviceType.CUDA:
-            kernels[ev.key] = kernels.get(ev.key, 0.0) + us
-            n_launches += ev.count
-    busy = sum(kernels.values())
-    if not busy:
+    for name, start, end in acts:
+        kernels[name] = kernels.get(name, 0.0) + (end - start)
+    total = sum(kernels.values())
+    if not total:
         log("[profile] the profiler saw no device time: not measured")
         return {"measured": False}
+    busy = union_us((s, e) for _, s, e in acts)
+    nccl_exposed = busy - union_us((s, e) for n, s, e in acts if "nccl" not in n.lower())
     groups = {name: sum(us for k, us in kernels.items() if any(p in k for p in pats))
               for name, pats in KERNEL_GROUPS}
-    groups["stock PyTorch kernels"] = busy - sum(groups.values())
+    groups["stock PyTorch kernels"] = total - sum(groups.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
     log(f"[profile] {what} under the profiler: wall {wall_us / 1e3:.1f} ms, device busy "
-        f"{busy / 1e3:.1f} ms, idle share {1 - busy / wall_us:.3f}, {n_launches} kernel launches")
+        f"{busy / 1e3:.1f} ms, idle share {1 - busy / wall_us:.3f}, {len(acts)} kernel launches")
     for name, us in groups.items():
-        log(f"[profile]   {name}: {us / 1e3:.1f} ms ({us / busy:.3f} of device time)")
+        log(f"[profile]   {name}: {us / 1e3:.1f} ms ({us / total:.3f} of kernel time)")
+    if groups["NCCL collectives"]:
+        log(f"[profile]   NCCL alone on the device (not under other kernels): "
+            f"{nccl_exposed / 1e3:.2f} ms")
     OUT_DIR.mkdir(exist_ok=True)
     averages = prof.key_averages()
     sort_key = ("self_device_time_total" if hasattr(averages[0], "self_device_time_total")
                 else "self_cuda_time_total")
     (OUT_DIR / table).write_text(averages.table(sort_by=sort_key, row_limit=40))
     return {"measured": True, "wall_ms": wall_us / 1e3, "busy_ms": busy / 1e3,
-            "idle_share": 1 - busy / wall_us, "kernel_launches": n_launches,
+            "idle_share": 1 - busy / wall_us, "kernel_launches": len(acts),
+            "kernel_ms": total / 1e3, "nccl_exposed_ms": nccl_exposed / 1e3,
             "groups_ms": {k: v / 1e3 for k, v in groups.items()},
             "top_kernels_ms": {k: v / 1e3 for k, v in top}}
 
@@ -914,7 +970,7 @@ def card_vs_cpu_step(tag, tasks, batch, draws, what=""):
 
 
 def timed_train_steps(tag, task, batch, per_step, reset_counts, read_counts):
-    """The loop's body (its seeding, draws from the global generators):
+    """The loop's body (its seeding and draws, ``BaseTask.micro_draws``):
     ``TRAIN_WARMUP`` steps, then ``TRAIN_STEPS`` timed ones with the launch
     counters reset before them and checked against ``per_step`` after.
     Returns the seconds, the counts, the peak memory in GiB, the last step's
@@ -922,14 +978,12 @@ def timed_train_steps(tag, task, batch, per_step, reset_counts, read_counts):
     import torch
 
     from diffsinger_tpu_torch.ops import flash_attention
-    from diffsinger_tpu_torch.training.base_task import micro_seed
 
-    seed, micro = task.hp.get("seed") or 0, task.global_step
+    micro, rows = task.global_step, batch["tokens"].shape[0]
 
     def step():
         nonlocal micro
-        torch.manual_seed(micro_seed(seed, micro))
-        metrics = task.train_step(batch)
+        metrics = task.train_step(batch, **task.micro_draws(batch, micro, rows, 0))
         metrics["grad_norm"] = task.apply_update()
         micro += 1
         return metrics
@@ -1003,6 +1057,32 @@ def train_items(rng, n, t_txt, t_mel, n_mels, lo, hi):
     return items
 
 
+def acoustic_train_hp(work_dir, **over):
+    """configs/acoustic.yaml at full width, writing to ``work_dir``."""
+    from diffsinger_tpu_torch.config import load_config
+
+    hp = load_config(ROOT / "configs" / "acoustic.yaml")
+    hp.update(work_dir=str(work_dir), val_with_vocoder=False, num_valid_plots=1,
+              dictionary=str(ROOT / "dictionaries" / "opencpop-extension.txt"), **over)
+    return hp
+
+
+def memory_acoustic_dataset(items, hp):
+    """Acoustic items held in memory, behind ``AcousticDataset``'s collater."""
+    from diffsinger_tpu_torch.data.dataset import AcousticDataset
+
+    class MemoryDataset(AcousticDataset):
+        def __init__(self):
+            self.hp, self.items = hp, items
+            self.sizes = [len(it["mel"]) for it in items]
+            self.metadata = {"mel": self.sizes, "mel2ph": self.sizes,
+                             "tokens": [len(it["tokens"]) for it in items]}
+            self.frame_bucket, self.token_bucket = 128, 16
+            self.required_variances = []
+
+    return MemoryDataset()
+
+
 def train_phase(card, reset_counts, read_counts, check):
     """[train]: the acoustic model's training on the card through
     ``AcousticTask`` (the task ``cli.train`` builds): configs/acoustic.yaml at
@@ -1018,30 +1098,12 @@ def train_phase(card, reset_counts, read_counts, check):
     import numpy as np
     import torch
 
-    from diffsinger_tpu_torch.config import load_config
-    from diffsinger_tpu_torch.data.dataset import AcousticDataset
     from diffsinger_tpu_torch.ops import flash_attention
     from diffsinger_tpu_torch.training.acoustic_task import AcousticTask
-
-    class MemoryDataset(AcousticDataset):
-        """Acoustic items held in memory, behind the dataset's collater."""
-
-        def __init__(self, items, hp):
-            self.hp, self.items = hp, items
-            self.sizes = [len(it["mel"]) for it in items]
-            self.metadata = {"mel": self.sizes}
-            self.frame_bucket, self.token_bucket = 128, 16
-            self.required_variances = []
 
     dev = torch.device("cuda")
     report = {}
     tmp = Path(tempfile.mkdtemp(prefix="train_", dir=OUT_DIR))
-
-    def task_hp(work_dir, **over):
-        hp = load_config(ROOT / "configs" / "acoustic.yaml")
-        hp.update(work_dir=str(work_dir), val_with_vocoder=False, num_valid_plots=1,
-                  dictionary=str(ROOT / "dictionaries" / "opencpop-extension.txt"), **over)
-        return hp
 
     # K3's backward against its plain version, at the training batch's shape
     # and the long shape, with padded rows: max|err| <= 1e-4 of max|reference|
@@ -1073,7 +1135,7 @@ def train_phase(card, reset_counts, read_counts, check):
                                      dropout_rate=0.0, strong_cond=True))
     tasks = []
     for device in ("cuda", "cpu"):
-        hp_n = task_hp(tmp / f"narrow_{device}", **narrow)
+        hp_n = acoustic_train_hp(tmp / f"narrow_{device}", **narrow)
         hp_n["shallow_diffusion_args"] = dict(hp_n["shallow_diffusion_args"], aux_decoder_args=dict(
             num_channels=64, num_layers=2, kernel_size=7, dropout_rate=0.0))
         torch.manual_seed(30)
@@ -1082,7 +1144,7 @@ def train_phase(card, reset_counts, read_counts, check):
     seeded_weights(tasks[0].module, 31)
     tasks[1].module.load_state_dict(tasks[0].module.state_dict())
     rng = np.random.default_rng(32)
-    small_ds = MemoryDataset(train_items(rng, 4, 32, 256, 128, 150, 256), tasks[0].hp)
+    small_ds = memory_acoustic_dataset(train_items(rng, 4, 32, 256, 128, 150, 256), tasks[0].hp)
     small = {k: v for k, v in small_ds.collater([small_ds[i] for i in range(4)]).items()
              if isinstance(v, np.ndarray) and k != "indices"}
     t_small = torch.from_numpy(rng.uniform(0.4, 1, 4).astype(np.float32))
@@ -1094,7 +1156,7 @@ def train_phase(card, reset_counts, read_counts, check):
     del tasks
 
     # the full-width task, bf16 autocast over float32 parameters and AdamW
-    hp = task_hp(tmp / "exp")
+    hp = acoustic_train_hp(tmp / "exp")
     torch.manual_seed(33)
     task = quiet(AcousticTask, hp)
     task.configure_optimizer()
@@ -1103,7 +1165,7 @@ def train_phase(card, reset_counts, read_counts, check):
         fail(f"pl_trainer_precision {hp['pl_trainer_precision']} did not give bf16 autocast")
     n_params = sum(p.numel() for p in task.params)
     rng = np.random.default_rng(35)
-    ds = MemoryDataset(train_items(rng, TRAIN_B, TRAIN_T_TXT, TRAIN_T_MEL,
+    ds = memory_acoustic_dataset(train_items(rng, TRAIN_B, TRAIN_T_TXT, TRAIN_T_MEL,
                                    hp["audio_num_mel_bins"], *TRAIN_LENGTHS), hp)
     collated = ds.collater([ds[i] for i in range(TRAIN_B)])
     batch = task.to_device({k: v for k, v in collated.items() if isinstance(v, np.ndarray)
@@ -1146,7 +1208,7 @@ def train_phase(card, reset_counts, read_counts, check):
                                         table="chip_smoke_train_profile.txt")
 
     # one validation batch (float32, the kernels, forward_infer and its figures)
-    val = quiet(task.run_validation, MemoryDataset(ds.items[:1], hp))
+    val = quiet(task.run_validation, memory_acoustic_dataset(ds.items[:1], hp))
     log(f"[train] validation batch: {val}")
     if not val or not all(math.isfinite(v) for v in val.values()):
         fail(f"[train] validation losses {val}")
@@ -1223,11 +1285,27 @@ def memory_variance_dataset(items, hp):
             self.hp, self.items = hp, items
             self.sizes = [len(it["mel2ph"]) for it in items]
             self.metadata = {k: [len(it[k]) for it in items]
-                             for k in ("tokens", "pitch", *VARIANCES)}
+                             for k in ("tokens", "mel2ph", "note_midi", "pitch", *VARIANCES)}
             self.frame_bucket, self.token_bucket = 128, 16
             self.var_list = [v for v in VARIANCES if hp.get(f"predict_{v}", False)]
 
     return MemoryDataset()
+
+
+def narrow_variance_overrides(base):
+    """A narrow float32 variance model with the melody encoder and glides,
+    dropout off: encoder 2 x 64 (two heads of 32), melody encoder 2 x 128
+    (two heads of 64, as at full width)."""
+    return dict(hidden_size=64, enc_layers=2, dropout=0.0, pl_trainer_precision="32-true",
+                use_melody_encoder=True, use_glide_embed=True,
+                melody_encoder_args=dict(hidden_size=128, enc_layers=2),
+                dur_prediction_args=dict(base["dur_prediction_args"], hidden_size=64,
+                                         num_layers=2, dropout=0.0),
+                pitch_prediction_args=dict(base["pitch_prediction_args"], backbone_args=dict(
+                    num_layers=4, num_channels=64, dilation_cycle_length=2)),
+                variances_prediction_args=dict(
+                    base["variances_prediction_args"],
+                    backbone_args=dict(num_layers=2, num_channels=64, dilation_cycle_length=2)))
 
 
 def narrow_variance_step(work_dir):
@@ -1243,17 +1321,7 @@ def narrow_variance_step(work_dir):
 
     from diffsinger_tpu_torch.training.variance_task import VarianceTask, random_retake_masks
 
-    base = variance_hp(work_dir)
-    narrow = dict(hidden_size=64, enc_layers=2, dropout=0.0, pl_trainer_precision="32-true",
-                  use_melody_encoder=True, use_glide_embed=True,
-                  melody_encoder_args=dict(hidden_size=128, enc_layers=2),
-                  dur_prediction_args=dict(base["dur_prediction_args"], hidden_size=64,
-                                           num_layers=2, dropout=0.0),
-                  pitch_prediction_args=dict(base["pitch_prediction_args"], backbone_args=dict(
-                      num_layers=4, num_channels=64, dilation_cycle_length=2)),
-                  variances_prediction_args=dict(
-                      base["variances_prediction_args"],
-                      backbone_args=dict(num_layers=2, num_channels=64, dilation_cycle_length=2)))
+    narrow = narrow_variance_overrides(variance_hp(work_dir))
     tasks = []
     for device in ("cuda", "cpu"):
         torch.manual_seed(42)
@@ -1458,6 +1526,338 @@ def train_variance_phase(card, reset_counts, read_counts, check):
     shutil.rmtree(tmp, ignore_errors=True)
     torch.cuda.empty_cache()
     return report, counts, cases
+
+
+DIST_RANK_ROWS, DIST_STEPS = 4, 3  # (a): rows of a rank's batch, optimizer steps
+DIST_TIMEOUT = 300  # seconds for (a)'s two ranks to start, train and end
+DIST_SERVE_TOL = 1e-3  # wavs and curves, one device against two replicas
+
+
+def dist_variance_hp(work_dir):
+    """(a)'s config: the narrow float32 variance model with the melody
+    encoder, accumulation 2, batches of 4 rows, a seed."""
+    return variance_hp(work_dir, **narrow_variance_overrides(variance_hp(work_dir)),
+                       accumulate_grad_batches=2, max_batch_size=DIST_RANK_ROWS,
+                       max_batch_frames=DIST_RANK_ROWS * 256, max_val_batch_size=2,
+                       val_check_interval=100, log_interval=1, seed=46)
+
+
+def dist_variance_task(hp, items, device):
+    """A ``VarianceTask`` over ``items`` held in memory (its first two validate)."""
+    from diffsinger_tpu_torch.training.variance_task import VarianceTask
+
+    class Task(VarianceTask):
+        def build_datasets(self):
+            return (memory_variance_dataset(items, self.hp),
+                    memory_variance_dataset(items[:2], self.hp))
+
+    return Task(hp, device=device)
+
+
+def stitched_steps(task, train_ds, world: int, steps: int) -> None:
+    """``steps`` updates of one process on the stitched rows of ``world``
+    ranks: at each batch position the batches that every rank forms
+    (``BaseTask.epoch_batches``), joined in rank order, with the loop's draws
+    and accumulation."""
+    import numpy as np
+
+    micro, epoch = task.global_step * task.accum, task.epoch
+    while task.global_step < steps:
+        parts = []
+        for rank in range(world):
+            task.rank, task.world_size = rank, world
+            parts.append(list(task.epoch_batches(train_ds, epoch)))
+        task.rank, task.world_size = 0, 1
+        for local in zip(*parts):
+            if task.global_step >= steps:
+                break
+            batch = task.to_device({k: np.concatenate([b[k] for b, _, _ in local])
+                                    for k in local[0][0]})
+            task.train_step(batch, **task.micro_draws(batch, micro, local[0][1], 0))
+            micro += 1
+            if micro % task.accum == 0:
+                task.apply_update()
+        epoch += 1
+
+
+def train_dist_rank(rank: int, world: int, init_method: str, blob_path: str, out: str) -> None:
+    """One rank of [train_dist] (a), started with ``spawn``: joins a gloo
+    group through the launch contract, trains ``DIST_STEPS`` updates with
+    ``BaseTask.start`` from the blob's weights, and saves its parameters,
+    the checkpoints it wrote and its K3 launches."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    os.environ.update(DS_COORDINATOR_ADDRESS=init_method, DS_NUM_PROCESSES=str(world),
+                      DS_PROCESS_ID=str(rank), DS_LOCAL_RANK="0",
+                      DS_DIST_TIMEOUT=str(DIST_TIMEOUT))
+    from diffsinger_tpu_torch.ops import flash_attention
+    from diffsinger_tpu_torch.parallel import dist
+    from diffsinger_tpu_torch.utils import ckpt as ckpt_utils
+
+    blob = torch.load(blob_path, weights_only=False)
+    dev = dist.maybe_initialize_distributed(blob["device"], backend="gloo")
+    saves, save = [], ckpt_utils.save_checkpoint
+
+    def counted_save(path, *args, **kwargs):
+        saves.append(Path(path).name)
+        save(path, *args, **kwargs)
+
+    ckpt_utils.save_checkpoint = counted_save
+    task = quiet(dist_variance_task, blob["hp"], blob["items"], dev)
+    task.module.load_state_dict(blob["state"])
+    flash_attention.launches = flash_attention.bwd_launches = 0
+    quiet(task.start, max_steps=DIST_STEPS)
+    torch.save({"state": {k: v.detach().cpu() for k, v in task.module.state_dict().items()},
+                "saves": saves, "k3": (flash_attention.launches, flash_attention.bwd_launches),
+                "backend": torch.distributed.get_backend(), "device": str(dev)},
+               Path(out) / f"rank{rank}.pt")
+    dist.destroy()
+
+
+def two_rank_variance_check(work_dir, device: str = "cuda") -> dict:
+    """[train_dist] (a): two gloo ranks on one device train the narrow float32
+    variance model with the melody encoder through ``BaseTask.start``
+    (batches of 4 rows each, accumulation 2, so ``no_sync`` runs, 3 updates)
+    from the same seeded weights; then one process on the 8 stitched rows of
+    every step (``stitched_steps``). Returns the largest difference between
+    the ranks' parameters, between rank 0's and the one process's, the
+    largest update of the one process, the checkpoints each rank wrote and
+    the files in the work folder, each rank's K3 launches, and the seconds."""
+    import numpy as np
+    import torch
+
+    from diffsinger_tpu_torch.parallel import dist
+
+    work = Path(work_dir)
+    work.mkdir(parents=True, exist_ok=True)
+    hp = dist_variance_hp(work / "ranks")
+    items = variance_train_items(np.random.default_rng(47), 2 * DIST_RANK_ROWS, 150, 256, 30)
+    one = quiet(dist_variance_task, dict(hp, work_dir=str(work / "one")), items, device)
+    seeded_weights(one.module, 48)
+    init = {k: v.detach().cpu().clone() for k, v in one.module.state_dict().items()}
+    torch.save({"hp": hp, "items": items, "state": init, "device": device}, work / "blob.pt")
+    t0 = time.perf_counter()
+    dist.spawn(train_dist_rank, 2, (2, f"file://{work / 'rendezvous'}", str(work / "blob.pt"),
+                                    str(work)), timeout=DIST_TIMEOUT)
+    ranks_s = time.perf_counter() - t0
+    r0, r1 = (torch.load(work / f"rank{r}.pt", weights_only=False) for r in (0, 1))
+    one.configure_optimizer()
+    train_ds, _ = one.build_datasets()
+    t0 = time.perf_counter()
+    stitched_steps(one, train_ds, 2, DIST_STEPS)
+    one_s = time.perf_counter() - t0
+    want = {k: v.detach().cpu() for k, v in one.module.state_dict().items()}
+
+    def largest(a, b):
+        return max((a[k].float() - b[k].float()).abs().max().item() for k in want)
+
+    update = largest(want, init)
+    over = sum(int(((r0["state"][k].float() - want[k].float()).abs() > 1e-4 * update).sum())
+               for k in want)
+    return {"rank_err": largest(r0["state"], r1["state"]), "err": largest(r0["state"], want),
+            "largest_update": update, "share_over": over / sum(v.numel() for v in want.values()),
+            "saves": [r0["saves"], r1["saves"]],
+            "files": sorted(p.name for p in (work / "ranks").iterdir()),
+            "metrics_lines": len((work / "ranks" / "lightning_logs" / "tb" / "metrics.jsonl")
+                                 .read_text().splitlines()),
+            "k3": [r0["k3"], r1["k3"]], "backend": r0["backend"], "devices": [r0["device"],
+                                                                             r1["device"]],
+            "ranks_s": ranks_s, "one_process_s": one_s, "lr": hp["optimizer_args"]["lr"]}
+
+
+def train_dist_phase(hp, card, reset_counts, read_counts):
+    """[train_dist]: training over ranks and serving over replicas, on one
+    card. (a) ``two_rank_variance_check``: the ranks' parameters equal each
+    other exactly, and the one process's within 1e-4 of its largest update
+    but for at most a 1e-4 share of the elements (none beyond 2 lr); rank 0
+    alone wrote the checkpoint. (b) one NCCL rank, DDP around
+    [train]'s task, batch and steps at full width: steps/s with and without
+    DDP in turns (plain, DDP, DDP, plain), peak memory, and K2, K3 and K3's
+    backward launches per step equal to [train]'s. (c) ``AcousticServer``
+    with ``devices=[cuda:0, cuda:0]`` against the one-device server on
+    [serve]'s scores: bf16 as served (enqueue seconds a chunk, true frames/s,
+    in turns), float32 and bf16 wavs within ``DIST_SERVE_TOL`` (each chunk
+    runs whole on a replica: they should be equal; bf16's own error against
+    float32 on the same request is printed beside them); ``VarianceServer``
+    likewise over [variance]'s segments.
+    Returns the report and the launches of (b)'s DDP steps."""
+    import numpy as np
+    import torch
+
+    from diffsinger_tpu_torch.cli import infer as cli
+    from diffsinger_tpu_torch.config import load_config
+    from diffsinger_tpu_torch.inference.serving import AcousticServer, VarianceServer
+    from diffsinger_tpu_torch.parallel import dist
+    from diffsinger_tpu_torch.training.acoustic_task import AcousticTask
+
+    report = {}
+    t_phase = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="train_dist_"))  # weights: not under OUT_DIR
+    dev = torch.device("cuda", 0)
+
+    # ---- (a) two gloo ranks on the one card against one process
+    a = two_rank_variance_check(tmp / "a")
+    report["two_ranks"] = a
+    bound = 1e-4 * a["largest_update"]
+    log(f"[train_dist] (a) two {a['backend']} ranks on {a['devices']}, narrow float32 variance "
+        f"model with the melody encoder, rows {DIST_RANK_ROWS} + {DIST_RANK_ROWS}, accumulation "
+        f"2, {DIST_STEPS} updates: ranks' parameters max|diff| {a['rank_err']:.3e} (must be 0); "
+        f"against one process on the {2 * DIST_RANK_ROWS} stitched rows max|diff| "
+        f"{a['err']:.3e}, share of elements beyond 1e-4 of the largest update "
+        f"{a['largest_update']:.3e} ({bound:.3e}) {a['share_over']:.2e} (tolerance: that share "
+        f"<= 1e-4 and max|diff| <= 2 lr = {2 * a['lr']:.1e}: AdamW moves an element whose "
+        f"gradient sums to near 0 by up to lr whatever its sign, and the ranks sum the rows in "
+        f"another order); checkpoints written by rank 0 {a['saves'][0]}, by rank 1 "
+        f"{a['saves'][1]}; K3 launches (forward, backward) by rank {a['k3']}; the ranks took "
+        f"{a['ranks_s']:.1f} s with their start, the one process {a['one_process_s']:.1f} s; "
+        f"on {card}")
+    if not (a["rank_err"] == 0.0 and a["share_over"] <= 1e-4 and a["err"] <= 2 * a["lr"]):
+        fail("[train_dist] two ranks do not update as one process on the stitched rows")
+    # rank 0 alone runs the validation's forward_infer: more K3 forwards
+    (fwd0, bwd0), (fwd1, bwd1) = a["k3"]
+    if a["saves"] != [[f"model_ckpt_steps_{DIST_STEPS}.ckpt"], []] or not (
+            bwd0 == bwd1 > 0 and fwd0 > fwd1 > 0):
+        fail(f"[train_dist] rank 0 alone must write, both launch K3: {a['saves']} {a['k3']}")
+
+    # ---- (b) one NCCL rank: DDP around [train]'s step
+    os.environ.update(DS_COORDINATOR_ADDRESS=f"file://{tmp / 'rendezvous_b'}",
+                      DS_NUM_PROCESSES="1", DS_PROCESS_ID="0", DS_LOCAL_RANK="0")
+    try:
+        dist.maybe_initialize_distributed("cuda")
+        backend = torch.distributed.get_backend()
+        thp = acoustic_train_hp(tmp / "b")
+        task = quiet(AcousticTask, thp, device=dev)
+        task.configure_optimizer()
+        seeded_weights(task.module, 34)
+        ds = memory_acoustic_dataset(train_items(np.random.default_rng(35), TRAIN_B,
+                                                 TRAIN_T_TXT, TRAIN_T_MEL,
+                                                 thp["audio_num_mel_bins"], *TRAIN_LENGTHS), thp)
+        collated = ds.collater([ds[i] for i in range(TRAIN_B)])
+        batch = task.to_device({k: v for k, v in collated.items()
+                                if isinstance(v, np.ndarray) and k != "indices"})
+        true_frames = int((batch["mel2ph"] > 0).sum().item())
+        task.wrap_ddp()
+        ddp, windows = task.ddp, []
+        for use in (False, True, True, False):
+            task.ddp = ddp if use else None
+            wall, counts, peak, values, _ = timed_train_steps(
+                "train_dist", task, batch, TRAIN_PER_STEP, reset_counts, read_counts)
+            windows.append({"ddp": use, "steps_per_s": TRAIN_STEPS / wall, "peak_mem_gib": peak,
+                            "launches_per_step": {k: n // TRAIN_STEPS for k, n in counts.items()},
+                            "loss": values["total_loss"]})
+            if use:  # the kernels line reports the launches of a DDP window
+                ddp_counts = counts
+    finally:
+        dist.destroy()
+        for k in ("DS_COORDINATOR_ADDRESS", "DS_NUM_PROCESSES", "DS_PROCESS_ID", "DS_LOCAL_RANK"):
+            os.environ.pop(k, None)
+    plain = [w["steps_per_s"] for w in windows if not w["ddp"]]
+    with_ddp = [w["steps_per_s"] for w in windows if w["ddp"]]
+    report["ddp_one_rank"] = {"backend": backend, "windows": windows,
+                              "plain_steps_per_s": plain, "ddp_steps_per_s": with_ddp,
+                              "ddp_over_plain": sum(with_ddp) / sum(plain),
+                              "true_frames": true_frames}
+    log(f"[train_dist] (b) one {backend} rank, DDP around [train]'s step (B={TRAIN_B} "
+        f"T_mel={TRAIN_T_MEL}, {sum(p.numel() for p in task.params)} parameters, bf16 autocast): "
+        f"steps/s in turns plain {plain[0]:.3f}, DDP {with_ddp[0]:.3f}, DDP {with_ddp[1]:.3f}, "
+        f"plain {plain[1]:.3f} (DDP / plain {sum(with_ddp) / sum(plain):.4f}); peak memory "
+        + ", ".join(f"{'DDP' if w['ddp'] else 'plain'} {w['peak_mem_gib']:.2f} GiB"
+                    for w in windows)
+        + f"; launches per step {windows[1]['launches_per_step']} (as [train]'s) on {card}")
+    del task, ddp, batch
+    torch.cuda.empty_cache()
+
+    # ---- (c) servers over two replicas on the one card
+    root = tmp / "serve"
+    root.mkdir()
+    exp, _, _ = write_experiment(root, hp)
+    shp = cli.migrate_legacy_hparams(load_config(exp_name=exp, infer=True,
+                                                 ckpt_root=root / "checkpoints"))
+    segments = [seg for name in SERVE_SCORES for seg in load_score(name)]
+    one_server = loaded("server", AcousticServer, shp, max_batch_size=SERVE_BATCH)
+    two_server = loaded("server", AcousticServer, shp, max_batch_size=SERVE_BATCH,
+                        devices=[dev, dev])
+    frames = sum(quiet(one_server.preprocess_input, seg)["mel2ph"].shape[1] for seg in segments)
+    servers = {"one": one_server, "two": two_server}
+    wavs, seconds, stats = {}, {"one": [], "two": []}, {}
+    for name in ("one", "two"):
+        quiet(servers[name].synthesize_batch, segments, seed=1)  # warm-up
+    for name in ("one", "two", "two", "one"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        wavs[name] = quiet(servers[name].synthesize_batch, segments, seed=1)
+        torch.cuda.synchronize()
+        seconds[name].append(time.perf_counter() - t0)
+        stats[name] = servers[name].last_stats
+    chunk_devices = two_server.last_chunk_devices
+    replica_bf16 = max(float(np.abs(x - y).max()) for x, y in zip(wavs["one"], wavs["two"]))
+    f32 = dict(shp, infer_precision="float32")
+    one32 = loaded("server", AcousticServer, f32, max_batch_size=SERVE_BATCH)
+    two32 = loaded("server", AcousticServer, f32, max_batch_size=SERVE_BATCH, devices=[dev, dev])
+    w1, w2 = (quiet(s.synthesize_batch, segments, seed=1) for s in (one32, two32))
+    replica_f32 = max(float(np.abs(x - y).max()) for x, y in zip(w1, w2))
+    bf16_cost = max(float(np.abs(x - y).max()) for x, y in zip(wavs["one"], w1))
+    del one_server, two_server, servers, one32, two32
+    torch.cuda.empty_cache()
+    enqueue = {name: [st["dispatch_s"] for st in stats[name]] for name in stats}
+    report["acoustic_server"] = {
+        "segments": len(segments), "true_frames": frames, "seconds": seconds,
+        "frames_per_s": {k: frames * len(v) / sum(v) for k, v in seconds.items()},
+        "enqueue_s_per_chunk": enqueue, "chunk_devices": chunk_devices,
+        "replica_bf16_max_diff": replica_bf16, "replica_f32_max_diff": replica_f32,
+        "bf16_vs_f32_max_diff": bf16_cost}
+    r = report["acoustic_server"]
+    log(f"[train_dist] (c) AcousticServer over [cuda:0, cuda:0] against one device, "
+        f"{len(segments)} segments ({frames} frames) of {' + '.join(SERVE_SCORES)}: true frames/s "
+        f"one {r['frames_per_s']['one']:.1f}, two replicas {r['frames_per_s']['two']:.1f} "
+        f"(seconds in turns one, two, two, one: {seconds['one'][0]:.3f}, "
+        f"{seconds['two'][0]:.3f}, {seconds['two'][1]:.3f}, {seconds['one'][1]:.3f}); "
+        f"enqueue a chunk (stacking and the enqueue on its replica) one "
+        f"{['%.3f' % x for x in enqueue['one']]} s, two {['%.3f' % x for x in enqueue['two']]} s "
+        f"on replicas {chunk_devices}; wavs max|diff| float32 {replica_f32:.3e}, bf16 as served "
+        f"{replica_bf16:.3e} (tolerance {DIST_SERVE_TOL:.0e}: a chunk runs whole on a replica "
+        f"that holds the runtime's parameters in their dtypes; bf16's own error against float32 "
+        f"on the same request {bf16_cost:.3e}) on {card}")
+    if not (replica_f32 <= DIST_SERVE_TOL and replica_bf16 <= DIST_SERVE_TOL):
+        fail("[train_dist] the two-replica server's wavs differ from the one-device server's")
+
+    vroot = tmp / "variance"
+    vroot.mkdir()
+    vexp, _, _ = write_variance_experiment(vroot)
+    vhp = cli.migrate_legacy_hparams(load_config(exp_name=vexp, infer=True,
+                                                 ckpt_root=vroot / "checkpoints"),
+                                     infer_acoustic=False)
+    vsegments = [seg for name in VARIANCE_SCORES for seg in load_score(name)]
+    vservers = {"one": loaded("variance server", VarianceServer, vhp, max_batch_size=SERVE_BATCH),
+                "two": loaded("variance server", VarianceServer, vhp, max_batch_size=SERVE_BATCH,
+                              devices=[dev, dev])}
+    preds, vseconds = {}, {}
+    for name in ("one", "two"):
+        quiet(vservers[name].predict_batch, vsegments, seed=1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        preds[name] = quiet(vservers[name].predict_batch, vsegments, seed=1)
+        torch.cuda.synchronize()
+        vseconds[name] = time.perf_counter() - t0
+    dur_same = all(np.array_equal(a[0], b[0]) for a, b in zip(preds["one"], preds["two"]))
+    curve_err = max(max(float(np.abs(a[1] - b[1]).max()),
+                        *(float(np.abs(a[2][v] - b[2][v]).max()) for v in a[2]))
+                    for a, b in zip(preds["one"], preds["two"]))
+    report["variance_server"] = {"segments": len(vsegments), "seconds": vseconds,
+                                 "durations_equal": dur_same, "curves_max_diff": curve_err}
+    log(f"[train_dist] (c) VarianceServer over [cuda:0, cuda:0], {len(vsegments)} segments: "
+        f"seconds one {vseconds['one']:.3f}, two replicas {vseconds['two']:.3f}; durations "
+        f"{'equal' if dur_same else 'DIFFER'}, pitch and curves max|diff| {curve_err:.3e} "
+        f"(tolerance {DIST_SERVE_TOL:.0e}, float32) on {card}")
+    if not (dur_same and curve_err <= DIST_SERVE_TOL):
+        fail("[train_dist] the two-replica variance server differs from the one-device server")
+    del vservers
+    shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    report["phase_s"] = time.perf_counter() - t_phase
+    log(f"[train_dist] the phase took {report['phase_s']:.1f} s on {card}")
+    return report, ddp_counts
 
 
 BIN_ITEMS = 120
@@ -2784,6 +3184,8 @@ def main() -> None:
         card, reset_counts, read_counts, check)
     if not all(c["ok"] for c in checks):
         fail("K3 or its backward disagrees with its plain version at a variance training shape")
+    report["phases"]["train_dist"], dist_counts = train_dist_phase(hp, card, reset_counts,
+                                                                   read_counts)
     report["phases"]["binarize"], bin_counts = binarize_phase(card, reset_counts, read_counts)
     report["phases"]["binarize_ext"], ext_counts = binarize_ext_phase(card, reset_counts,
                                                                       read_counts)
@@ -2902,6 +3304,7 @@ def main() -> None:
             "launches_ddpm_request": {acc: c[key] for acc, c in ddpm_counts.items()},
             "launches_train_steps": train_counts[key],
             "launches_train_variance_steps": var_train_counts[key],
+            "launches_train_dist_ddp_steps": dist_counts[key],
             "launches_binarize": bin_counts[key],
             "launches_binarize_ext": ext_counts[key],
             "max_abs_err": err,
@@ -2985,6 +3388,7 @@ def main() -> None:
         "launches": train_counts["K3bwd"],
         "launches_per_train_step": train_counts["K3bwd"] // TRAIN_STEPS,
         "launches_train_variance_steps": var_train_counts["K3bwd"],
+        "launches_train_dist_ddp_steps": dist_counts["K3bwd"],
         "launches_binarize": bin_counts["K3bwd"],
         "launches_binarize_ext": ext_counts["K3bwd"],
         **train_times,

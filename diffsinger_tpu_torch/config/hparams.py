@@ -74,11 +74,12 @@ def _apply_hparams_str(cfg: dict, hparams_str: str) -> None:
 
 def load_config(config: str | Path = "", hparams_str: str = "", *, exp_name: str = "",
                 infer: bool = False, reset: bool = False,
-                ckpt_root: str | Path = "checkpoints") -> dict:
+                ckpt_root: str | Path = "checkpoints", write_snapshot: bool = True) -> dict:
     """Resolve a config file and its ``base_config`` chain into one dict.
 
     With ``exp_name`` the experiment folder's ``config.yaml`` is read on top
-    (unless ``reset``), a training run writes it, and the result carries the
+    (unless ``reset``), a training run writes it (unless ``write_snapshot`` is
+    false: the ranks of a run other than 0), and the result carries the
     bookkeeping keys ``work_dir``, ``exp_name`` and ``infer``.
     """
     if not (config or exp_name):
@@ -93,7 +94,7 @@ def load_config(config: str | Path = "", hparams_str: str = "", *, exp_name: str
         cfg["work_dir"] = work_dir
     if hparams_str:
         _apply_hparams_str(cfg, hparams_str)
-    if exp_name and not infer and (reset or not os.path.exists(snapshot)):
+    if exp_name and not infer and write_snapshot and (reset or not os.path.exists(snapshot)):
         os.makedirs(work_dir, exist_ok=True)
         with open(snapshot, "w", encoding="utf-8") as f:
             yaml.safe_dump(dict(cfg, base_config=[]), f, allow_unicode=True)

@@ -63,25 +63,42 @@ class BaseDataset:
         return {"size": len(samples),
                 "indices": np.asarray([s["_idx"] for s in samples], np.int64)}
 
+    def pad_targets(self, indices, axes: Dict[str, str],
+                    bucket_steps: Dict[str, int]) -> Dict[str, int]:
+        """The bucketed longest length over ``indices`` of each axis that
+        ``axes`` maps to a ``.meta`` attribute ({"t_mel": "mel2ph", ...}),
+        from the metadata alone: every rank computes the pad targets of a
+        step's global batch without asking its peers."""
+        out = {}
+        for axis, attr in axes.items():
+            if attr in self.metadata:
+                lengths = self.metadata[attr]
+                out[axis] = bucket(max(int(lengths[i]) for i in indices), bucket_steps[axis])
+        return out
 
 
 class AcousticDataset(BaseDataset):
     """``collater`` makes the acoustic batch."""
 
+    PAD_AXES = {"t_mel": "mel2ph", "t_txt": "tokens"}
+
     def __init__(self, data_dir, hp: dict, prefix: str, **kwargs):
         super().__init__(data_dir, hp, prefix, **kwargs)
         self.required_variances = [v for v in VARIANCES if hp.get(f"use_{v}_embed", False)]
 
-    def collater(self, samples: List[Dict]) -> Dict:
+    def collater(self, samples: List[Dict], pad_to: Optional[Dict[str, int]] = None) -> Dict:
         """numpy batch: size, indices, tokens [B, T_txt], mel2ph, mel [B, T_mel, M],
         f0, and the enabled conditioning (variances, key_shift, speed, spk_ids,
-        languages)."""
+        languages). ``pad_to``: {"t_mel", "t_txt"}."""
         hp = self.hp
         batch = self.collate_base(samples)
         if not samples:
             return batch
-        t_mel = bucket(max(len(s["mel2ph"]) for s in samples), self.frame_bucket)
-        t_txt = bucket(max(len(s["tokens"]) for s in samples), self.token_bucket)
+        pad_to = pad_to or {}
+        t_mel = max(bucket(max(len(s["mel2ph"]) for s in samples), self.frame_bucket),
+                    pad_to.get("t_mel", 0))
+        t_txt = max(bucket(max(len(s["tokens"]) for s in samples), self.token_bucket),
+                    pad_to.get("t_txt", 0))
         batch.update(
             tokens=collate_nd([s["tokens"] for s in samples], 0, t_txt).astype(np.int32),
             mel2ph=collate_nd([s["mel2ph"] for s in samples], 0, t_mel).astype(np.int32),
@@ -104,6 +121,8 @@ class AcousticDataset(BaseDataset):
 
 class VarianceDataset(BaseDataset):
     """``collater`` makes the variance batch."""
+
+    PAD_AXES = {"t_mel": "mel2ph", "t_txt": "tokens", "t_note": "note_midi"}
 
     def __init__(self, data_dir, hp: dict, prefix: str, **kwargs):
         super().__init__(data_dir, hp, prefix, **kwargs)

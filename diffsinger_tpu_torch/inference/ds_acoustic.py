@@ -65,7 +65,7 @@ class DiffSingerAcousticInfer(BaseSVSInfer):
             try:
                 load_state_dict_for_inference(
                     self.model.module, hparams["work_dir"], category="acoustic",
-                    ckpt_steps=ckpt_steps)
+                    ckpt_steps=ckpt_steps, hp=hparams)
             except FileNotFoundError:
                 warnings.warn(
                     f"No checkpoint in '{hparams['work_dir']}'; using RANDOM weights."

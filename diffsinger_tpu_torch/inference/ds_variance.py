@@ -95,7 +95,8 @@ class DiffSingerVarianceInfer(BaseSVSInfer):
                 dtype=resolve_precision(hparams.get("infer_precision")), device=self.device)
         try:
             load_state_dict_for_inference(self.model.module, hparams["work_dir"],
-                                          category="variance", ckpt_steps=ckpt_steps)
+                                          category="variance", ckpt_steps=ckpt_steps,
+                                          hp=hparams)
         except FileNotFoundError:
             warnings.warn(f"No checkpoint in '{hparams['work_dir']}'; using RANDOM weights.")
 

@@ -4,18 +4,29 @@ diffsinger_tpu/inference/serving.py): ``AcousticServer`` and ``VarianceServer``.
 The segments of a request are grouped (the variance server: by predictor
 flags, present inputs and speaker-mix widths), sorted by their buckets and
 packed into chunks of at most ``max_batch_size``; each chunk is padded to its
-largest buckets and runs as one batch. Serving across several cards (the JAX
-package's ``mesh=``) waits for the slice that ports ``parallel/``.
+largest buckets and runs as one batch.
+
+Several devices (``devices=[...]``, where the JAX package takes ``mesh=``):
+each device holds a replica of the weights (the vocoder's too), and chunk n
+runs whole on replica n mod the device count. The one host thread enqueues
+every chunk once, as on one device, and the devices run their chunks at
+once. (A thread a device cost more than it gave: under one GIL the threads
+enqueue more slowly together than one thread alone.) A chunk draws from its
+own generator seeded with ``seed``, as on one device, so the outputs are the
+one-device server's, gathered back in input order. (The JAX server instead
+shards a chunk's rows over its mesh; its padded rows leave the real rows'
+draws as they are.)
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import pathlib
 import time
 import warnings
 from collections import defaultdict
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -25,22 +36,88 @@ from diffsinger_tpu_torch.inference.ds_acoustic import (
     DiffSingerAcousticInfer, NoiseFn, VocoderNoiseFn)
 from diffsinger_tpu_torch.inference import ds_variance
 from diffsinger_tpu_torch.inference.ds_variance import DiffSingerVarianceInfer
-from diffsinger_tpu_torch.utils import pad_to
+from diffsinger_tpu_torch.utils import pad_to, resolve_precision
 from diffsinger_tpu_torch.utils.infer_utils import save_wav
 
 
-class AcousticServer(DiffSingerAcousticInfer):
+class _Replicas:
+    """Replicas of a runtime on several devices; chunk n runs on replica n
+    mod the device count."""
+
+    def _init_devices(self, devices: Optional[Sequence]) -> None:
+        devices = [torch.device(d) for d in devices] if devices else [self.device]
+        if devices[0] != self.device:
+            raise ValueError(f"devices[0] is {devices[0]} but the runtime is on {self.device}")
+        self.devices = devices
+        self.replicas = [self] + [self._replica(d) for d in devices[1:]]
+
+    def _replica(self, device: torch.device):
+        raise NotImplementedError()
+
+    def _on_replica(self, n: int, run):
+        """``run(replica)`` for chunk ``n``, with its replica's device current."""
+        replica = self.replicas[n % len(self.replicas)]
+        dev = replica.device
+        with torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext():
+            return run(replica)
+
+
+class AcousticServer(_Replicas, DiffSingerAcousticInfer):
     """Batch-of-segments acoustic synthesis.
 
     ``synthesize_batch(segments)`` preprocesses all segments, packs them into
     chunks, runs sampler + vocoder per chunk and returns per-segment waveforms
-    in input order. ``last_stats`` holds one dict per chunk of the last call.
+    in input order. ``last_stats`` holds one dict per chunk of the last call
+    (the JAX server's keys), ``last_chunk_devices`` the index of the device
+    each chunk ran on. ``devices`` (the first one the runtime's ``device``)
+    runs the chunks in turn on replicas on those devices.
     """
 
-    def __init__(self, hparams: dict, max_batch_size: int = 8, **kwargs):
+    def __init__(self, hparams: dict, max_batch_size: int = 8,
+                 devices: Optional[Sequence] = None, **kwargs):
+        if devices:
+            kwargs["device"] = devices[0]
         super().__init__(hparams, **kwargs)
         self.max_batch_size = max_batch_size
         self.last_stats: List[dict] = []
+        self.last_chunk_devices: List[int] = []
+        self._init_devices(devices)
+
+    def _replica(self, device: torch.device):
+        import copy
+
+        from diffsinger_tpu_torch.models.toplevel import DiffSingerAcoustic
+        from diffsinger_tpu_torch.vocoders.nsf_hifigan_model import Generator
+
+        # built as the runtime builds its own: under bf16 some parameters stay float32
+        dtype = resolve_precision(self.hparams.get("infer_precision"))
+        r = copy.copy(self)
+        r.device = device
+        r.model = DiffSingerAcoustic(self.hparams, vocab_size=len(self.phoneme_dictionary),
+                                     out_dims=self.hparams["audio_num_mel_bins"],
+                                     dtype=dtype, device=device)
+        r.model.module.load_state_dict(self.model.module.state_dict())
+        r.model.module.eval()
+        if getattr(self, "vocoder", None) is not None:
+            r.vocoder = copy.copy(self.vocoder)
+            r.vocoder.device = device
+            r.vocoder.model = Generator(self.vocoder.config, dtype=dtype, device=device).eval()
+            r.vocoder.model.load_state_dict(self.vocoder.model.state_dict())
+        return r
+
+    @staticmethod
+    def _enqueue_wav(replica, stacked, seed, steps, noise, vocoder_noise, depth):
+        """Enqueue a chunk on ``replica``: (wav int16 on its device, its done
+        event | None)."""
+        wav = replica._run_wav(stacked, replica._generator(max(seed, 0)), steps, noise,
+                               vocoder_noise, depth)
+        # the deliverable is a 16-bit wav: ship int16, half the bytes of float32
+        wav_dev = (torch.clamp(wav.float(), -1.0, 1.0) * 32767.0).to(torch.int16)
+        done = None
+        if replica.device.type == "cuda":
+            done = torch.cuda.Event()
+            done.record()
+        return wav_dev, done
 
     def _group_key(self, batch: Dict[str, np.ndarray]):
         t_txt = bucket_length(batch["tokens"].shape[1], step=16, minimum=16)
@@ -104,7 +181,6 @@ class AcousticServer(DiffSingerAcousticInfer):
         keys = [self._group_key(b) for b in batches]
         hop = self.hparams["hop_size"]
         n_mels = self.hparams["audio_num_mel_bins"]
-        on_card = self.device.type == "cuda"
         profile = bool(os.environ.get("DS_SERVING_PROFILE"))
 
         # Phase 1: enqueue every chunk without waiting for the device, so that
@@ -119,14 +195,8 @@ class AcousticServer(DiffSingerAcousticInfer):
             noise = noise_fn(n, (len(chunk), t_mel, n_mels)) if noise_fn is not None else None
             vocoder_noise = (vocoder_noise_fn(n, len(chunk), t_mel)
                              if vocoder_noise_fn is not None else None)
-            wav = self._run_wav(stacked, self._generator(max(seed, 0)), steps, noise,
-                                vocoder_noise, depth)
-            # the deliverable is a 16-bit wav: ship int16, half the bytes of float32
-            wav_dev = (torch.clamp(wav.float(), -1.0, 1.0) * 32767.0).to(torch.int16)
-            done = None
-            if on_card:
-                done = torch.cuda.Event()
-                done.record()
+            wav_dev, done = self._on_replica(n, lambda r: self._enqueue_wav(
+                r, stacked, seed, steps, noise, vocoder_noise, depth))
             pending.append((chunk, t_txt, t_mel, wav_dev, done, time.perf_counter() - t0))
 
         results: List[Optional[np.ndarray]] = [None] * len(segments)
@@ -155,6 +225,7 @@ class AcousticServer(DiffSingerAcousticInfer):
                 length = batches[seg_idx]["mel2ph"].shape[1]
                 results[seg_idx] = wavs[j, : length * hop]
         self.last_stats = stats
+        self.last_chunk_devices = [n % len(self.replicas) for n in range(len(pending))]
         return results
 
     def run_inference(
@@ -200,7 +271,7 @@ class AcousticServer(DiffSingerAcousticInfer):
             save_wav(result, save_path, self.hparams["audio_sample_rate"])
 
 
-class VarianceServer(DiffSingerVarianceInfer):
+class VarianceServer(_Replicas, DiffSingerVarianceInfer):
     """Batch-of-segments variance prediction.
 
     ``predict_batch(segments)`` groups the segments by (predictor flags,
@@ -209,12 +280,32 @@ class VarianceServer(DiffSingerVarianceInfer):
     it returns per-segment (dur_pred, pitch_pred, variances) in input order.
     One generator per chunk, seeded with ``seed`` (0 if negative); per-segment
     ``seed`` fields are ignored with a warning. Unlike ``AcousticServer`` it
-    keeps no per-chunk statistics, as the JAX package's does not.
+    keeps no per-chunk statistics, as the JAX package's does not. ``devices``
+    (the first one the runtime's ``device``) runs the chunks in turn on
+    replicas on those devices.
     """
 
-    def __init__(self, hparams: dict, max_batch_size: int = 8, **kwargs):
+    def __init__(self, hparams: dict, max_batch_size: int = 8,
+                 devices: Optional[Sequence] = None, **kwargs):
+        if devices:
+            kwargs["device"] = devices[0]
         super().__init__(hparams, **kwargs)
         self.max_batch_size = max_batch_size
+        self._init_devices(devices)
+
+    def _replica(self, device: torch.device):
+        import copy
+
+        from diffsinger_tpu_torch.models.toplevel import DiffSingerVariance
+
+        r = copy.copy(self)
+        r.device = device
+        r.model = DiffSingerVariance(self.hparams, vocab_size=len(self.phoneme_dictionary),
+                                     dtype=resolve_precision(self.hparams.get("infer_precision")),
+                                     device=device)
+        r.model.module.load_state_dict(self.model.module.state_dict())
+        r.model.module.eval()
+        return r
 
     def _group_key(self, batch: Dict[str, np.ndarray], flags):
         present = tuple(sorted(
@@ -270,9 +361,9 @@ class VarianceServer(DiffSingerVarianceInfer):
         pending = []
         for n, (flags, chunk, buckets) in enumerate(self.chunks(batches, flags_list)):
             noise = self.injected_noise(noise_fn, n, len(chunk), buckets[3])
-            pending.append((flags, chunk, self._run_padded(
+            pending.append((flags, chunk, self._on_replica(n, lambda r: r._run_padded(
                 *self.stack_chunk(batches, chunk, buckets), flags,
-                self._generator(max(seed, 0)), steps, **noise)))
+                r._generator(max(seed, 0)), steps, **noise))))
         return batches, pending
 
     @staticmethod

@@ -1,6 +1,15 @@
 """Training losses (counterpart of diffsinger_tpu/models/losses.py) over flat
 [B, T, D] tensors. Every input is taken to float32 first, so a bf16 forward
 reduces its losses in float32.
+
+Over ranks, each mean is one mean over the global batch, as the JAX package
+takes it over the batch that its processes stitch together: a rank divides
+its local sum by the global denominator (the ranks' denominators summed by
+an all-reduce; they hold no gradient) and multiplies by the rank count, so
+that the average of the ranks' gradients that DDP takes is the gradient of
+the global mean. The batch mean of the flow loss's time weights is taken
+over the global batch likewise. With one rank every loss is computed as
+before, without a collective.
 """
 
 from __future__ import annotations
@@ -10,13 +19,26 @@ from typing import Optional
 
 import torch
 
+from diffsinger_tpu_torch.parallel import dist
+
+
+def global_ratio(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
+    """``num / max(den, 1)`` over the global batch: this rank's share of it,
+    ``num / max(sum of the ranks' den, 1) * ranks``."""
+    n = dist.world_size()
+    if n == 1:
+        return num / torch.clamp(den, min=1.0)
+    return num / torch.clamp(dist.all_reduce_sum(den), min=1.0) * n
+
 
 def _masked_mean(err: torch.Tensor, nonpadding: Optional[torch.Tensor]) -> torch.Tensor:
     """Mean over non-padded positions; ``nonpadding`` [B, T] float or None."""
     if nonpadding is None:
-        return err.mean()
+        if dist.world_size() == 1:
+            return err.mean()
+        return global_ratio(err.sum(), err.new_tensor(float(err.numel())))
     mask = nonpadding[:, :, None].float()
-    return (err * mask).sum() / torch.clamp(mask.sum() * err.shape[-1], min=1.0)
+    return global_ratio((err * mask).sum(), mask.sum() * err.shape[-1])
 
 
 def _err(a: torch.Tensor, b: torch.Tensor, loss_type: str) -> torch.Tensor:
@@ -46,12 +68,16 @@ def reflow_loss(v_pred: torch.Tensor, v_gt: torch.Tensor, t: torch.Tensor,
         t = torch.clamp(t.float(), eps, 1 - eps)
         w = 1.0 / (eps + math.sqrt(2 * math.pi) * t * (1 - t)) * torch.exp(
             -0.5 * torch.log(t / (1 - t)).square())
-        err = err * (w / w.mean())[:, None, None]
+        if dist.world_size() == 1:
+            mean = w.mean()
+        else:
+            mean = dist.all_reduce_sum(w.sum()) / (w.numel() * dist.world_size())
+        err = err * (w / mean)[:, None, None]
     return _masked_mean(err, nonpadding)
 
 
 def _weighted(err: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    return (err * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return global_ratio((err * mask).sum(), mask.sum())
 
 
 def dur_loss(dur_pred_log: torch.Tensor, dur_gt: torch.Tensor, ph2word: torch.Tensor,
@@ -93,7 +119,7 @@ def dur_loss(dur_pred_log: torch.Tensor, dur_gt: torch.Tensor, ph2word: torch.Te
 
     row_valid = (nonpadding.sum(dim=1) > 0).float()
     sdur_err = err_fn(torch.log(dur_pred.sum(dim=1) + offset), torch.log(dur_gt.sum(dim=1) + offset))
-    sdur = (sdur_err * row_valid).sum() / torch.clamp(row_valid.sum(), min=1.0)
+    sdur = global_ratio((sdur_err * row_valid).sum(), row_valid.sum())
     return lambda_pdur * pdur + lambda_wdur * wdur + lambda_sdur * sdur
 
 

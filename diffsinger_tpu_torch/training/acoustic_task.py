@@ -87,6 +87,22 @@ class AcousticTask(BaseTask):
         d = self.hp["binary_data_dir"]
         return AcousticDataset(d, self.hp, "train"), AcousticDataset(d, self.hp, "valid")
 
+    def draw(self, batch, n_rows: int, generator) -> dict:
+        """t [n_rows] and noise [n_rows, T_mel, M], as ``forward_train`` draws
+        them (none when the diffusion branch does not train)."""
+        model = self.model
+        if model.use_shallow_diffusion and not self.hp["shallow_diffusion_args"].get(
+                "train_diffusion", True):
+            return {}
+        dev = self.device
+        if model.schedule is not None:
+            t = torch.randint(0, model.k_step, (n_rows,), generator=generator, device=dev)
+        else:
+            t = model.t_start + (1.0 - model.t_start) * torch.rand(
+                n_rows, generator=generator, device=dev)
+        shape = (n_rows, *batch["mel"].shape[1:])
+        return {"t": t, "noise": torch.randn(shape, generator=generator, device=dev)}
+
     def validation_extras(self, valid_ds, batch: dict) -> None:
         """For the first ``num_valid_plots`` items: ``forward_infer`` (float32,
         the kernels on the card), mel figures of the prediction and the aux

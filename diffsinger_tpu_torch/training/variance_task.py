@@ -126,6 +126,38 @@ class VarianceTask(BaseTask):
         d = self.hp["binary_data_dir"]
         return VarianceDataset(d, self.hp, "train"), VarianceDataset(d, self.hp, "valid")
 
+    def draw(self, batch, n_rows: int, generator) -> dict:
+        """The retake masks (pitch, then each variance in config order) and
+        each branch's time and noise, as the loss function and
+        ``forward_train`` draw them, for ``n_rows`` rows."""
+        hp, model, dev = self.hp, self.model, self.device
+        mel2ph = batch.get("mel2ph")
+        if mel2ph is None:
+            return {}
+        t = mel2ph.shape[1]
+        out = {}
+        if model.predict_pitch:
+            out["pitch_retake"] = random_retake_masks(n_rows, t, generator=generator, device=dev)
+        if model.var_list:
+            out["variance_retake"] = {v: random_retake_masks(n_rows, t, generator=generator,
+                                                             device=dev)
+                                      for v in model.var_list}
+        n_var = len(model.var_list)
+        branches = (("pitch", model.predict_pitch, hp["pitch_prediction_args"]["repeat_bins"]),
+                    ("var", n_var > 0, n_var and hp["variances_prediction_args"][
+                        "total_repeat_bins"] // n_var * n_var))
+        for name, on, width in branches:
+            if not on:
+                continue
+            if model.schedule is not None:
+                out[f"t_{name}"] = torch.randint(0, model.k_step, (n_rows,),
+                                                 generator=generator, device=dev)
+            else:
+                out[f"t_{name}"] = torch.rand(n_rows, generator=generator, device=dev)
+            out[f"noise_{name}"] = torch.randn((n_rows, t, width), generator=generator,
+                                               device=dev)
+        return out
+
     def validation_extras(self, valid_ds, batch: dict) -> None:
         """``forward_infer`` (float32, the kernels on the card, a generator
         seeded 0); the streaming metrics over the batch; figures of the first

@@ -571,6 +571,25 @@ def test_variance_train_step_on_the_card_matches_the_cpu(dev, tmp_path):
     assert report["param_err"] <= 2 * report["lr"] and report["param_share_off"] <= 0.01
 
 
+def test_two_gloo_ranks_on_the_card_update_as_one_process(dev, tmp_path):
+    """chip_smoke.py's ``[train_dist]`` (a): two gloo ranks on the card train
+    the narrow float32 variance model with the melody encoder (4 + 4 rows,
+    accumulation 2, 3 updates) through ``BaseTask.start``; their parameters
+    are equal, within 2 lr of one process on the stitched rows and within
+    1e-4 of its largest update but for at most a 1e-4 share of the elements;
+    rank 0 alone writes the checkpoint, both ranks launch K3's backward
+    alike, and rank 0 more K3 forwards (it alone runs the validation's
+    ``forward_infer``)."""
+    import chip_smoke
+
+    report = chip_smoke.two_rank_variance_check(tmp_path)
+    assert report["rank_err"] == 0.0
+    assert report["err"] <= 2 * report["lr"] and report["share_over"] <= 1e-4
+    assert report["saves"] == [[f"model_ckpt_steps_{chip_smoke.DIST_STEPS}.ckpt"], []]
+    (fwd0, bwd0), (fwd1, bwd1) = report["k3"]
+    assert bwd0 == bwd1 > 0 and fwd0 > fwd1 > 0
+
+
 def test_binarization_on_the_card_matches_the_cpu(dev, tmp_path):
     """Two items of a synthetic sung corpus through both binarizers' items on
     the card and on the CPU (float32), with a pitch-shifted and time-stretched
