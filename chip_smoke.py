@@ -61,7 +61,21 @@ Phases, each printed as it ends; any failure exits non-zero:
    unipc: mel frames/s of the acoustic part, K1 and K2 launches against 6 x
    the denoiser calls, and a float32 B=2, T_mel=512 request against the
    plain versions (mel 1e-3);
-7. train: the acoustic model's training through ``AcousticTask`` (the task
+7. export: the acoustic model at full width (seeded weights in an
+   experiment folder, 50 steps) exported on the card through
+   ``deployment.exporters`` as ``.pt2`` programs and ONNX graphs at the
+   buckets (64, 512) and (16, 64), with the export seconds by step and the
+   artifacts' sizes; the ``.pt2`` request through ``AcousticArtifactRuntime``
+   against eager ``forward_infer_dynamic`` on the same noise (float32, 1e-4),
+   its launches (K2 and K1 6 x 50, K3 4), its time in turns with eager in
+   this process and in a fresh spawned one (a deployment's own), its profile
+   (idle share), its waits for the device and allocator calls at 50 and at
+   10 steps (equal: none a step); the
+   full-NSF vocoder's ``.pt2`` through ``VocoderArtifactRuntime`` against the
+   eager generator on the same draws; every ONNX graph through the
+   structural checker, and the small bucket's acoustic graph at 2 steps
+   through the numpy interpreter against the card (1e-3) (``[export]`` lines);
+8. train: the acoustic model's training through ``AcousticTask`` (the task
    ``cli.train`` runs) at full width in '16-mixed' (bf16 autocast over float32
    AdamW), an in-memory seeded batch of B=48 segments of 600-1024 frames
    (T_mel 1024, T_txt 128, ragged): K3's backward against its plain version
@@ -73,7 +87,7 @@ Phases, each printed as it ends; any failure exits non-zero:
    frames/s, peak memory, launches per step: K3 4, K3's backward 4, K2 and K1
    6); one step under the profiler (idle share); a validation batch; a save
    and resume round trip in a temporary folder (``[train]`` lines);
-8. train_variance: the variance model's training through ``VarianceTask``
+9. train_variance: the variance model's training through ``VarianceTask``
    (the task ``cli.train`` runs for configs/variance.yaml) at full width with
    the four variances on, in '16-mixed', an in-memory seeded batch of B=48
    segments of 1000-1664 frames (T_mel 1664, T_txt about 176, one note a
@@ -88,7 +102,7 @@ Phases, each printed as it ends; any failure exits non-zero:
    per step: K3 4, K3's backward 4, K1 and K2 0); one step under the profiler
    (idle share, top device operations); a validation batch (losses and
    metrics); a save and resume round trip (``[train_variance]`` lines);
-9. train_dist: training over ranks and serving over replicas on the one
+10. train_dist: training over ranks and serving over replicas on the one
    card. (a) two gloo ranks, each its own process on the card, train a
    narrow float32 variance model with the melody encoder through
    ``BaseTask.start`` (4 + 4 rows, accumulation 2, 3 updates) against one
@@ -102,7 +116,7 @@ Phases, each printed as it ends; any failure exits non-zero:
    [serve]'s and [variance]'s segments, each chunk whole on a replica in
    turn (enqueue seconds a chunk, the replica it ran on, true frames/s;
    float32 and bf16 outputs within 1e-3) (``[train_dist]`` lines);
-10. binarize: a synthetic corpus of 120 sung phrases of 3-12 s (about 15
+11. binarize: a synthetic corpus of 120 sung phrases of 3-12 s (about 15
    minutes at 44.1 kHz; 16-bit wavs, transcriptions.csv, .ds labels) made
    from a seed and binarized through ``cli.binarize.binarize`` on the card:
    configs/acoustic.yaml with every embed on, without augmentation, with
@@ -119,7 +133,7 @@ Phases, each printed as it ends; any failure exits non-zero:
    tolerances; the card's stores (HDF5 where h5py imports, else kept in
    memory) read back through the datasets into one step of a narrow
    acoustic and variance task with finite losses (``[binarize]`` lines);
-11. binarize_ext: the extractors that voicebank makers configure, with
+12. binarize_ext: the extractors that voicebank makers configure, with
    seeded checkpoints at the published widths (RMVPE ``E2E0(4, 1, (2, 2))``;
    CascadedNet nout 32, nout_lstm 128, stereo, n_fft 2048, hop 512): over
    that whole corpus, acoustic with ``pe: rmvpe`` and ``hnsep: vr`` twice
@@ -136,7 +150,7 @@ Phases, each printed as it ends; any failure exits non-zero:
    bounds on its fixtures, three items of each run on the card against the
    CPU (``binarize_ext_card_vs_cpu``), one narrow training step from each
    store (``[binarize_ext]`` lines);
-12. times: K1 at the long phrase's shape [1, 4096, 2048], K3 at the long
+13. times: K1 at the long phrase's shape [1, 4096, 2048], K3 at the long
    shape [16, 2, 512, 128], K2's two GEMMs alone and K3's backward at
    [48, 2, 128, 128] and [16, 2, 512, 128] with each of its kernels alone
    and its bound on the CUDA cores and in 3xTF32, then K3 and its backward
@@ -155,9 +169,11 @@ number to chiprun_out/chip_smoke.json.
 from __future__ import annotations
 
 import contextlib
+import gc
 import io
 import json
 import math
+import multiprocessing
 import os
 import shutil
 import subprocess
@@ -928,6 +944,296 @@ def ddpm_phase(hp, card, reset_counts, read_counts, request):
         if not err <= 1e-3:
             fail(f"ddpm {acc}: the float32 request disagrees with its plain-version run")
     return out, launches
+
+
+EXPORT_BUCKETS = ((64, 512), (16, 64))  # the exporter's default bucket, and a small one
+EXPORT_ONNX_STEPS = 2  # the interpreter's run at the small bucket
+SYNC_EVENTS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize")
+
+
+def count_syncs(fn) -> dict:
+    """Host-side waits for the device while ``fn`` runs, from the profiler's
+    CUDA runtime events: synchronisations, copies, allocator calls, launches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+    names = [e.name for e in prof.events()]
+    return {"syncs": sum(names.count(n) for n in SYNC_EVENTS),
+            "memcpy_calls": sum(1 for n in names if n.startswith("cudaMemcpy")),
+            "malloc_free_calls": sum(1 for n in names if n in ("cudaMalloc", "cudaFree")),
+            "launches": sum(1 for n in names if n in ("cudaLaunchKernel", "cuLaunchKernel",
+                                                      "cudaLaunchKernelExC"))}
+
+
+def export_inputs(t_txt: int, t_mel: int, seed: int):
+    """A seeded [1, t_txt] x [1, t_mel] request with a padded tail (numpy)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(1, 60, (1, t_txt)).astype(np.int32)
+    mel2ph = np.repeat(np.arange(1, t_txt + 1), t_mel // t_txt)[None].astype(np.int32)
+    mel2ph[0, t_mel - t_mel // 8:] = 0
+    f0 = (220.0 * 2 ** (0.2 * np.sin(np.linspace(0, 20, t_mel))))[None].astype(np.float32)
+    return tokens, mel2ph, f0
+
+
+def eager_dynamic(model, tokens, mel2ph, f0, noise, steps, depth):
+    """``forward_infer_dynamic`` of a model without conditioning inputs."""
+    import torch
+
+    dev = noise.device
+    return model.forward_infer_dynamic(
+        torch.from_numpy(tokens).to(dev), torch.from_numpy(mel2ph).to(dev),
+        torch.from_numpy(f0).to(dev), depth=torch.tensor(depth), steps=torch.tensor(steps),
+        noise=noise).diff_out
+
+
+def timed_requests(fn, n: int = 3) -> list:
+    """Seconds of ``n`` requests, each synchronised before and after."""
+    import torch
+
+    ts = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append(time.perf_counter() - t0)
+    return ts
+
+
+def export_turns(run_eager, run_pt2) -> dict:
+    """Synchronised requests in turns: eager, .pt2, .pt2, eager, three each."""
+    import numpy as np
+
+    turns = [("eager", timed_requests(run_eager)), ("pt2", timed_requests(run_pt2)),
+             ("pt2", timed_requests(run_pt2)), ("eager", timed_requests(run_eager))]
+    return {"turns": turns,
+            "best": {k: min(min(ts) for kk, ts in turns if kk == k) for k in ("eager", "pt2")},
+            "mean": {k: float(np.mean([t for kk, ts in turns if kk == k for t in ts]))
+                     for k in ("eager", "pt2")}}
+
+
+def export_turns_in_a_fresh_process(bundle: str, ckpt_root: str, exp_name: str,
+                                    result: str) -> None:
+    """[export]'s request in turns in a process of its own, as a deployment
+    runs it: the bundle's runtime and the eager float32 model from the same
+    experiment folder, on the phase's request and noise. Writes the times to
+    ``result`` (JSON)."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from diffsinger_tpu_torch.config import load_config
+    from diffsinger_tpu_torch.deployment.runtime import AcousticArtifactRuntime
+    from diffsinger_tpu_torch.inference.ds_acoustic import DiffSingerAcousticInfer
+
+    hp = dict(load_config(exp_name=exp_name, infer=True, ckpt_root=ckpt_root),
+              infer_precision=None)
+    model = quiet(DiffSingerAcousticInfer, hp, load_vocoder=False, device="cuda").model
+    runtime = AcousticArtifactRuntime(bundle, device="cuda")
+    tokens, mel2ph, f0 = export_inputs(*EXPORT_BUCKETS[0], seed=21)
+    noise = torch.randn((1, EXPORT_BUCKETS[0][1], hp["audio_num_mel_bins"]),
+                        generator=torch.Generator(device="cuda").manual_seed(3), device="cuda")
+    depth, steps = float(runtime.manifest["max_depth"]), int(runtime.manifest["sampling_steps"])
+    run_pt2 = lambda: runtime.synthesize_mel(tokens, mel2ph, f0, noise=noise)
+    run_eager = lambda: eager_dynamic(model, tokens, mel2ph, f0, noise, steps, depth).cpu()
+    run_pt2(), run_eager()
+    Path(result).write_text(json.dumps(export_turns(run_eager, run_pt2)))
+
+
+def export_phase(card, reset_counts, read_counts):
+    """[export]: the acoustic model (configs/acoustic.yaml at full width, seeded
+    weights, 50 steps) and the full-NSF vocoder exported on the card through
+    ``deployment.exporters`` in both formats, the ``.pt2`` programs served by
+    the artifact runtimes against the eager card models (timed in this
+    process and in a fresh one), the ONNX checked and interpreted. Returns the
+    report and the launches of one exported acoustic request."""
+    root = Path(tempfile.mkdtemp(prefix="export_"))  # gigabytes of artifacts: not under OUT_DIR
+    try:
+        return export_checks(root, card, reset_counts, read_counts)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def export_checks(root, card, reset_counts, read_counts):
+    """The body of :func:`export_phase`, writing under ``root``."""
+    import numpy as np
+    import torch
+
+    from diffsinger_tpu_torch.config import load_config
+    from diffsinger_tpu_torch.deployment.exporters import (
+        DiffSingerAcousticExporter, NSFHiFiGANExporter)
+    from diffsinger_tpu_torch.deployment.onnx import EMITTED_OPS, run_model
+    from diffsinger_tpu_torch.deployment.onnx.checker import check_model
+    from diffsinger_tpu_torch.deployment.runtime import (
+        AcousticArtifactRuntime, VocoderArtifactRuntime)
+    from diffsinger_tpu_torch.ops import flash_attention
+    from diffsinger_tpu_torch.vocoders.nsf_hifigan_model import VocoderNoise
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    hp0 = load_config(ROOT / "configs" / "acoustic.yaml")
+    name, _, _ = write_experiment(root, hp0)
+    hp = load_config(exp_name=name, infer=True, ckpt_root=root / "checkpoints")
+    n_layers, n_enc, n_mels = (hp["backbone_args"]["num_layers"], hp["enc_layers"],
+                               hp["audio_num_mel_bins"])
+    steps = hp["sampling_steps"]
+    out = {"steps": steps}
+
+    # 1. export on the card, both formats, two buckets
+    exporter = DiffSingerAcousticExporter(hp, root / "acoustic", buckets=EXPORT_BUCKETS,
+                                          fmt="both", device="cuda")
+    t0 = time.perf_counter()
+    quiet(exporter.export)
+    out["export_s"] = time.perf_counter() - t0
+    out["export_split_s"] = dict(exporter.seconds)
+    sizes = {fname: (root / "acoustic" / fname).stat().st_size / 1e6
+             for files in exporter.bucket_files.values() for fname in files.values()}
+    out["sizes_mb"] = sizes
+    log(f"[export] acoustic exported on the card in {out['export_s']:.1f} s (trace "
+        f"{exporter.seconds['trace']:.1f} s, .pt2 {exporter.seconds['pt2']:.1f} s, ONNX lowering "
+        f"+ check {exporter.seconds['onnx']:.1f} s) at buckets {list(EXPORT_BUCKETS)}; sizes MB "
+        + ", ".join(f"{k} {v:.1f}" for k, v in sizes.items()))
+    model = exporter.model  # float32 on the card
+    runtime = AcousticArtifactRuntime(root / "acoustic", device="cuda")
+
+    def eager(tokens, mel2ph, f0, noise, n_steps, depth):
+        return eager_dynamic(model, tokens, mel2ph, f0, noise, n_steps, depth)
+
+    # 2. the .pt2 request at the default bucket against eager, same noise
+    t_txt, t_mel = EXPORT_BUCKETS[0]
+    tokens, mel2ph, f0 = export_inputs(t_txt, t_mel, seed=21)
+    depth = float(runtime.manifest["max_depth"])
+    noise = torch.randn((1, t_mel, n_mels), generator=torch.Generator(device=dev).manual_seed(3),
+                        device=dev)
+    reset_counts()
+    mel_pt2 = runtime.synthesize_mel(tokens, mel2ph, f0, noise=noise)
+    counts = read_counts()
+    bwd_launches = flash_attention.bwd_launches
+    reset_counts()
+    mel_eager = eager(tokens, mel2ph, f0, noise, steps, depth).cpu().numpy()
+    eager_counts = read_counts()
+    err = float(np.abs(mel_pt2 - mel_eager).max())
+    want = {"K1": n_layers * steps, "K2": n_layers * steps, "K3": n_enc}
+    log(f"[export] .pt2 request [1,{t_txt}] x [1,{t_mel}], {steps} steps: launches {counts} "
+        f"(eager {eager_counts}, expected {want}); max|mel .pt2 - eager| {err:.3e} "
+        f"(tolerance 1e-4, float32)")
+    if counts != want or eager_counts != want or bwd_launches:
+        fail(f"export: the .pt2 request launched {counts}, eager {eager_counts}, not {want}")
+    if not (np.isfinite(mel_pt2).all() and err <= 1e-4):
+        fail("export: the .pt2 request disagrees with the eager model on the card")
+    if (mel_pt2[mel2ph == 0] != 0).any():
+        fail("export: padded frames of the .pt2 request are not zero")
+    out.update(launches=counts, max_abs_err_vs_eager=err)
+
+    # 3. times in turns, in this process and in a fresh one (a deployment's own)
+    run_pt2 = lambda: runtime.synthesize_mel(tokens, mel2ph, f0, noise=noise)
+    run_eager = lambda: eager(tokens, mel2ph, f0, noise, steps, depth).cpu()
+    # the host's garbage collector over the turns: collections by generation
+    gc_before = [g["collections"] for g in gc.get_stats()]
+    out["request_s"] = {"this process": export_turns(run_eager, run_pt2)}
+    out["gc"] = {"collections_during_turns": [g["collections"] - b for g, b in
+                                              zip(gc.get_stats(), gc_before)],
+                 "tracked_objects": len(gc.get_objects())}
+    log(f"[export] Python's collector in this process during the turns: collections by "
+        f"generation {out['gc']['collections_during_turns']}, {out['gc']['tracked_objects']} "
+        f"tracked objects")
+    result = root / "fresh_process_turns.json"
+    child = multiprocessing.get_context("spawn").Process(
+        target=export_turns_in_a_fresh_process,
+        args=(str(root / "acoustic"), str(root / "checkpoints"), name, str(result)))
+    child.start()
+    child.join(600)
+    if child.exitcode != 0 or not result.exists():
+        child.kill()
+        fail(f"export: the fresh process's timing ended with exit code {child.exitcode}")
+    out["request_s"]["a fresh process"] = json.loads(result.read_text())
+    for where, r in out["request_s"].items():
+        best, mean = r["best"], r["mean"]
+        log(f"[export] request at [1,{t_mel}] frames, {steps} steps, float32, in {where}: .pt2 "
+            f"{mean['pt2'] * 1e3:.1f} ms mean ({best['pt2'] * 1e3:.1f} best, "
+            f"{t_mel / mean['pt2']:.0f} mel frames/s), eager forward_infer_dynamic "
+            f"{mean['eager'] * 1e3:.1f} ms mean ({best['eager'] * 1e3:.1f} best, "
+            f"{t_mel / mean['eager']:.0f} mel frames/s); .pt2 / eager "
+            f"{mean['pt2'] / mean['eager']:.3f} on {card}")
+
+    out["profile"] = profile_request(run_pt2, "one .pt2 request",
+                                     table="chip_smoke_export_profile.txt")
+
+    # 4. waits for the device a request, at two step counts: a wait a step would
+    # show as a difference
+    syncs = {n: count_syncs(lambda n=n: runtime.synthesize_mel(tokens, mel2ph, f0, steps=n,
+                                                               noise=noise))
+             for n in (steps, 10)}
+    syncs_eager = count_syncs(lambda: eager(tokens, mel2ph, f0, noise, steps, depth).cpu())
+    out["syncs"] = {"pt2": syncs, "eager": syncs_eager}
+    log(f"[export] device waits a request (profiler): .pt2 at {steps} steps {syncs[steps]}, at "
+        f"10 steps {syncs[10]}; eager at {steps} steps {syncs_eager}")
+    if syncs[steps]["syncs"] != syncs[10]["syncs"]:
+        fail("export: the .pt2 request waits for the device at every step")
+
+    # 5. the vocoder: the shipped full-NSF generator, .pt2 on the card
+    voc_exporter = NSFHiFiGANExporter(hp, root / "vocoder", fmt="pt2", device="cuda")
+    t0 = time.perf_counter()
+    quiet(voc_exporter.export)
+    out["vocoder_export_s"] = time.perf_counter() - t0
+    voc_runtime = VocoderArtifactRuntime(root / "vocoder", device="cuda")
+    bm = voc_exporter.buckets[0]
+    mel_in = mel_pt2[:, :t_mel - t_mel // 8]
+    f0_in = f0[:, :mel_in.shape[1]]
+    wav = voc_runtime.vocode(mel_in, f0_in, seed=5)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    draws = VocoderNoise(rand_ini=torch.rand((1, 1, 9), generator=gen, device=dev),
+                         source=torch.randn((1, bm * voc_runtime.hop_size, 9), generator=gen,
+                                            device=dev))
+    pad = bm - mel_in.shape[1]
+    with torch.no_grad():
+        wav_eager = voc_exporter.vocoder.model(
+            torch.from_numpy(np.pad(mel_in, [(0, 0), (0, pad), (0, 0)])).to(dev),
+            torch.from_numpy(np.pad(f0_in, [(0, 0), (0, pad)], constant_values=220.0)).to(dev),
+            noise=draws)[:, :wav.shape[1]].cpu().numpy()
+    voc_err = float(np.abs(wav - wav_eager).max())
+    voc_ts = timed_requests(lambda: voc_runtime.vocode(mel_in, f0_in, seed=5))
+    out["vocoder"] = {"max_abs_err_vs_eager": voc_err, "times_s": voc_ts,
+                      "size_mb": (root / "vocoder" / "nsf_hifigan.pt2").stat().st_size / 1e6}
+    log(f"[export] vocoder .pt2 (full-NSF, {VOCODER_CHANNELS} channels, bucket {bm} frames) "
+        f"exported in {out['vocoder_export_s']:.1f} s, {out['vocoder']['size_mb']:.1f} MB; "
+        f"{min(voc_ts) * 1e3:.1f} ms a request ({['%.1f' % (t * 1e3) for t in voc_ts]} ms); "
+        f"max|wav .pt2 - eager| {voc_err:.3e} (tolerance 1e-4) on {card}")
+    if not (np.isfinite(wav).all() and voc_err <= 1e-4):
+        fail("export: the vocoder .pt2 disagrees with the eager generator on the card")
+
+    # 6. the ONNX: every graph checked; the small bucket's through the
+    # interpreter at 2 steps against the card's eager output on the same noise
+    t0 = time.perf_counter()
+    for files in exporter.bucket_files.values():
+        for kind in ("fs2_aux_onnx", "acoustic_onnx"):
+            check_model((root / "acoustic" / files[kind]).read_bytes(), known_ops=EMITTED_OPS)
+    t_txt_s, t_mel_s = EXPORT_BUCKETS[1]
+    tokens_s, mel2ph_s, f0_s = export_inputs(t_txt_s, t_mel_s, seed=22)
+    feed = {"tokens": tokens_s, "mel2ph": mel2ph_s, "f0": f0_s,
+            "steps": np.int32(EXPORT_ONNX_STEPS)}
+    if hp.get("use_shallow_diffusion", False):
+        feed["depth"] = np.float32(depth)
+    data = (root / "acoustic" / exporter.bucket_files[f"{t_txt_s}x{t_mel_s}"]["acoustic_onnx"]
+            ).read_bytes()
+    (mel_onnx,) = run_model(data, feed, rng_seed=7)
+    onnx_s = time.perf_counter() - t0
+    noise_s = torch.from_numpy(np.random.default_rng(7).standard_normal((1, t_mel_s, n_mels))
+                               .astype(np.float32)).to(dev)
+    mel_card = eager(tokens_s, mel2ph_s, f0_s, noise_s, EXPORT_ONNX_STEPS, depth).cpu().numpy()
+    onnx_err = float(np.abs(mel_onnx - mel_card).max())
+    out["onnx"] = {"max_abs_err_vs_card": onnx_err, "check_and_interpret_s": onnx_s}
+    log(f"[export] ONNX: every graph passes the checker; the [1,{t_txt_s}] x [1,{t_mel_s}] "
+        f"graph at {EXPORT_ONNX_STEPS} steps through the interpreter against the card's eager "
+        f"output: max|diff| {onnx_err:.3e} (tolerance 1e-3) in {onnx_s:.1f} s")
+    if not onnx_err <= 1e-3:
+        fail("export: the ONNX graph disagrees with the card")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[export] phase {out['phase_s']:.1f} s")
+    return out, dict(counts, K3bwd=bwd_launches)
 
 
 def card_vs_cpu_step(tag, tasks, batch, draws, what=""):
@@ -3176,6 +3482,7 @@ def main() -> None:
     if not all(c["ok"] for c in checks):
         fail("K3 disagrees with its plain version at a variance shape")
     report["phases"]["ddpm"], ddpm_counts = ddpm_phase(hp, card, reset_counts, read_counts, request)
+    report["phases"]["export"], export_counts = export_phase(card, reset_counts, read_counts)
     report["phases"]["train"], train_counts, bwd_cases = train_phase(
         card, reset_counts, read_counts, check)
     if not all(c["ok"] for c in checks):
@@ -3302,6 +3609,7 @@ def main() -> None:
             "launches_served_score": serve_counts[key],
             "launches_variance_score": var_counts[key],
             "launches_ddpm_request": {acc: c[key] for acc, c in ddpm_counts.items()},
+            "launches_export_request": export_counts[key],
             "launches_train_steps": train_counts[key],
             "launches_train_variance_steps": var_train_counts[key],
             "launches_train_dist_ddp_steps": dist_counts[key],
@@ -3387,6 +3695,7 @@ def main() -> None:
                     "under jax.grad of diffsinger_tpu/models/commons.py:206",
         "launches": train_counts["K3bwd"],
         "launches_per_train_step": train_counts["K3bwd"] // TRAIN_STEPS,
+        "launches_export_request": export_counts["K3bwd"],
         "launches_train_variance_steps": var_train_counts["K3bwd"],
         "launches_train_dist_ddp_steps": dist_counts["K3bwd"],
         "launches_binarize": bin_counts["K3bwd"],

@@ -8,7 +8,8 @@ The step loops are Python loops. Per-step scalars come from the float32
 tables of :class:`DiffusionSchedule` and are combined in float32 numpy, as
 the JAX scan combines them on the device; the denoiser's output is taken to
 float32 before it meets them, so the update arithmetic is float32 under a
-bf16 denoiser too. ``inference_dynamic`` (export) waits for its slice.
+bf16 denoiser too. ``inference_dynamic`` is the deployment sampler, with
+depth and steps as tensors (``deployment/``).
 """
 
 from __future__ import annotations
@@ -17,6 +18,8 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+
+from diffsinger_tpu_torch.utils import while_loop
 
 from .schedule import DiffusionSchedule
 
@@ -184,3 +187,65 @@ def inference(denoise_fn: DenoiseFn, sched: DiffusionSchedule, shape: tuple, *, 
             return fn(denoise_fn, sched, x, t_max, t_max // speedup)
         raise ValueError(f"Unsupported acceleration algorithm for DDPM: {algorithm}.")
     return sample_ddpm(denoise_fn, sched, x, t_max, generator=generator, noise_fn=noise_fn)
+
+
+def inference_dynamic(denoise_fn: DenoiseFn, sched: DiffusionSchedule, noise: torch.Tensor, *,
+                      depth: torch.Tensor, steps: torch.Tensor, k_step: int,
+                      x_start: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The deployment sampler: DDIM with ``depth`` (float32 scalar, a fraction
+    of ``timesteps``) and ``steps`` (int scalar) as tensors (counterpart of JAX
+    ``ddpm.inference_dynamic``).
+
+    Without ``x_start`` the speedup is snapped down to the largest divisor of
+    ``timesteps`` not above ``timesteps // steps``, and the path starts from
+    ``noise`` at ``(k_step - 1) // speedup * speedup``. With it, the depth in
+    steps is rounded half to even, capped at ``k_step`` and rounded down to a
+    multiple of the speedup ``depth // steps``; the start is ``noise`` at a
+    depth of ``timesteps``, ``x_start`` at 0, else ``x_start`` noised to the
+    depth. DDIM throughout, also at speedup 1, as in the JAX package. The
+    schedule's numbers, the speedup and the step counter live on the host;
+    only x is on ``noise``'s device. Tables are indexed with [1]-shaped
+    tensors, which a tracer keeps as tensors.
+    """
+    timesteps = sched.timesteps
+    steps = torch.clamp(torch.as_tensor(steps, dtype=torch.int64), min=1)
+    b = noise.shape[0]
+    if x_start is None:
+        factors = torch.tensor([i for i in range(1, timesteps + 1) if timesteps % i == 0])
+        raw = torch.clamp(timesteps // steps, min=1)
+        speedup = factors[((factors <= raw).sum() - 1).reshape(1)]
+        t_top = (k_step - 1) // speedup * speedup
+        x = noise
+    else:
+        depth = torch.as_tensor(depth, dtype=torch.float32)
+        depth_int = torch.clamp(torch.round(depth * timesteps).long(), max=k_step)
+        speedup = torch.clamp(depth_int // steps, min=1)
+        depth_int = depth_int // speedup * speedup
+        # x_start noised to the depth (q_sample), or either end exactly: the
+        # weights are 0 or 1 there, and 0 * a + b == b
+        t_q = torch.clamp(depth_int - 1, min=0).reshape(1)
+        c_start = torch.from_numpy(np.asarray(sched.sqrt_alphas_cumprod, np.float32))[t_q]
+        c_noise = torch.from_numpy(np.asarray(sched.sqrt_one_minus_alphas_cumprod,
+                                              np.float32))[t_q]
+        full, empty = depth_int >= timesteps, depth_int <= 0
+        c_start = torch.where(full, 0.0, torch.where(empty, 1.0, c_start))
+        c_noise = torch.where(full, 1.0, torch.where(empty, 0.0, c_noise))
+        x = c_start * x_start + c_noise * noise
+        t_top = depth_int - speedup
+    acp = torch.from_numpy(np.asarray(sched.alphas_cumprod, np.float32))
+    zeros = noise.new_zeros(b, dtype=torch.int32)
+
+    def cond_fn(t, x):
+        return t >= 0
+
+    def body_fn(t, x):  # [1]-shaped indices: a 0-d one would ask the tracer for its value
+        a_t = acp[t.reshape(1)]
+        a_prev = acp[torch.clamp(t - speedup, min=0).reshape(1)]
+        eps = denoise_fn(x, zeros + t).to(x.dtype)
+        x_prev = torch.sqrt(a_prev) * (
+            x / torch.sqrt(a_t)
+            + (torch.sqrt((1 - a_prev) / a_prev) - torch.sqrt((1 - a_t) / a_t)) * eps)
+        return t - speedup, x_prev
+
+    _, x = while_loop(cond_fn, body_fn, (t_top, x))
+    return x

@@ -5,8 +5,8 @@
 is a float32 [B] tensor already multiplied by ``time_scale_factor``. The step
 loop is a Python loop; the times are formed in float32 arithmetic in the same
 order as the JAX scan (t = t_start + i * dt), so both packages feed the
-denoiser the same step values. The deployment sampler ``inference_dynamic``
-waits for the export slice.
+denoiser the same step values. ``inference_dynamic`` is the deployment
+sampler, with depth and steps as tensors (``deployment/``).
 """
 
 from __future__ import annotations
@@ -14,6 +14,8 @@ from __future__ import annotations
 from typing import Callable, Optional
 
 import torch
+
+from diffsinger_tpu_torch.utils import while_loop
 
 VelocityFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 
@@ -104,3 +106,43 @@ def inference(velocity_fn: VelocityFn, shape: tuple, *, t_start: float, steps: i
         x = noise
     return sample_ode(velocity_fn, x, t_start=t_start, steps=steps, algorithm=algorithm,
                       time_scale_factor=time_scale_factor)
+
+
+def inference_dynamic(velocity_fn: VelocityFn, noise: torch.Tensor, *, depth: torch.Tensor,
+                      steps: torch.Tensor, t_start_min: float, time_scale_factor: float,
+                      x_end: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The deployment sampler: euler steps with ``depth`` (float32 scalar) and
+    ``steps`` (int scalar) as tensors, so that one exported program serves
+    every depth and step count (counterpart of JAX ``reflow.inference_dynamic``).
+
+    Without ``x_end`` the path starts from ``noise`` at t = 0. With it, t_start
+    is ``max(1 - depth, t_start_min)`` and the start blends ``x_end`` and
+    ``noise`` at t_start (clamped to [0, 1]: pure noise at or below 0, pure
+    ``x_end`` at or above 1). Depth <= 0 (t_start >= 1) passes ``x_end``
+    through without a step. ``depth`` and ``steps`` live on the host with the
+    step counter and the per-step times; only x is on ``noise``'s device, so a
+    step's test of the counter waits for nothing there.
+    """
+    depth = torch.as_tensor(depth, dtype=torch.float32)
+    steps = torch.clamp(torch.as_tensor(steps, dtype=torch.int64), min=1)
+    b = noise.shape[0]
+    if x_end is None:
+        t_start = torch.zeros((), dtype=torch.float32)
+        x = noise
+    else:
+        t_start = torch.clamp(1.0 - depth, min=t_start_min)
+        w = torch.clamp(t_start, 0.0, 1.0)  # exact at either end: 0 * a + b == b
+        x = w * x_end + (1.0 - w) * noise
+        steps = torch.where(t_start >= 1.0, torch.zeros_like(steps), steps)
+    dt = (1.0 - t_start) / torch.clamp(steps, min=1).float()
+    ones = noise.new_ones(b, dtype=torch.float32)
+
+    def cond_fn(i, x):
+        return i < steps
+
+    def body_fn(i, x):
+        t = t_start + i.float() * dt
+        return i + 1, x + velocity_fn(x, ones * (time_scale_factor * t)) * dt
+
+    _, x = while_loop(cond_fn, body_fn, (torch.zeros((), dtype=torch.int64), x))
+    return x

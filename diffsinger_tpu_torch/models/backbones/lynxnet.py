@@ -5,7 +5,9 @@ Conformer-style residual layers: LayerNorm -> 1x1 conv to 2*inner -> SwiGLU
 the diffusion step injected per layer. Channel-last throughout. With the
 PReLU activation the conv module is K2 (``ops.lynx_fused``): its kernels on
 CUDA, its plain version on the CPU; where gradients are wanted, K2's forward
-under its autograd Function, whose backward runs stock ops.
+under its autograd Function, whose backward runs stock ops. While
+``torch.export`` traces it, the conv module is the custom op
+``ds::fused_conv_module`` instead, so that the exported program launches K2.
 """
 
 from __future__ import annotations
@@ -18,7 +20,8 @@ import torch.nn.functional as F
 
 from diffsinger_tpu_torch.models.commons import sinusoidal_pos_emb
 from diffsinger_tpu_torch.ops.lynx_fused import (
-    conv_module_params_from_module, fused_conv_module, fused_conv_module_train)
+    PARAM_NAMES, conv_module_params_from_module, fused_conv_module, fused_conv_module_op,
+    fused_conv_module_train)
 
 
 def pointwise_conv(conv: nn.Conv1d, x: torch.Tensor) -> torch.Tensor:
@@ -64,6 +67,8 @@ class LYNXConvModule(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         params = conv_module_params_from_module(self)
+        if torch.compiler.is_exporting():  # one graph node, launched as K2 by the program
+            return self.dropout(fused_conv_module_op(x, *(params[n] for n in PARAM_NAMES)))
         if torch.is_grad_enabled() and (x.requires_grad
                                         or any(p.requires_grad for p in self.parameters())):
             return self.dropout(fused_conv_module_train(x, **params))

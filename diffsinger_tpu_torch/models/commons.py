@@ -17,7 +17,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from diffsinger_tpu_torch.ops.flash_attention import flash_attention
+from diffsinger_tpu_torch.ops.flash_attention import flash_attention, flash_attention_op
 
 
 class Embedding(nn.Embedding):
@@ -103,7 +103,8 @@ class SelfAttentionRoPE(nn.Module):
     The softmax core is K3: on CUDA tensors the flash-attention kernel, on CPU
     tensors its plain version. Padding follows the TPU kernel's segment ids, so
     padded query rows differ from a plain masked softmax; the encoder zeroes
-    them right after.
+    them right after. While ``torch.export`` traces it, the core is the custom
+    op ``ds::flash_attention``, so that the exported program launches K3.
     """
 
     def __init__(self, embed_dim: int, num_heads: int):
@@ -122,9 +123,13 @@ class SelfAttentionRoPE(nn.Module):
             return z.reshape(b, length, h, d).transpose(1, 2)  # [B, H, L, D]
 
         q, k, v = apply_rope(heads(q)), apply_rope(heads(k)), heads(v)
-        out = flash_attention(q.float().contiguous(), k.float().contiguous(),
-                              v.float().contiguous(), key_padding_mask.contiguous(),
-                              sm_scale=1.0 / math.sqrt(d)).to(x.dtype)
+        args = (q.float().contiguous(), k.float().contiguous(), v.float().contiguous(),
+                key_padding_mask.contiguous())
+        if torch.compiler.is_exporting():  # one graph node, launched as K3 by the program
+            out = flash_attention_op(*args, 1.0 / math.sqrt(d))
+        else:
+            out = flash_attention(*args, sm_scale=1.0 / math.sqrt(d))
+        out = out.to(x.dtype)
         return self.out_proj(out.transpose(1, 2).reshape(b, length, c))
 
 

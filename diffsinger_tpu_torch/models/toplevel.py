@@ -16,7 +16,9 @@ and the variance curves with a sampler each, and runs its training forward
 injected time).
 
 Both cores run rectified flow (``core/reflow.py``) or DDPM (``core/ddpm.py``
-with the fast solvers). The dynamic (export) forwards wait for their slice.
+with the fast solvers). ``DiffSingerAcoustic.forward_infer_dynamic`` is the
+deployment forward that ``deployment/`` exports; the variance model's
+deployed views wait for their slice.
 """
 
 from __future__ import annotations
@@ -269,6 +271,46 @@ class DiffSingerAcoustic:
                    use_shallow_diffusion=self.use_shallow_diffusion, depth=depth, steps=steps,
                    t_start=(t_start_infer if t_start_infer is not None
                             else hp.get("T_start_infer", self.t_start)))
+        mel = self.spec_transform.denorm(x) * frame_mask
+        return ShallowDiffusionOutput(aux_out=aux_mel, diff_out=mel)
+
+    @torch.no_grad()
+    @no_tf32()
+    def forward_infer_dynamic(self, txt_tokens, mel2ph, f0, *, depth, steps,
+                              noise: torch.Tensor, **kwargs) -> ShallowDiffusionOutput:
+        """The deployment forward (counterpart of JAX ``forward_infer_dynamic``):
+        encoder, the aux draft when the model is shallow, the hoisted condition
+        projections, the euler (rectified flow) or DDIM (DDPM) sampler with
+        ``depth`` (float32 scalar tensor) and ``steps`` (int scalar tensor) on
+        the host, the spec denorm and the frame mask. ``noise`` [B, T_mel, M]
+        float32 is the sampler's start: this function draws nothing, so
+        ``torch.export`` traces it whole. For DDPM ``depth`` is a fraction of
+        ``timesteps``; for rectified flow the sampler starts at
+        ``max(1 - depth, T_start)``.
+        """
+        m = self.module
+        cond = m.encode(txt_tokens, mel2ph, f0, **kwargs)
+        frame_mask = (mel2ph > 0).float()[:, :, None]
+
+        aux_mel = None
+        src_spec = None
+        if self.use_shallow_diffusion:
+            aux_mel = m.aux(cond, infer=True) * frame_mask
+            src_spec = self.spec_transform.norm(aux_mel)
+
+        cond_projs = precompute_cond_projections(m.denoiser, cond)
+
+        def denoise(x, t):
+            return m.denoise(x, t, cond, cond_proj=cond_projs)
+
+        if self.schedule is not None:
+            x = ddpm_core.inference_dynamic(denoise, self.schedule, noise, depth=depth,
+                                            steps=steps, k_step=self.k_step, x_start=src_spec)
+        else:
+            x = reflow_core.inference_dynamic(denoise, noise, depth=depth, steps=steps,
+                                              t_start_min=self.t_start,
+                                              time_scale_factor=self.time_scale_factor,
+                                              x_end=src_spec)
         mel = self.spec_transform.denorm(x) * frame_mask
         return ShallowDiffusionOutput(aux_out=aux_mel, diff_out=mel)
 

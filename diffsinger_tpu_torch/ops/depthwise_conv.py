@@ -10,6 +10,10 @@ PReLU, stored in the input dtype.
 
 Weights use the torch layout: ``w`` is the depthwise Conv1d weight
 ``[C, 1, k]`` with its singleton axis dropped, ``[C, k]``.
+
+For ``torch.export`` K1 is also the operator ``ds::depthwise_conv1d_prelu``
+(``depthwise_conv1d_prelu_op``): the kernel on the card, the plain version on
+the CPU.
 """
 
 from __future__ import annotations
@@ -106,3 +110,18 @@ def depthwise_conv1d_prelu(x: torch.Tensor, w: torch.Tensor, alpha: torch.Tensor
     global launches
     launches += 1
     return out
+
+
+# K1 as one graph node that torch.export keeps whole (see lynx_fused.py)
+_lib = torch.library.Library("ds", "FRAGMENT")
+_lib.define("depthwise_conv1d_prelu(Tensor x, Tensor w, Tensor alpha, Tensor? bias=None) -> Tensor")
+_lib.impl("depthwise_conv1d_prelu", depthwise_conv1d_prelu, "CUDA")
+_lib.impl("depthwise_conv1d_prelu", depthwise_conv1d_prelu_plain, "CPU")
+
+
+@torch.library.register_fake("ds::depthwise_conv1d_prelu", lib=_lib)
+def _(x, w, alpha, bias=None):
+    return torch.empty_like(x)
+
+
+depthwise_conv1d_prelu_op = torch.ops.ds.depthwise_conv1d_prelu.default

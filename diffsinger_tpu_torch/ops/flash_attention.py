@@ -10,6 +10,10 @@ and ``_flash_attention_bwd_dq``; the port's counterpart is the backward of
 :func:`flash_attention_plain` and :func:`flash_attention_bwd_plain` are the
 plain PyTorch versions, the latter the same backward formulas (not autograd of
 the plain forward).
+
+For ``torch.export`` the forward is also the operator ``ds::flash_attention``
+(``flash_attention_op``): the kernel on the card, the plain version on the
+CPU.
 """
 
 from __future__ import annotations
@@ -206,3 +210,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, key_padding_mask, sm_scale=sm_scale)
     return _launch_fwd(q, k, v, key_padding_mask, sm_scale)
+
+
+# K3's forward as one graph node that torch.export keeps whole (see lynx_fused.py)
+_lib = torch.library.Library("ds", "FRAGMENT")
+_lib.define("flash_attention(Tensor q, Tensor k, Tensor v, Tensor? key_padding_mask, "
+            "float sm_scale) -> Tensor")
+_lib.impl("flash_attention", _launch_fwd, "CUDA")
+_lib.impl("flash_attention", lambda q, k, v, key_padding_mask, sm_scale: flash_attention_plain(
+    q, k, v, key_padding_mask, sm_scale=sm_scale), "CPU")
+
+
+@torch.library.register_fake("ds::flash_attention", lib=_lib)
+def _(q, k, v, key_padding_mask, sm_scale):
+    return torch.empty_like(q)
+
+
+flash_attention_op = torch.ops.ds.flash_attention.default

@@ -19,6 +19,10 @@ backward kernel for K2 (its trainer runs LYNXNet as XLA ops), so neither has
 the port: the forward launches K2 and keeps its input, and the backward
 recomputes the module in stock PyTorch ops (:func:`conv_module_stock`) and
 differentiates them.
+
+For ``torch.export`` K2 is also the operator ``ds::fused_conv_module``
+(``fused_conv_module_op``), one graph node whose card implementation is
+:func:`fused_conv_module` and whose CPU implementation is the plain version.
 """
 
 from __future__ import annotations
@@ -170,3 +174,23 @@ def conv_module_params_from_module(module) -> dict:
         alpha=net[5].weight,
         w2=net[6].weight[:, :, 0], b2=net[6].bias,
     )
+
+
+# K2 as one graph node that torch.export keeps whole, so that an exported
+# program launches the kernels on the card; the CPU runs the plain version.
+# Registered through torch.library.Library and not torch.library.custom_op,
+# whose Python wrappers (an alias check and a dynamo guard around every call)
+# made an exported request host-bound at twice the eager time on the card.
+_lib = torch.library.Library("ds", "FRAGMENT")
+_lib.define("fused_conv_module(Tensor x, Tensor ln_scale, Tensor ln_bias, Tensor w1, Tensor b1, "
+            "Tensor dw_w, Tensor dw_b, Tensor alpha, Tensor w2, Tensor b2) -> Tensor")
+_lib.impl("fused_conv_module", fused_conv_module, "CUDA")
+_lib.impl("fused_conv_module", fused_conv_module_plain, "CPU")
+
+
+@torch.library.register_fake("ds::fused_conv_module", lib=_lib)
+def _(x, *params):
+    return torch.empty_like(x)
+
+
+fused_conv_module_op = torch.ops.ds.fused_conv_module.default

@@ -67,3 +67,23 @@ def no_tf32():
         yield
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def while_loop(cond_fn, body_fn, carry: tuple) -> tuple:
+    """``carry = body_fn(*carry)`` while ``cond_fn(*carry)``; returns the last carry.
+
+    While ``torch.export`` traces, this is ``torch._higher_order_ops.while_loop``,
+    so the exported program keeps the loop and its trip count stays an input.
+    Otherwise it is a Python loop over the same functions: ``while_loop`` run
+    eagerly compiles its body with dynamo, which cannot trace the kernels'
+    launches. ``cond_fn`` returns a boolean tensor on the host, so the test
+    costs no wait for the device.
+    """
+    if torch.compiler.is_exporting():
+        from torch._higher_order_ops.while_loop import while_loop as hop
+
+        return tuple(hop(cond_fn, body_fn, tuple(carry)))
+    carry = tuple(carry)
+    while bool(cond_fn(*carry)):
+        carry = tuple(body_fn(*carry))
+    return carry

@@ -119,6 +119,35 @@ def parse_commandline_spk_mix(mix: str) -> dict:
     return {k: v / total for k, v in proportions.items()}
 
 
+
+def parse_spk_settings(export_spk, freeze_spk):
+    """Parse an exporter's speaker settings (reference scripts/export.py:43-70).
+
+    ``export_spk`` items and ``freeze_spk`` are either a plain mix pattern
+    (see :func:`parse_commandline_spk_mix`) or ``alias=mix``; a multi-speaker
+    freeze mix must carry an alias. Returns
+    ``([(alias, proportions), ...], (alias, proportions) | None)``.
+    """
+    export_spk_mix = []
+    for spk in export_spk or []:
+        if "=" in spk:
+            alias, mix = spk.split("=", maxsplit=1)
+            export_spk_mix.append((alias, parse_commandline_spk_mix(mix)))
+        else:
+            export_spk_mix.append((spk, {spk: 1.0}))
+    freeze_spk_mix = None
+    if freeze_spk is not None:
+        if "=" not in freeze_spk and "|" in freeze_spk:
+            raise ValueError("Misformatted freeze_spk mix pattern: an alias is required for "
+                             "a mixture, e.g. 'some_alias=spk1:0.5|spk2:0.5'.")
+        if "=" in freeze_spk:
+            alias, mix = freeze_spk.split("=", maxsplit=1)
+            freeze_spk_mix = (alias, parse_commandline_spk_mix(mix))
+        else:
+            freeze_spk_mix = (freeze_spk, {freeze_spk: 1.0})
+    return export_spk_mix, freeze_spk_mix
+
+
 def cross_fade(a: np.ndarray, b: np.ndarray, idx: int) -> np.ndarray:
     """Overlap-add ``b`` onto ``a`` starting at sample ``idx`` with a linear fade
     (reference utils/infer_utils.py:89-96)."""

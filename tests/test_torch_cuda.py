@@ -691,3 +691,49 @@ def test_binarizer_workers_run_the_world_twin_on_the_card(dev, tmp_path):
     for got, arg in zip(in_worker, args):
         _, failures = chip_smoke.binarized_item_errors(got, b.process_item(*arg))
         assert not failures, failures
+
+
+def test_exported_acoustic_program_launches_k2_and_k3_on_the_card(dev, tmp_path):
+    """A ``.pt2`` of the acoustic deployment forward, exported on the card,
+    saved and loaded: a request launches K2 (and K1 inside it) once a layer
+    and step and K3 once an encoder layer, and equals the eager model
+    (float32, 1e-4)."""
+    from pathlib import Path
+
+    from diffsinger_tpu_torch.config import load_config
+    from diffsinger_tpu_torch.deployment.exporters import AcousticProgram
+    from diffsinger_tpu_torch.models.toplevel import DiffSingerAcoustic
+    from diffsinger_tpu_torch.utils import no_tf32
+
+    hp = load_config(Path(__file__).resolve().parents[1] / "configs" / "acoustic.yaml")
+    hp.update(hidden_size=128, enc_layers=2,
+              backbone_args=dict(hp["backbone_args"], num_channels=64, num_layers=2))
+    torch.manual_seed(0)
+    model = DiffSingerAcoustic(hp, vocab_size=40, out_dims=hp["audio_num_mel_bins"], device=dev)
+    model.module.requires_grad_(False)
+    with torch.no_grad():
+        model.module.denoiser.output_projection.weight.normal_(0.0, 0.05)
+    g = torch.Generator(device=dev).manual_seed(1)
+    tokens = torch.randint(1, 40, (1, 16), generator=g, device=dev, dtype=torch.int32)
+    mel2ph = torch.arange(1, 17, device=dev, dtype=torch.int32).repeat_interleave(4)[None]
+    f0 = torch.full((1, 64), 220.0, device=dev)
+    noise = torch.randn((1, 64, hp["audio_num_mel_bins"]), generator=g, device=dev)
+
+    def args(steps):  # depth and steps stay on the host
+        return (tokens, mel2ph, f0, torch.tensor(0.6), torch.tensor(steps, dtype=torch.int32),
+                noise)
+
+    with torch.no_grad():
+        ep = torch.export.export(AcousticProgram(model, "acoustic", [], {}, None, None),
+                                 args(2))
+    torch.export.save(ep, str(tmp_path / "acoustic.pt2"))
+    program = torch.export.load(str(tmp_path / "acoustic.pt2")).module()
+    before = (depthwise_conv.launches, lynx_fused.launches, flash_attention.launches)
+    with torch.no_grad(), no_tf32():
+        got = program(*args(3))
+    torch.cuda.synchronize()
+    after = (depthwise_conv.launches, lynx_fused.launches, flash_attention.launches)
+    assert tuple(a - b for a, b in zip(after, before)) == (2 * 3, 2 * 3, 2)
+    want = model.forward_infer_dynamic(*args(3)[:3], depth=torch.tensor(0.6),
+                                       steps=torch.tensor(3), noise=noise).diff_out
+    assert _max_err(got, want) <= 1e-4
