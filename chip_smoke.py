@@ -67,10 +67,11 @@ Phases, each printed as it ends; any failure exits non-zero:
    buckets (64, 512) and (16, 64), with the export seconds by step and the
    artifacts' sizes; the ``.pt2`` request through ``AcousticArtifactRuntime``
    against eager ``forward_infer_dynamic`` on the same noise (float32, 1e-4),
-   its launches (K2 and K1 6 x 50, K3 4), its time in turns with eager in
-   this process and in a fresh spawned one (a deployment's own), its profile
-   (idle share), its waits for the device and allocator calls at 50 and at
-   10 steps (equal: none a step); the
+   its launches (K2 and K1 6 x 50, K3 4), its time in turns with eager, its
+   profile (idle share), its waits for the device and allocator calls at 50
+   and at 10 steps (equal: none a step); the same config under DDPM with its
+   shallow source as a ``.pt2`` at (64, 512) against eager (1e-4; K2 and K1
+   6 x 50 DDIM calls, K3 4); the
    full-NSF vocoder's ``.pt2`` through ``VocoderArtifactRuntime`` against the
    eager generator on the same draws; every ONNX graph through the
    structural checker, and the small bucket's acoustic graph at 2 steps
@@ -169,11 +170,9 @@ number to chiprun_out/chip_smoke.json.
 from __future__ import annotations
 
 import contextlib
-import gc
 import io
 import json
 import math
-import multiprocessing
 import os
 import shutil
 import subprocess
@@ -1016,40 +1015,79 @@ def export_turns(run_eager, run_pt2) -> dict:
                      for k in ("eager", "pt2")}}
 
 
-def export_turns_in_a_fresh_process(bundle: str, ckpt_root: str, exp_name: str,
-                                    result: str) -> None:
-    """[export]'s request in turns in a process of its own, as a deployment
-    runs it: the bundle's runtime and the eager float32 model from the same
-    experiment folder, on the phase's request and noise. Writes the times to
-    ``result`` (JSON)."""
-    import torch
+def ddim_dynamic_calls(timesteps: int, k_step: int, depth: float, steps: int,
+                       shallow: bool) -> int:
+    """Denoiser calls of a deployed DDPM request (DDIM): with the shallow
+    source from ``depth * timesteps`` (rounded half to even, capped at
+    ``k_step``, cut to a multiple of its speedup ``// steps``) down to 0;
+    without it from ``k_step - 1`` at the largest divisor of ``timesteps`` not
+    above ``timesteps // steps``."""
+    steps = max(steps, 1)
+    if not shallow:
+        raw = max(timesteps // steps, 1)
+        speedup = max(f for f in range(1, raw + 1) if timesteps % f == 0)
+        return (k_step - 1) // speedup + 1
+    depth_int = min(round(depth * timesteps), k_step)
+    speedup = max(depth_int // steps, 1)
+    return max(depth_int // speedup, 0)
 
-    sys.path.insert(0, str(ROOT))
+
+def ddpm_export_check(root, hp0, card, request, noise, reset_counts, read_counts) -> dict:
+    """[export]'s DDPM case: configs/acoustic.yaml at full width under DDPM
+    with its shallow source (K_step 400 of 1000 steps), exported to ``.pt2`` on
+    the card at the default bucket; a request through the runtime at the
+    manifest's depth and steps against eager ``forward_infer_dynamic`` on the
+    same noise, float32 within 1e-4, each launching K2 (K1 inside it) once a
+    layer and denoiser call and K3 once an encoder layer."""
+    import numpy as np
+
     from diffsinger_tpu_torch.config import load_config
+    from diffsinger_tpu_torch.deployment.exporters import DiffSingerAcousticExporter
     from diffsinger_tpu_torch.deployment.runtime import AcousticArtifactRuntime
-    from diffsinger_tpu_torch.inference.ds_acoustic import DiffSingerAcousticInfer
 
-    hp = dict(load_config(exp_name=exp_name, infer=True, ckpt_root=ckpt_root),
-              infer_precision=None)
-    model = quiet(DiffSingerAcousticInfer, hp, load_vocoder=False, device="cuda").model
-    runtime = AcousticArtifactRuntime(bundle, device="cuda")
-    tokens, mel2ph, f0 = export_inputs(*EXPORT_BUCKETS[0], seed=21)
-    noise = torch.randn((1, EXPORT_BUCKETS[0][1], hp["audio_num_mel_bins"]),
-                        generator=torch.Generator(device="cuda").manual_seed(3), device="cuda")
+    name, _, _ = write_experiment(root, dict(hp0, diffusion_type="ddpm"))
+    hp = load_config(exp_name=name, infer=True, ckpt_root=root / "checkpoints")
+    exporter = DiffSingerAcousticExporter(hp, root / "acoustic", buckets=EXPORT_BUCKETS[:1],
+                                          fmt="pt2", device="cuda")
+    t0 = time.perf_counter()
+    quiet(exporter.export)
+    export_s = time.perf_counter() - t0
+    runtime = AcousticArtifactRuntime(root / "acoustic", device="cuda")
     depth, steps = float(runtime.manifest["max_depth"]), int(runtime.manifest["sampling_steps"])
-    run_pt2 = lambda: runtime.synthesize_mel(tokens, mel2ph, f0, noise=noise)
-    run_eager = lambda: eager_dynamic(model, tokens, mel2ph, f0, noise, steps, depth).cpu()
-    run_pt2(), run_eager()
-    Path(result).write_text(json.dumps(export_turns(run_eager, run_pt2)))
+    calls = ddim_dynamic_calls(hp["timesteps"], hp["K_step"], depth, steps, shallow=True)
+    n_layers = hp["backbone_args"]["num_layers"]
+    want = {"K1": n_layers * calls, "K2": n_layers * calls, "K3": hp["enc_layers"]}
+    tokens, mel2ph, f0 = request
+    reset_counts()
+    mel_pt2 = runtime.synthesize_mel(tokens, mel2ph, f0, noise=noise)
+    counts = read_counts()
+    reset_counts()
+    mel_eager = eager_dynamic(exporter.model, tokens, mel2ph, f0, noise, steps,
+                              depth).cpu().numpy()
+    eager_counts = read_counts()
+    err = float(np.abs(mel_pt2 - mel_eager).max())
+    times = timed_requests(lambda: runtime.synthesize_mel(tokens, mel2ph, f0, noise=noise))
+    log(f"[export] DDPM (shallow, depth {depth}, {steps} steps: {calls} DDIM calls) exported "
+        f"in {export_s:.1f} s; .pt2 request [1,{tokens.shape[1]}] x [1,{mel2ph.shape[1]}]: "
+        f"launches {counts} (eager {eager_counts}, expected {want}); max|mel .pt2 - eager| "
+        f"{err:.3e} (tolerance 1e-4, float32); {min(times) * 1e3:.1f} ms a request "
+        f"({['%.1f' % (t * 1e3) for t in times]} ms) on {card}")
+    if counts != want or eager_counts != want:
+        fail(f"export: the DDPM .pt2 request launched {counts}, eager {eager_counts}, not {want}")
+    if not (np.isfinite(mel_pt2).all() and err <= 1e-4):
+        fail("export: the DDPM .pt2 request disagrees with the eager model on the card")
+    return {"export_s": export_s, "depth": depth, "steps": steps, "denoiser_calls": calls,
+            "launches": counts, "max_abs_err_vs_eager": err, "times_s": times}
 
 
 def export_phase(card, reset_counts, read_counts):
     """[export]: the acoustic model (configs/acoustic.yaml at full width, seeded
     weights, 50 steps) and the full-NSF vocoder exported on the card through
     ``deployment.exporters`` in both formats, the ``.pt2`` programs served by
-    the artifact runtimes against the eager card models (timed in this
-    process and in a fresh one), the ONNX checked and interpreted. Returns the
-    report and the launches of one exported acoustic request."""
+    the artifact runtimes against the eager card models (timed in turns),
+    the config under DDPM as a ``.pt2`` against eager, the ONNX checked and
+    interpreted. Returns the report and the launches of one exported
+    acoustic request."""
     root = Path(tempfile.mkdtemp(prefix="export_"))  # gigabytes of artifacts: not under OUT_DIR
     try:
         return export_checks(root, card, reset_counts, read_counts)
@@ -1127,37 +1165,20 @@ def export_checks(root, card, reset_counts, read_counts):
     if (mel_pt2[mel2ph == 0] != 0).any():
         fail("export: padded frames of the .pt2 request are not zero")
     out.update(launches=counts, max_abs_err_vs_eager=err)
+    out["ddpm"] = ddpm_export_check(root / "ddpm", hp0, card, (tokens, mel2ph, f0), noise,
+                                    reset_counts, read_counts)
 
-    # 3. times in turns, in this process and in a fresh one (a deployment's own)
+    # 3. times in turns with eager
     run_pt2 = lambda: runtime.synthesize_mel(tokens, mel2ph, f0, noise=noise)
     run_eager = lambda: eager(tokens, mel2ph, f0, noise, steps, depth).cpu()
-    # the host's garbage collector over the turns: collections by generation
-    gc_before = [g["collections"] for g in gc.get_stats()]
-    out["request_s"] = {"this process": export_turns(run_eager, run_pt2)}
-    out["gc"] = {"collections_during_turns": [g["collections"] - b for g, b in
-                                              zip(gc.get_stats(), gc_before)],
-                 "tracked_objects": len(gc.get_objects())}
-    log(f"[export] Python's collector in this process during the turns: collections by "
-        f"generation {out['gc']['collections_during_turns']}, {out['gc']['tracked_objects']} "
-        f"tracked objects")
-    result = root / "fresh_process_turns.json"
-    child = multiprocessing.get_context("spawn").Process(
-        target=export_turns_in_a_fresh_process,
-        args=(str(root / "acoustic"), str(root / "checkpoints"), name, str(result)))
-    child.start()
-    child.join(600)
-    if child.exitcode != 0 or not result.exists():
-        child.kill()
-        fail(f"export: the fresh process's timing ended with exit code {child.exitcode}")
-    out["request_s"]["a fresh process"] = json.loads(result.read_text())
-    for where, r in out["request_s"].items():
-        best, mean = r["best"], r["mean"]
-        log(f"[export] request at [1,{t_mel}] frames, {steps} steps, float32, in {where}: .pt2 "
-            f"{mean['pt2'] * 1e3:.1f} ms mean ({best['pt2'] * 1e3:.1f} best, "
-            f"{t_mel / mean['pt2']:.0f} mel frames/s), eager forward_infer_dynamic "
-            f"{mean['eager'] * 1e3:.1f} ms mean ({best['eager'] * 1e3:.1f} best, "
-            f"{t_mel / mean['eager']:.0f} mel frames/s); .pt2 / eager "
-            f"{mean['pt2'] / mean['eager']:.3f} on {card}")
+    out["request_s"] = r = export_turns(run_eager, run_pt2)
+    best, mean = r["best"], r["mean"]
+    log(f"[export] request at [1,{t_mel}] frames, {steps} steps, float32: .pt2 "
+        f"{mean['pt2'] * 1e3:.1f} ms mean ({best['pt2'] * 1e3:.1f} best, "
+        f"{t_mel / mean['pt2']:.0f} mel frames/s), eager forward_infer_dynamic "
+        f"{mean['eager'] * 1e3:.1f} ms mean ({best['eager'] * 1e3:.1f} best, "
+        f"{t_mel / mean['eager']:.0f} mel frames/s); .pt2 / eager "
+        f"{mean['pt2'] / mean['eager']:.3f} on {card}")
 
     out["profile"] = profile_request(run_pt2, "one .pt2 request",
                                      table="chip_smoke_export_profile.txt")

@@ -205,7 +205,8 @@ def inference_dynamic(denoise_fn: DenoiseFn, sched: DiffusionSchedule, noise: to
     depth. DDIM throughout, also at speedup 1, as in the JAX package. The
     schedule's numbers, the speedup and the step counter live on the host;
     only x is on ``noise``'s device. Tables are indexed with [1]-shaped
-    tensors, which a tracer keeps as tensors.
+    tensors, which a tracer keeps as tensors, and each value taken is made
+    0-d: only a 0-d host tensor may meet a tensor on the card.
     """
     timesteps = sched.timesteps
     steps = torch.clamp(torch.as_tensor(steps, dtype=torch.int64), min=1)
@@ -213,7 +214,7 @@ def inference_dynamic(denoise_fn: DenoiseFn, sched: DiffusionSchedule, noise: to
     if x_start is None:
         factors = torch.tensor([i for i in range(1, timesteps + 1) if timesteps % i == 0])
         raw = torch.clamp(timesteps // steps, min=1)
-        speedup = factors[((factors <= raw).sum() - 1).reshape(1)]
+        speedup = factors[((factors <= raw).sum() - 1).reshape(1)].reshape(())
         t_top = (k_step - 1) // speedup * speedup
         x = noise
     else:
@@ -224,9 +225,10 @@ def inference_dynamic(denoise_fn: DenoiseFn, sched: DiffusionSchedule, noise: to
         # x_start noised to the depth (q_sample), or either end exactly: the
         # weights are 0 or 1 there, and 0 * a + b == b
         t_q = torch.clamp(depth_int - 1, min=0).reshape(1)
-        c_start = torch.from_numpy(np.asarray(sched.sqrt_alphas_cumprod, np.float32))[t_q]
+        c_start = torch.from_numpy(np.asarray(sched.sqrt_alphas_cumprod,
+                                              np.float32))[t_q].reshape(())
         c_noise = torch.from_numpy(np.asarray(sched.sqrt_one_minus_alphas_cumprod,
-                                              np.float32))[t_q]
+                                              np.float32))[t_q].reshape(())
         full, empty = depth_int >= timesteps, depth_int <= 0
         c_start = torch.where(full, 0.0, torch.where(empty, 1.0, c_start))
         c_noise = torch.where(full, 1.0, torch.where(empty, 0.0, c_noise))
@@ -239,8 +241,8 @@ def inference_dynamic(denoise_fn: DenoiseFn, sched: DiffusionSchedule, noise: to
         return t >= 0
 
     def body_fn(t, x):  # [1]-shaped indices: a 0-d one would ask the tracer for its value
-        a_t = acp[t.reshape(1)]
-        a_prev = acp[torch.clamp(t - speedup, min=0).reshape(1)]
+        a_t = acp[t.reshape(1)].reshape(())
+        a_prev = acp[torch.clamp(t - speedup, min=0).reshape(1)].reshape(())
         eps = denoise_fn(x, zeros + t).to(x.dtype)
         x_prev = torch.sqrt(a_prev) * (
             x / torch.sqrt(a_t)

@@ -13,6 +13,7 @@ the eager float32 models do.
 
 from __future__ import annotations
 
+import functools
 import pathlib
 from typing import Dict, Optional, Tuple
 
@@ -49,6 +50,26 @@ def _check_bundle(manifest: dict, device: torch.device):
         raise ValueError(
             f"the bundle was exported for {exported_on!r}, this runtime runs on "
             f"{device.type!r}: export it again on that device (--device)")
+
+
+@functools.lru_cache(maxsize=None)
+def _with_room():
+    """``with_room(fn, *args)`` calls ``fn(*args)`` from a frame of about
+    128 KiB.
+
+    CPython keeps a thread's Python frames in chunks (16 KiB by default) and
+    gives a chunk back as soon as the frame at its start returns, so a loop
+    whose calls land across a chunk boundary takes and gives back a chunk on
+    every call: up to 0.17 ms a call on an H100 machine's host, which made a
+    loaded program's request 2-7x slower at the stack depths that put its op
+    loop there (``tools/probe_pt2_host.py``). A frame this large starts a
+    chunk of its own with about as much room after it, so no call of a
+    request crosses a boundary, whatever the caller's depth."""
+    names = " = ".join(f"_r{i}" for i in range(1 << 14))
+    scope: dict = {}
+    exec(compile(f"def with_room(fn, *args):\n    if False:\n        {names} = None\n"
+                 "    return fn(*args)\n", "<with_room>", "exec"), scope)
+    return scope["with_room"]
 
 
 class _Programs:
@@ -143,11 +164,11 @@ class AcousticArtifactRuntime:
                                 device=dev)
         program = self.programs[files["acoustic"]]
         with torch.no_grad(), no_tf32():
-            mel = program(on_device(tokens, bt, dtype=np.int32),
-                          on_device(mel2ph, bm, dtype=np.int32),
-                          on_device(f0, bm, value=220.0),
-                          torch.tensor(depth, dtype=torch.float32),
-                          torch.tensor(steps, dtype=torch.int32), noise.to(dev), *args)
+            mel = _with_room()(program, on_device(tokens, bt, dtype=np.int32),
+                               on_device(mel2ph, bm, dtype=np.int32),
+                               on_device(f0, bm, value=220.0),
+                               torch.tensor(depth, dtype=torch.float32),
+                               torch.tensor(steps, dtype=torch.int32), noise.to(dev), *args)
         return mel[:, :t_mel].cpu().numpy()
 
 
@@ -193,8 +214,9 @@ class VocoderArtifactRuntime:
         program = self.programs[filename]
         dev = self.device
         with torch.no_grad(), no_tf32():
-            wav = program(torch.from_numpy(_pad_axis1(np.asarray(mel, np.float32), bm)).to(dev),
-                          torch.from_numpy(_pad_axis1(np.asarray(f0, np.float32), bm,
-                                                      value=220.0)).to(dev),
-                          *self._draws(program, seed))
+            wav = _with_room()(
+                program, torch.from_numpy(_pad_axis1(np.asarray(mel, np.float32), bm)).to(dev),
+                torch.from_numpy(_pad_axis1(np.asarray(f0, np.float32), bm,
+                                            value=220.0)).to(dev),
+                *self._draws(program, seed))
         return wav[:, : t_mel * self.hop_size].cpu().numpy()

@@ -693,11 +693,22 @@ def test_binarizer_workers_run_the_world_twin_on_the_card(dev, tmp_path):
         assert not failures, failures
 
 
-def test_exported_acoustic_program_launches_k2_and_k3_on_the_card(dev, tmp_path):
-    """A ``.pt2`` of the acoustic deployment forward, exported on the card,
-    saved and loaded: a request launches K2 (and K1 inside it) once a layer
-    and step and K3 once an encoder layer, and equals the eager model
-    (float32, 1e-4)."""
+# (config overrides, depth, denoiser calls at 3 steps): DDPM's depth is a
+# fraction of its 1000 steps; shallow from 300 at speedup 100, 3 calls; without
+# a source 1000 // 3 snaps to the divisor 250, from 750 down to 0, 4 calls
+EXPORTED_SAMPLERS = {
+    "reflow": ({}, 0.6, 3),
+    "ddpm-shallow": (dict(diffusion_type="ddpm"), 0.3, 3),
+    "ddpm": (dict(diffusion_type="ddpm", use_shallow_diffusion=False), 0.3, 4),
+}
+
+
+@pytest.mark.parametrize("sampler", list(EXPORTED_SAMPLERS))
+def test_exported_acoustic_program_launches_k2_and_k3_on_the_card(dev, tmp_path, sampler):
+    """Eager ``forward_infer_dynamic`` on the card, and a ``.pt2`` of it
+    exported on the card, saved and loaded: each request launches K2 (and K1
+    inside it) once a layer and denoiser call and K3 once an encoder layer,
+    and the program equals the eager model (float32, 1e-4)."""
     from pathlib import Path
 
     from diffsinger_tpu_torch.config import load_config
@@ -705,9 +716,10 @@ def test_exported_acoustic_program_launches_k2_and_k3_on_the_card(dev, tmp_path)
     from diffsinger_tpu_torch.models.toplevel import DiffSingerAcoustic
     from diffsinger_tpu_torch.utils import no_tf32
 
+    over, depth, calls = EXPORTED_SAMPLERS[sampler]
     hp = load_config(Path(__file__).resolve().parents[1] / "configs" / "acoustic.yaml")
     hp.update(hidden_size=128, enc_layers=2,
-              backbone_args=dict(hp["backbone_args"], num_channels=64, num_layers=2))
+              backbone_args=dict(hp["backbone_args"], num_channels=64, num_layers=2), **over)
     torch.manual_seed(0)
     model = DiffSingerAcoustic(hp, vocab_size=40, out_dims=hp["audio_num_mel_bins"], device=dev)
     model.module.requires_grad_(False)
@@ -720,20 +732,25 @@ def test_exported_acoustic_program_launches_k2_and_k3_on_the_card(dev, tmp_path)
     noise = torch.randn((1, 64, hp["audio_num_mel_bins"]), generator=g, device=dev)
 
     def args(steps):  # depth and steps stay on the host
-        return (tokens, mel2ph, f0, torch.tensor(0.6), torch.tensor(steps, dtype=torch.int32),
+        return (tokens, mel2ph, f0, torch.tensor(depth), torch.tensor(steps, dtype=torch.int32),
                 noise)
 
+    def launches(fn):
+        before = (depthwise_conv.launches, lynx_fused.launches, flash_attention.launches)
+        with torch.no_grad(), no_tf32():
+            out = fn()
+        torch.cuda.synchronize()
+        after = (depthwise_conv.launches, lynx_fused.launches, flash_attention.launches)
+        return out, tuple(a - b for a, b in zip(after, before))
+
+    want, eager_launches = launches(lambda: model.forward_infer_dynamic(
+        *args(3)[:3], depth=torch.tensor(depth), steps=torch.tensor(3), noise=noise).diff_out)
+    assert eager_launches == (2 * calls, 2 * calls, 2)
     with torch.no_grad():
         ep = torch.export.export(AcousticProgram(model, "acoustic", [], {}, None, None),
                                  args(2))
     torch.export.save(ep, str(tmp_path / "acoustic.pt2"))
     program = torch.export.load(str(tmp_path / "acoustic.pt2")).module()
-    before = (depthwise_conv.launches, lynx_fused.launches, flash_attention.launches)
-    with torch.no_grad(), no_tf32():
-        got = program(*args(3))
-    torch.cuda.synchronize()
-    after = (depthwise_conv.launches, lynx_fused.launches, flash_attention.launches)
-    assert tuple(a - b for a, b in zip(after, before)) == (2 * 3, 2 * 3, 2)
-    want = model.forward_infer_dynamic(*args(3)[:3], depth=torch.tensor(0.6),
-                                       steps=torch.tensor(3), noise=noise).diff_out
+    got, program_launches = launches(lambda: program(*args(3)))
+    assert program_launches == (2 * calls, 2 * calls, 2)
     assert _max_err(got, want) <= 1e-4
