@@ -75,7 +75,17 @@ Phases, each printed as it ends; any failure exits non-zero:
    full-NSF vocoder's ``.pt2`` through ``VocoderArtifactRuntime`` against the
    eager generator on the same draws; every ONNX graph through the
    structural checker, and the small bucket's acoustic graph at 2 steps
-   through the numpy interpreter against the card (1e-3) (``[export]`` lines);
+   through the numpy interpreter against the card (1e-3); then the variance
+   model (``configs/variance.yaml`` at full width, all four variances,
+   seeded weights, 20 steps) exported in both formats at the same buckets:
+   each ``.pt2`` view (linguistic, pitch, variance) through
+   ``VarianceArtifactRuntime`` against the eager view on the same padded
+   inputs and noise (1e-6), its launches (K3 4 for the linguistic view, no
+   kernel for the WaveNet views), each view's time in turns with eager, the
+   profile of a pitch + variance request, the chain variance -> acoustic ->
+   vocoder bundles through the three runtimes, and the small bucket's pitch
+   and variance graphs through the interpreter against the card (1e-3)
+   (``[export]`` lines);
 8. train: the acoustic model's training through ``AcousticTask`` (the task
    ``cli.train`` runs) at full width in '16-mixed' (bf16 autocast over float32
    AdamW), an in-memory seeded batch of B=48 segments of 600-1024 frames
@@ -1080,6 +1090,246 @@ def ddpm_export_check(root, hp0, card, request, noise, reset_counts, read_counts
             "launches": counts, "max_abs_err_vs_eager": err, "times_s": times}
 
 
+def variance_request(t_ph: int, seed: int) -> dict:
+    """A seeded score of ``t_ph`` phonemes, two a word, a note a word, with
+    frame durations of 4-8 (numpy, unpadded): the variance bundle's inputs."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n_words = t_ph // 2
+    ph_dur = rng.integers(4, 9, (1, t_ph)).astype(np.int32)
+    word_dur = ph_dur.reshape(1, n_words, 2).sum(axis=2).astype(np.int32)
+    t_mel = int(ph_dur.sum())
+    note_midi = rng.uniform(57, 69, (1, n_words)).astype(np.float32)
+    return dict(
+        tokens=rng.integers(1, 60, (1, t_ph)).astype(np.int32),
+        midi=np.repeat(np.round(note_midi).astype(np.int32), 2, axis=1),
+        ph2word=np.repeat(np.arange(1, n_words + 1), 2)[None].astype(np.int32),
+        word_dur=np.pad(word_dur, [(0, 0), (0, t_ph - n_words)]).astype(np.float32),
+        ph_dur=ph_dur, note_midi=note_midi, note_dur=word_dur,
+        pitch=np.repeat(note_midi, word_dur[0], axis=1).astype(np.float32)
+        + 0.3 * np.sin(np.linspace(0, 30, t_mel, dtype=np.float32))[None])
+
+
+def variance_export_check(root, card, reset_counts, read_counts, acoustic_runtime,
+                          vocoder_runtime) -> dict:
+    """[export]'s variance case: configs/variance.yaml at full width with all
+    four variances (seeded weights) exported on the card in both formats at
+    (64, 512) and (16, 64); each ``.pt2`` view through VarianceArtifactRuntime
+    against the eager view on the same padded inputs and noise (within 1e-6),
+    with its launches; each view's request timed in turns with eager; the
+    chain variance -> acoustic -> vocoder through the three runtimes; the
+    small bucket's ONNX pitch and variance graphs through the interpreter
+    against the card (1e-3)."""
+    import numpy as np
+    import torch
+
+    from diffsinger_tpu_torch.config import load_config
+    from diffsinger_tpu_torch.deployment.exporters import DiffSingerVarianceExporter
+    from diffsinger_tpu_torch.deployment.onnx import EMITTED_OPS, run_model
+    from diffsinger_tpu_torch.deployment.onnx.checker import check_model
+    from diffsinger_tpu_torch.deployment.runtime import VarianceArtifactRuntime
+    from diffsinger_tpu_torch.ops import flash_attention
+    from diffsinger_tpu_torch.utils import no_tf32
+
+    dev = torch.device("cuda")
+    name, cfg, _ = write_variance_experiment(root)
+    hp = load_config(exp_name=name, infer=True, ckpt_root=root / "checkpoints")
+    exporter = DiffSingerVarianceExporter(hp, root / "variance", buckets=EXPORT_BUCKETS,
+                                          fmt="both", device="cuda")
+    t0 = time.perf_counter()
+    quiet(exporter.export)
+    out = {"export_s": time.perf_counter() - t0, "export_split_s": dict(exporter.seconds),
+           "sizes_mb": {f: (root / "variance" / f).stat().st_size / 1e6
+                        for files in exporter.bucket_files.values() for f in files.values()}}
+    log(f"[export] variance exported on the card in {out['export_s']:.1f} s (trace "
+        f"{exporter.seconds['trace']:.1f} s, .pt2 {exporter.seconds['pt2']:.1f} s, ONNX "
+        f"{exporter.seconds['onnx']:.1f} s); sizes MB "
+        + ", ".join(f"{k} {v:.1f}" for k, v in out["sizes_mb"].items()))
+    model = exporter.model
+    rt = VarianceArtifactRuntime(root / "variance", device="cuda")
+    names = rt.variance_names()
+    steps = int(rt.manifest["sampling_steps"])
+    n_enc = hp["enc_layers"]
+    rb = hp["pitch_prediction_args"]["repeat_bins"]
+    trb = hp["variances_prediction_args"]["total_repeat_bins"]
+
+    # 1. each view at the default bucket against eager: launches and values
+    bp, bm = EXPORT_BUCKETS[0]
+    req = variance_request(56, seed=31)
+    t_ph, t_mel = req["tokens"].shape[1], req["pitch"].shape[1]
+
+    def padded(key, n, value=0):
+        a = req[key]
+        return torch.from_numpy(np.pad(a, [(0, 0), (0, n - a.shape[1])],
+                                       constant_values=value)).to(dev)
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    noise_p = torch.randn((1, bm, rb), generator=gen, device=dev)
+    noise_v = torch.randn((1, bm, trb), generator=gen, device=dev)
+    retake = torch.ones((1, bm, len(names)), dtype=torch.bool, device=dev)
+    expr = torch.ones((1, bm), device=dev)
+    zeros = torch.zeros((1, bm), device=dev)
+
+    def eager_encode():  # float32 throughout, as the runtime calls its programs
+        with torch.no_grad(), no_tf32():
+            return model.module.encode(padded("tokens", bp), padded("midi", bp),
+                                       padded("ph2word", bp), word_dur=padded("word_dur", bp))
+
+    def eager_pitch(enc):
+        return model.forward_pitch_deployed(
+            enc, padded("ph_dur", bp), padded("note_midi", bp), padded("note_dur", bp),
+            padded("pitch", bm), retake[:, :, 0], expr=expr, steps=torch.tensor(steps),
+            noise=noise_p)
+
+    def eager_variance(enc, pitch):
+        return model.forward_variance_deployed(
+            enc, padded("ph_dur", bp), pitch, {v: zeros for v in names}, retake,
+            steps=torch.tensor(steps), noise=noise_v)
+
+    def pt2_encode():
+        return rt.encode(req["tokens"], req["midi"], req["ph2word"], req["word_dur"], t_mel)
+
+    def pt2_pitch(enc, bucket):
+        return rt.predict_pitch(enc, req["ph_dur"], req["note_midi"], req["note_dur"],
+                                req["pitch"], bucket, noise=noise_p)
+
+    def pt2_variance(enc, pitch, bucket):
+        return rt.predict_variances(enc, req["ph_dur"], pitch, bucket, noise=noise_v)
+
+    launches = {}
+    reset_counts()
+    enc, dur, bucket = pt2_encode()
+    torch.cuda.synchronize()
+    launches["linguistic"] = read_counts()
+    reset_counts()
+    pitch = pt2_pitch(enc, bucket)
+    launches["pitch"] = read_counts()
+    reset_counts()
+    curves = pt2_variance(enc, pitch, bucket)
+    launches["variance"] = read_counts()
+    bwd = flash_attention.bwd_launches
+    reset_counts()
+    enc_e, dur_e = eager_encode()
+    pitch_e = eager_pitch(enc_e)
+    curves_e = eager_variance(enc_e, torch.from_numpy(
+        np.pad(pitch, [(0, 0), (0, bm - t_mel)])).to(dev))
+    torch.cuda.synchronize()
+    eager_launches = read_counts()
+    errs = {"encoder_out": max_err(enc, enc_e), "ph_dur_pred": max_err(
+        torch.from_numpy(dur), dur_e[:, :t_ph].cpu()),
+        "pitch": max_err(torch.from_numpy(pitch), pitch_e[:, :t_mel].cpu()),
+        **{v: max_err(torch.from_numpy(curves[v]), c[:, :t_mel].cpu())
+           for v, c in zip(names, curves_e)}}
+    zero = {"K1": 0, "K2": 0, "K3": 0}
+    want = {"linguistic": dict(zero, K3=n_enc), "pitch": zero, "variance": zero}
+    out.update(launches=launches, eager_launches=eager_launches, max_abs_err_vs_eager=errs,
+               request=[t_ph, t_mel])
+    log(f"[export] variance .pt2 request [1,{t_ph}] x [1,{t_mel}] in bucket ({bp}, {bm}), "
+        f"{steps} steps: launches {launches} (expected {want}; K3-bwd {bwd}), eager "
+        f"{eager_launches}; max|.pt2 - eager| "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()) + " (tolerance 1e-6, float32)")
+    if launches != want or bwd or eager_launches != dict(zero, K3=n_enc):
+        fail(f"export: the variance .pt2 views launched {launches} (K3-bwd {bwd}), eager "
+             f"{eager_launches}, not {want}")
+    if not (all(v <= 1e-6 for v in errs.values()) and np.isfinite(pitch).all()
+            and all(np.isfinite(c).all() for c in curves.values())):
+        fail("export: a variance .pt2 view disagrees with the eager view on the card")
+
+    # 2. each view's request timed in turns with eager
+    pitch_dev = torch.from_numpy(np.pad(pitch, [(0, 0), (0, bm - t_mel)])).to(dev)
+    views = {
+        "linguistic": (lambda: pt2_encode()[1], lambda: eager_encode()[1].cpu()),
+        "pitch": (lambda: pt2_pitch(enc, bucket), lambda: eager_pitch(enc_e).cpu()),
+        "variance": (lambda: pt2_variance(enc, pitch, bucket),
+                     lambda: eager_variance(enc_e, pitch_dev)[0].cpu()),
+    }
+    out["request_s"] = {}
+    for view, (run_pt2, run_eager) in views.items():
+        r = out["request_s"][view] = export_turns(run_eager, run_pt2)
+        log(f"[export] variance {view} request [1,{t_ph}] x [1,{t_mel}], {steps} steps: .pt2 "
+            f"{r['mean']['pt2'] * 1e3:.2f} ms mean ({r['best']['pt2'] * 1e3:.2f} best), eager "
+            f"{r['mean']['eager'] * 1e3:.2f} ms mean ({r['best']['eager'] * 1e3:.2f} best); "
+            f".pt2 / eager {r['mean']['pt2'] / r['mean']['eager']:.3f} on {card}")
+    out["profile"] = profile_request(
+        lambda: pt2_variance(enc, pt2_pitch(enc, bucket), bucket),
+        "one .pt2 pitch + variance request", table="chip_smoke_export_variance_profile.txt")
+    out["pitch_waits"] = {"pt2": count_syncs(lambda: pt2_pitch(enc, bucket)),
+                          "eager": count_syncs(lambda: eager_pitch(enc_e).cpu())}
+    log(f"[export] variance pitch request, device waits and launches (profiler): .pt2 "
+        f"{out['pitch_waits']['pt2']}, eager {out['pitch_waits']['eager']}")
+
+    # 3. the chain through the three runtimes alone: score -> pitch, curves ->
+    # mel -> waveform
+    t0 = time.perf_counter()
+    enc_c, _, bucket_c = pt2_encode()
+    pitch_c = rt.predict_pitch(enc_c, req["ph_dur"], req["note_midi"], req["note_dur"],
+                               req["pitch"], bucket_c, seed=5)
+    curves_c = rt.predict_variances(enc_c, req["ph_dur"], pitch_c, bucket_c, seed=5)
+    f0 = (440.0 * 2.0 ** ((pitch_c - 69.0) / 12.0)).astype(np.float32)
+    mel2ph = np.repeat(np.arange(1, t_ph + 1), req["ph_dur"][0])[None].astype(np.int32)
+    extras = {v: curves_c[v] for v in names
+              if v in acoustic_runtime.manifest.get("extra_inputs", [])}
+    mel = acoustic_runtime.synthesize_mel(req["tokens"], mel2ph, f0, seed=5, **extras)
+    wav = vocoder_runtime.vocode(mel, f0, seed=5)
+    chain_s = time.perf_counter() - t0
+    hop = vocoder_runtime.hop_size
+    ok = (wav.shape == (1, t_mel * hop) and np.isfinite(wav).all()
+          and float(np.abs(wav).max()) > 0 and np.isfinite(mel).all())
+    out["chain"] = {"seconds": chain_s, "wav_samples": int(wav.shape[1]), "ok": bool(ok)}
+    log(f"[export] chain variance -> acoustic -> vocoder bundles through the runtimes: "
+        f"[1,{t_ph}] phonemes -> pitch [1,{t_mel}] -> mel {tuple(mel.shape)} -> wav "
+        f"{tuple(wav.shape)} (want {t_mel * hop} samples) in {chain_s:.2f} s, finite {ok}")
+    if not ok:
+        fail("export: the variance -> acoustic -> vocoder chain failed")
+
+    # 4. the ONNX: every graph checked; the small bucket's pitch and variance
+    # graphs through the interpreter at 2 steps against the card's eager views
+    t0 = time.perf_counter()
+    for files in exporter.bucket_files.values():
+        for kind in ("linguistic_onnx", "pitch_onnx", "variance_onnx"):
+            check_model((root / "variance" / files[kind]).read_bytes(), known_ops=EMITTED_OPS)
+    sp, sm = EXPORT_BUCKETS[1]
+    small = variance_request(8, seed=32)
+    small_files = exporter.bucket_files[f"{sp}x{sm}"]
+    feed = {k: np.pad(v, [(0, 0), (0, (sp if k != "pitch" else sm) - v.shape[1])],
+                      constant_values=0) for k, v in small.items()}
+    enc_s = np.random.default_rng(33).standard_normal((1, sp, hp["hidden_size"])).astype(
+        np.float32)
+    feed.update(encoder_out=enc_s, steps=np.int32(EXPORT_ONNX_STEPS),
+                expr=np.ones((1, sm), np.float32), retake=np.ones((1, sm), bool))
+    (pitch_onnx,) = run_model((root / "variance" / small_files["pitch_onnx"]).read_bytes(),
+                              {k: feed[k] for k in rt.inputs["pitch"]}, rng_seed=8)
+    on = {k: torch.from_numpy(np.asarray(v)).to(dev) for k, v in feed.items()}
+    feed.update(pitch=pitch_onnx, retake=np.ones((1, sm, len(names)), bool),
+                **{v: np.zeros((1, sm), np.float32) for v in names})
+    curves_onnx = run_model((root / "variance" / small_files["variance_onnx"]).read_bytes(),
+                            {k: feed[k] for k in rt.inputs["variance"]}, rng_seed=9)
+    onnx_s = time.perf_counter() - t0
+    draw = lambda seed, width: torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        (1, sm, width)).astype(np.float32)).to(dev)
+    pitch_card = model.forward_pitch_deployed(
+        on["encoder_out"], on["ph_dur"], on["note_midi"], on["note_dur"], on["pitch"],
+        on["retake"], expr=on["expr"], steps=torch.tensor(EXPORT_ONNX_STEPS), noise=draw(8, rb))
+    curves_card = model.forward_variance_deployed(
+        on["encoder_out"], on["ph_dur"], torch.from_numpy(pitch_onnx).to(dev),
+        {v: torch.zeros((1, sm), device=dev) for v in names},
+        torch.ones((1, sm, len(names)), dtype=torch.bool, device=dev),
+        steps=torch.tensor(EXPORT_ONNX_STEPS), noise=draw(9, trb))
+    onnx_errs = {"pitch": max_err(torch.from_numpy(pitch_onnx), pitch_card.cpu()),
+                 **{v: max_err(torch.from_numpy(g), c.cpu())
+                    for v, g, c in zip(names, curves_onnx, curves_card)}}
+    out["onnx"] = {"max_abs_err_vs_card": onnx_errs, "check_and_interpret_s": onnx_s}
+    log(f"[export] variance ONNX: every graph passes the checker; the [1,{sp}] x [1,{sm}] "
+        f"pitch and variance graphs at {EXPORT_ONNX_STEPS} steps through the interpreter "
+        f"against the card's eager views: max|diff| "
+        + ", ".join(f"{k} {v:.3e}" for k, v in onnx_errs.items())
+        + f" (tolerance 1e-3) in {onnx_s:.1f} s")
+    if not all(v <= 1e-3 for v in onnx_errs.values()):
+        fail("export: a variance ONNX graph disagrees with the card")
+    return out
+
+
 def export_phase(card, reset_counts, read_counts):
     """[export]: the acoustic model (configs/acoustic.yaml at full width, seeded
     weights, 50 steps) and the full-NSF vocoder exported on the card through
@@ -1252,6 +1502,10 @@ def export_checks(root, card, reset_counts, read_counts):
         f"output: max|diff| {onnx_err:.3e} (tolerance 1e-3) in {onnx_s:.1f} s")
     if not onnx_err <= 1e-3:
         fail("export: the ONNX graph disagrees with the card")
+
+    # 7. the variance model's bundle, and the chain into the two above
+    out["variance"] = variance_export_check(root / "variance_exp", card, reset_counts,
+                                            read_counts, runtime, voc_runtime)
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"[export] phase {out['phase_s']:.1f} s")
     return out, dict(counts, K3bwd=bwd_launches)

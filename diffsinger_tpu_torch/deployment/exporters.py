@@ -5,16 +5,19 @@ Each bundle holds, per shape bucket, ``torch.export`` programs saved as
 from the same programs (``deployment/onnx/lowering.py``), plus the
 attachments of the reference's ecosystem contract: ``dsconfig.yaml``,
 ``phonemes.json``, ``languages.json``, dictionaries and speaker ``.emb``
-files (acoustic), ``vocoder.yaml`` (vocoder).
+files (acoustic, variance), ``vocoder.yaml`` (vocoder).
 
 * acoustic: ``fs2_aux`` (encoder + aux draft) and ``acoustic`` (the whole
   deployment forward, ``DiffSingerAcoustic.forward_infer_dynamic``, with
   ``depth`` and ``steps`` as inputs) views;
+* variance: ``linguistic`` (encoder + duration predictor), ``pitch`` and
+  ``variance`` (``DiffSingerVariance.forward_pitch_deployed`` /
+  ``forward_variance_deployed``, with ``steps`` as an input) views;
 * vocoder: mel + f0 -> waveform.
 
 A ``.pt2`` is exported on the device it will run on (the card unless
 ``device='cpu'``), which the manifest records: in it LYNXNet's conv module is
-K2 and the encoder's attention K3 (``ds::`` custom ops), launched on the
+K2 and the encoders' attention K3 (``ds::`` custom ops), launched on the
 card. The ONNX graphs hold the kernels' plain versions, as the JAX package's
 hold no Pallas. Artifacts are float32 whatever ``infer_precision`` says.
 """
@@ -423,6 +426,228 @@ class DiffSingerAcousticExporter(BaseExporter):
         if self.export_spk:
             self._export_spk_embeds(self._spk_table(), self.infer.spk_map, self.export_spk,
                                     hp["exp_name"] or "acoustic")
+
+
+class VarianceProgram(nn.Module):
+    """A traceable view of the variance model with the deployed inputs, in the
+    order of ``input_names`` (the manifest's ``inputs`` of the view, then
+    ``noise`` for the sampling views).
+
+    ``view`` 'linguistic': (tokens, midi, ph2word, word_dur[, ph_spk_embed][,
+    languages]) -> (encoder_out, ph_dur_pred); 'pitch': the inputs of
+    ``DiffSingerVariance.forward_pitch_deployed``, ``steps`` and ``noise`` ->
+    the absolute pitch; 'variance': those of ``forward_variance_deployed`` ->
+    the curves in ``var_list`` order. A sampling view draws nothing: its
+    ``noise`` is an input. ``frozen_spk`` [1, 1, H] stands for the speaker
+    inputs of a frozen speaker mix; ``glide_frozen`` feeds the glide embed
+    its 'none' row.
+    """
+
+    PARTS = {"linguistic": ("fs2",),
+             "pitch": ("melody_encoder", "delta_pitch_embed", "base_pitch_embed",
+                       "pitch_retake_embed", "pitch_predictor"),
+             "variance": ("pitch_embed", "variance_embeds", "variance_predictor")}
+
+    def __init__(self, model, view: str, input_names, frozen_spk=None,
+                 glide_frozen: bool = False):
+        super().__init__()
+        # the parameters the view reads, so that a program holds no others
+        for part in self.PARTS[view]:
+            if hasattr(model.module, part):
+                setattr(self, part, getattr(model.module, part))
+        self.model = model
+        self.view = view
+        self.input_names = list(input_names)
+        self.glide_frozen = glide_frozen
+        self.register_buffer("frozen_spk", frozen_spk)
+
+    def forward(self, *args):
+        a = dict(zip(self.input_names, args))
+        spk = a.get("spk_embed", self.frozen_spk)
+        if self.view == "linguistic":
+            kwargs = {"languages": a.get("languages"),
+                      "ph_spk_mix_embed": a.get("ph_spk_embed", self.frozen_spk)}
+            return self.model.module.encode(a["tokens"], a["midi"], a["ph2word"],
+                                            word_dur=a["word_dur"], **kwargs)
+        if self.view == "pitch":
+            glide = a.get("note_glide")
+            if glide is None and self.glide_frozen:
+                glide = torch.zeros_like(a["note_dur"])
+            return self.model.forward_pitch_deployed(
+                a["encoder_out"], a["ph_dur"], a["note_midi"], a["note_dur"], a["pitch"],
+                a["retake"], note_rest=a.get("note_rest"), note_glide=glide, expr=a.get("expr"),
+                spk_mix_embed=spk, steps=a["steps"], noise=a["noise"])
+        return self.model.forward_variance_deployed(
+            a["encoder_out"], a["ph_dur"], a["pitch"],
+            {v: a[v] for v in self.model.var_list}, a["retake"], spk_mix_embed=spk,
+            steps=a["steps"], noise=a["noise"])
+
+
+class DiffSingerVarianceExporter(BaseExporter):
+    """The variance model's bundle: per bucket (t_ph, t_mel) the linguistic
+    view (encoder and duration predictor) and, where the model predicts
+    them, the pitch and variance views, as ``.pt2`` programs and/or ONNX
+    graphs, with ``dsconfig.yaml`` (the per-view ``inputs``), phonemes,
+    dictionaries and speaker ``.emb`` files.
+
+    ``freeze_expr`` drops the pitch view's ``expr`` input (the retake
+    embedding's own rows), ``freeze_glide`` its ``note_glide`` input (glide
+    'none'); a frozen speaker mix replaces the speaker inputs of every view.
+    """
+
+    DEFAULT_BUCKETS = ((64, 512),)
+
+    def __init__(self, hparams, export_dir, ckpt_steps: Optional[int] = None,
+                 freeze_expr: bool = False, freeze_glide: bool = False, export_spk=None,
+                 freeze_spk=None, buckets=None, fmt: str = "pt2", device=None):
+        super().__init__(hparams, export_dir, fmt=fmt, device=device)
+        from diffsinger_tpu_torch.inference.ds_variance import DiffSingerVarianceInfer
+
+        self.infer = DiffSingerVarianceInfer(self.hparams, ckpt_steps=ckpt_steps,
+                                             device=self.device)
+        self.model = self.infer.model
+        self.model.module.requires_grad_(False)
+        self.expose_expr = not freeze_expr
+        self.freeze_glide = bool(freeze_glide)
+        self.export_spk, self.freeze_spk = self._resolve_spk_settings(
+            export_spk, freeze_spk, self.infer.spk_map)
+        self.buckets = [tuple(b) for b in (buckets or self.DEFAULT_BUCKETS)]
+        self.bucket_files: dict = {}
+        self._input_names: dict = {}
+
+    @property
+    def model_name(self) -> str:
+        name = self.hparams["exp_name"] or "variance"
+        if self.freeze_spk is not None:
+            name += "." + self.freeze_spk[0]
+        return name
+
+    def _specs(self, frozen: bool) -> dict:
+        """{view: [(input name, example(t_ph, t_mel))]}, the manifest's order."""
+        hp = self.hparams
+        model = self.model
+        dev = self.device
+        hidden = hp["hidden_size"]
+        spk_input = hp.get("use_spk_id", False) and not frozen
+        use_melody = model.use_melody_encoder
+        use_glide = use_melody and hp.get("use_glide_embed", False) and not self.freeze_glide
+        i32 = torch.int32
+
+        def full(shape_fn, value=0, dtype=torch.float32):
+            return lambda tp, tm: torch.full(shape_fn(tp, tm), value, dtype=dtype, device=dev)
+
+        ph, mel = (lambda tp, tm: (1, tp)), (lambda tp, tm: (1, tm))
+        spk = [("spk_embed", full(lambda tp, tm: (1, 1, hidden)))] if spk_input else []
+        # steps stays on the host, where the samplers keep their counters
+        steps = ("steps", lambda tp, tm: torch.tensor(hp.get("sampling_steps", 20), dtype=i32))
+        linguistic = ([("tokens", full(ph, 0, i32)), ("midi", full(ph, 0, i32)),
+                       ("ph2word", full(ph, 0, i32)), ("word_dur", full(ph, 1.0))]
+                      + ([("ph_spk_embed", full(lambda tp, tm: (1, 1, hidden)))]
+                         if spk_input else [])
+                      + ([("languages", full(ph, 0, i32))] if hp.get("use_lang_id", False)
+                         else []))
+        pitch = ([("encoder_out", full(lambda tp, tm: (1, tp, hidden))),
+                  ("ph_dur", full(ph, 1, i32)), ("note_midi", full(ph, 60.0))]
+                 + ([("note_rest", full(ph, False, torch.bool))] if use_melody else [])
+                 + [("note_dur", full(ph, 1, i32))]
+                 + ([("note_glide", full(ph, 0, i32))] if use_glide else [])
+                 + [("pitch", full(mel, 60.0))]
+                 + ([("expr", full(mel, 1.0))] if self.expose_expr else [])
+                 + [("retake", full(mel, True, torch.bool))] + spk + [steps])
+        n_var = len(model.var_list)
+        variance = ([("encoder_out", full(lambda tp, tm: (1, tp, hidden))),
+                     ("ph_dur", full(ph, 1, i32)), ("pitch", full(mel, 60.0))]
+                    + [(v, full(mel)) for v in model.var_list]
+                    + [("retake", full(lambda tp, tm: (1, tm, n_var), True, torch.bool))]
+                    + spk + [steps])
+        return {"linguistic": linguistic, "pitch": pitch, "variance": variance}
+
+    def export_model(self):
+        hp = self.hparams
+        model = self.model
+        name = self.model_name
+        frozen_spk = None
+        if hp.get("use_spk_id", False) and self.freeze_spk is not None:
+            emb = self._spk_mix_embed(model.module.spk_embed.weight, self.infer.spk_map,
+                                      self.freeze_spk[1])
+            frozen_spk = torch.from_numpy(emb)[None, None, :].to(self.device)
+        specs = self._specs(frozen_spk is not None)
+        self._input_names = {view: [n for n, _ in spec] for view, spec in specs.items()}
+        glide_frozen = (model.use_melody_encoder and hp.get("use_glide_embed", False)
+                        and self.freeze_glide)
+        views = (["linguistic"] + (["pitch"] if model.predict_pitch else [])
+                 + (["variance"] if model.var_list else []))
+        widths = {"pitch": hp["pitch_prediction_args"]["repeat_bins"] if model.predict_pitch
+                  else 0,
+                  "variance": (hp["variances_prediction_args"]["total_repeat_bins"]
+                               if model.var_list else 0)}
+        outputs = {"linguistic": ["encoder_out", "ph_dur_pred"], "pitch": ["pitch_pred"],
+                   "variance": [f"{v}_pred" for v in model.var_list]}
+        for i, (t_ph, t_mel) in enumerate(self.buckets):
+            suffix = "" if i == 0 else f".b{t_ph}x{t_mel}"
+            files = {}
+            for view in views:
+                names = list(self._input_names[view])
+                examples = [ex(t_ph, t_mel) for _, ex in specs[view]]
+                if view != "linguistic":
+                    names.append("noise")
+                    examples.append(torch.zeros((1, t_mel, widths[view]), device=self.device))
+                ep = self._trace(VarianceProgram(model, view, names, frozen_spk, glide_frozen),
+                                 examples)
+                if self.want_pt2:
+                    stem = "linguistic_dur" if view == "linguistic" else view
+                    files[view] = f"{name}.{stem}{suffix}.pt2"
+                    self._save_pt2(ep, self.export_dir / files[view])
+                if self.want_onnx:
+                    files[f"{view}_onnx"] = f"{name}.{view}{suffix}.onnx"
+                    self._save_onnx(ep, self.export_dir / files[f"{view}_onnx"],
+                                    input_names=names, output_names=outputs[view],
+                                    internal_noise=["noise"] if view != "linguistic" else ())
+            self.bucket_files[f"{t_ph}x{t_mel}"] = files
+
+    def export_attachments(self):
+        hp = self.hparams
+        first = next(iter(self.bucket_files.values()), {})
+        manifest = {
+            "flavor": self.fmt,
+            "device": self.device.type,
+            "linguistic": first.get("linguistic_onnx" if self.fmt == "onnx" else "linguistic",
+                                    f"{self.model_name}.linguistic_dur.pt2"),
+            "phonemes": "phonemes.json",
+            "hidden_size": hp["hidden_size"],
+            "predict_dur": hp["predict_dur"],
+            "predict_pitch": hp["predict_pitch"],
+            **{f"predict_{v}": v in self.model.var_list for v in VARIANCES},
+            # steps is an input of the sampling views
+            "use_continuous_acceleration": True,
+            "sampling_steps": hp.get("sampling_steps", 20),
+            "sample_rate": hp["audio_sample_rate"],
+            "hop_size": hp["hop_size"],
+            "speakers": [f"{hp['exp_name'] or 'variance'}.{alias}"
+                         for alias, _ in self.export_spk],
+            "buckets": self.bucket_files,
+            "use_lang_id": bool(hp.get("use_lang_id", False)),
+            # each view's ordered inputs (the sampling views' ``noise`` after
+            # them: an input of a .pt2, drawn inside an ONNX graph)
+            "inputs": self._input_names,
+        }
+        if hp["predict_pitch"]:
+            melody = self.model.use_melody_encoder
+            manifest["use_expr"] = bool(self.expose_expr)
+            manifest["use_note_rest"] = bool(melody)
+            manifest["use_glide_embed"] = bool(melody and hp.get("use_glide_embed", False)
+                                               and not self.freeze_glide)
+        lang_file = self._export_languages(self.infer.lang_map)
+        if lang_file:
+            manifest["languages"] = lang_file
+        with open(self.export_dir / "dsconfig.yaml", "w") as f:
+            yaml.safe_dump(manifest, f)
+        print(f"| export: {self.export_dir / 'dsconfig.yaml'}")
+        self._export_phonemes(self.infer.phoneme_dictionary)
+        self._export_dictionaries()
+        if self.export_spk:
+            self._export_spk_embeds(self.model.module.spk_embed.weight, self.infer.spk_map,
+                                    self.export_spk, hp["exp_name"] or "variance")
 
 
 class VocoderProgram(nn.Module):

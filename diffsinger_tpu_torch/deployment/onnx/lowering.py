@@ -255,6 +255,19 @@ def _rsqrt(ctx, node, a):
     return ctx.node("Reciprocal", ctx.node("Sqrt", [_operand(ctx, a, _meta(node).dtype)]))
 
 
+@register(aten.log1p.default)
+def _log1p(ctx, node, a):
+    """log(1 + x), as the JAX package lowers ``log1p``."""
+    dt = _meta(node).dtype
+    return ctx.node("Log", ctx.node("Add", [_operand(ctx, a, dt), ctx.const(1, dt)]))
+
+
+@register(aten.relu.default)
+def _relu(ctx, node, a):
+    dt = _meta(node).dtype
+    return ctx.node("Max", [_operand(ctx, a, dt), ctx.const(0, dt)])
+
+
 @register(aten.gelu.default)
 def _gelu(ctx, node, a, approximate="none"):
     """Exact GELU as torch computes it: x * 0.5 * (1 + erf(x / sqrt(2)))."""
@@ -467,6 +480,25 @@ def _scatter_add(ctx, node, a, dim, index, src):
         upd = ctx.node("Slice", [upd, ctx.ints([0] * rank), ctx.ints(index.shape),
                                  ctx.ints(list(range(rank)))])[0]
     return ctx.node("ScatterND", [ctx.name(a), idx, upd], reduction="add")
+
+
+@register(aten.searchsorted.Tensor)
+def _searchsorted(ctx, node, seq, values, *, out_int32=False, right=False, side=None,
+                  sorter=None):
+    """The insertion index of each value: how many entries of the sorted row
+    are below it (``right``: not above it), a broadcast compare summed over
+    the row, as the JAX package lowers ``length_regulator``'s count."""
+    if sorter is not None:
+        raise LoweringError("searchsorted with a sorter")
+    right = right or side == "right"
+    dt = _promoted(seq, values)
+    s = ctx.node("Reshape", [_operand(ctx, seq, dt),
+                             ctx.ints(seq.shape[:-1] + (1, seq.shape[-1]))])[0]
+    v = ctx.node("Reshape", [_operand(ctx, values, dt), ctx.ints(values.shape + (1,))])[0]
+    hit = ctx.node("LessOrEqual" if right else "Less", [s, v])[0]
+    count = ctx.node("Cast", [hit], to=_dt(torch.int64))[0]
+    count = _reduce(ctx, "ReduceSum", count, [len(values.shape)], False)[0]
+    return [ctx.cast(Value(count, torch.int64, values.shape), _meta(node).dtype)]
 
 
 # ------------------------------------------------------------- reductions

@@ -1,11 +1,13 @@
 """Artifact runtimes: serve exported ``.pt2`` bundles without model code
-(counterpart of diffsinger_tpu/deployment/runtime.py).
+(counterpart of diffsinger_tpu/deployment/runtime.py): acoustic, variance
+and vocoder bundles.
 
 A runtime reads the manifest the exporter wrote (``dsconfig.yaml`` or
 ``vocoder.yaml``), picks the smallest bucket that fits the input, pads,
 runs the loaded program (``torch.export.load(...).module()``) and trims the
 output. The programs call the kernels' custom ops (``ds::``), which the
-imports below register: on the card they launch K2 and K3. A runtime serves
+imports below register: on the card they launch K2 and K3. Programs are
+called from a roomy frame (``utils.frames.with_room``). A runtime serves
 only a bundle exported for its own device type: it does not move a program
 between devices. Float32 programs run with TF32 off (``utils.no_tf32``), as
 the eager float32 models do.
@@ -13,7 +15,6 @@ the eager float32 models do.
 
 from __future__ import annotations
 
-import functools
 import pathlib
 from typing import Dict, Optional, Tuple
 
@@ -24,6 +25,7 @@ import yaml
 # registers the ds:: custom ops that the programs call
 from diffsinger_tpu_torch.ops import depthwise_conv, flash_attention, lynx_fused  # noqa: F401
 from diffsinger_tpu_torch.utils import no_tf32, resolve_device
+from diffsinger_tpu_torch.utils.frames import with_room
 
 
 def _pad_axis1(arr: np.ndarray, length: int, value=0) -> np.ndarray:
@@ -50,26 +52,6 @@ def _check_bundle(manifest: dict, device: torch.device):
         raise ValueError(
             f"the bundle was exported for {exported_on!r}, this runtime runs on "
             f"{device.type!r}: export it again on that device (--device)")
-
-
-@functools.lru_cache(maxsize=None)
-def _with_room():
-    """``with_room(fn, *args)`` calls ``fn(*args)`` from a frame of about
-    128 KiB.
-
-    CPython keeps a thread's Python frames in chunks (16 KiB by default) and
-    gives a chunk back as soon as the frame at its start returns, so a loop
-    whose calls land across a chunk boundary takes and gives back a chunk on
-    every call: up to 0.17 ms a call on an H100 machine's host, which made a
-    loaded program's request 2-7x slower at the stack depths that put its op
-    loop there (``tools/probe_pt2_host.py``). A frame this large starts a
-    chunk of its own with about as much room after it, so no call of a
-    request crosses a boundary, whatever the caller's depth."""
-    names = " = ".join(f"_r{i}" for i in range(1 << 14))
-    scope: dict = {}
-    exec(compile(f"def with_room(fn, *args):\n    if False:\n        {names} = None\n"
-                 "    return fn(*args)\n", "<with_room>", "exec"), scope)
-    return scope["with_room"]
 
 
 class _Programs:
@@ -164,12 +146,156 @@ class AcousticArtifactRuntime:
                                 device=dev)
         program = self.programs[files["acoustic"]]
         with torch.no_grad(), no_tf32():
-            mel = _with_room()(program, on_device(tokens, bt, dtype=np.int32),
-                               on_device(mel2ph, bm, dtype=np.int32),
-                               on_device(f0, bm, value=220.0),
-                               torch.tensor(depth, dtype=torch.float32),
-                               torch.tensor(steps, dtype=torch.int32), noise.to(dev), *args)
+            mel = with_room(program, on_device(tokens, bt, dtype=np.int32),
+                            on_device(mel2ph, bm, dtype=np.int32),
+                            on_device(f0, bm, value=220.0),
+                            torch.tensor(depth, dtype=torch.float32),
+                            torch.tensor(steps, dtype=torch.int32), noise.to(dev), *args)
         return mel[:, :t_mel].cpu().numpy()
+
+
+VARIANCES = ("energy", "breathiness", "voicing", "tension")
+
+
+class VarianceArtifactRuntime:
+    """Serve an exported variance bundle through its deployed views: the
+    linguistic view (tokens -> encoder_out, ph_dur_pred), then the pitch and
+    variance views, which take ``encoder_out``, frame durations, the notes,
+    the current pitch and curves, a retake mask and ``expr``, and align,
+    smooth and blend inside the program.
+
+    Each view's inputs come in the manifest's ``inputs`` order, padded to the
+    bucket; what the caller leaves out takes its neutral value (retake all
+    frames, expr 1, note_rest and glide 0, curves 0). The sampling views'
+    noise is drawn from a ``torch.Generator`` on the device seeded with
+    ``seed`` unless ``noise`` gives it.
+    """
+
+    # input -> (axis-1 length: 'ph' or 'mel', pad value, dtype)
+    PADS = {"tokens": ("ph", 0, np.int32), "midi": ("ph", 0, np.int32),
+            "ph2word": ("ph", 0, np.int32), "word_dur": ("ph", 0, np.float32),
+            "languages": ("ph", 0, np.int32), "encoder_out": ("ph", 0, np.float32),
+            "ph_dur": ("ph", 0, np.int32), "note_midi": ("ph", 0, np.float32),
+            "note_rest": ("ph", True, np.bool_), "note_dur": ("ph", 0, np.int32),
+            "note_glide": ("ph", 0, np.int32), "pitch": ("mel", 0, np.float32),
+            "expr": ("mel", 1.0, np.float32), "retake": ("mel", True, np.bool_)}
+
+    def __init__(self, bundle_dir, device=None):
+        self.dir = pathlib.Path(bundle_dir)
+        self.device = resolve_device(device)
+        with open(self.dir / "dsconfig.yaml") as f:
+            self.manifest = yaml.safe_load(f)
+        _check_bundle(self.manifest, self.device)
+        if "linguistic" not in self.manifest:
+            raise ValueError("not a variance bundle: its manifest has no 'linguistic' view")
+        buckets = self.manifest.get("buckets") or {}
+        if not buckets:
+            raise ValueError("manifest has no bucket table")
+        self.buckets = sorted((tuple(int(d) for d in key.split("x")) + (files,)
+                               for key, files in buckets.items()),
+                              key=lambda b: (b[1], b[0]))
+        self.inputs = self.manifest.get("inputs") or {}
+        self.programs = _Programs(self.dir)
+
+    def variance_names(self) -> list:
+        return [v for v in VARIANCES if self.manifest.get(f"predict_{v}", False)]
+
+    def pick_bucket(self, t_ph: int, t_mel: int) -> Tuple[int, int, dict]:
+        for bp, bm, files in self.buckets:
+            if t_ph <= bp and t_mel <= bm:
+                return bp, bm, files
+        raise ValueError(f"no exported bucket fits (t_ph={t_ph}, t_mel={t_mel}); "
+                         f"available: {[(b[0], b[1]) for b in self.buckets]}")
+
+    def _collect(self, view: str, given: dict, bp: int, bm: int) -> list:
+        """The view's inputs before ``steps`` as tensors on the device, padded
+        to the bucket, with the neutral value of each one not given."""
+        t_mel = given["pitch"].shape[1] if "pitch" in given else bm
+        args = []
+        for name in self.inputs[view]:
+            if name == "steps":
+                continue
+            val = given.get(name)
+            if isinstance(val, torch.Tensor):  # encoder_out from encode(), on the device
+                args.append(val.to(self.device))
+                continue
+            if val is None:
+                if name == "retake":
+                    shape = (1, t_mel) if view == "pitch" else (1, t_mel,
+                                                                len(self.variance_names()))
+                    val = np.ones(shape, bool)
+                elif name == "expr":
+                    val = np.ones((1, t_mel), np.float32)
+                elif name in ("note_rest", "note_glide"):
+                    val = np.zeros((1, given["note_midi"].shape[1]), np.int32)
+                elif name in VARIANCES:
+                    val = np.zeros((1, t_mel), np.float32)
+                else:
+                    raise ValueError(f"view '{view}' takes input '{name}', which has no "
+                                     "neutral value: pass it as a keyword argument")
+            if name in ("spk_embed", "ph_spk_embed"):  # one mix [H] or [1, 1, H]
+                val = np.asarray(val, np.float32).reshape(1, 1, -1)
+            else:
+                axis, fill, dtype = self.PADS.get(name, ("mel", 0, np.float32))
+                val = _pad_axis1(np.asarray(val, dtype), bp if axis == "ph" else bm, fill)
+            args.append(torch.from_numpy(val).to(self.device))
+        return args
+
+    def _run(self, view: str, files: dict, args: list, steps: Optional[int], seed: int,
+             noise: Optional[torch.Tensor]):
+        program = self.programs[files[view]]
+        if steps is None:
+            steps = int(self.manifest.get("sampling_steps", 20))
+        if noise is None:  # the shape of the program's last input
+            shape = [n.meta["val"].shape for n in program.graph.nodes
+                     if n.op == "placeholder"][-1]
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+            noise = torch.randn(tuple(shape), generator=gen, device=self.device)
+        with torch.no_grad(), no_tf32():
+            return with_room(program, *args, torch.tensor(steps, dtype=torch.int32),
+                             noise.to(self.device))
+
+    def encode(self, tokens: np.ndarray, midi: np.ndarray, ph2word: np.ndarray,
+               word_dur: np.ndarray, t_mel: int, **extra):
+        """-> (encoder_out [1, bucket T_ph, H] on the device, ph_dur_pred
+        [1, T_ph] numpy, bucket). ``encoder_out`` stays padded and on the
+        device for the sampling views; ``bucket`` is the (t_ph, t_mel, files)
+        they run in, chosen by ``tokens``' length and ``t_mel``."""
+        t_ph = tokens.shape[1]
+        bp, bm, files = bucket = self.pick_bucket(t_ph, t_mel)
+        args = self._collect("linguistic", dict(tokens=tokens, midi=midi, ph2word=ph2word,
+                                                word_dur=word_dur, **extra), bp, bm)
+        with torch.no_grad(), no_tf32():
+            enc, dur = with_room(self.programs[files["linguistic"]], *args)
+        return enc, dur[:, :t_ph].cpu().numpy(), bucket
+
+    def predict_pitch(self, encoder_out, ph_dur: np.ndarray, note_midi: np.ndarray,
+                      note_dur: np.ndarray, pitch: np.ndarray, bucket, seed: int = 0,
+                      steps: Optional[int] = None, noise: Optional[torch.Tensor] = None,
+                      **extra) -> np.ndarray:
+        """-> the absolute pitch [1, T_mel] (midi). ``ph_dur`` and ``note_dur``
+        are integer frames; ``retake``, ``expr``, ``note_rest``, ``note_glide``
+        and ``spk_embed`` are keyword arguments; ``noise`` [1, bucket T_mel,
+        repeat_bins]."""
+        bp, bm, files = bucket
+        args = self._collect("pitch", dict(encoder_out=encoder_out, ph_dur=ph_dur,
+                                           note_midi=note_midi, note_dur=note_dur,
+                                           pitch=pitch, **extra), bp, bm)
+        out = self._run("pitch", files, args, steps, seed, noise)
+        return out[:, :pitch.shape[1]].cpu().numpy()
+
+    def predict_variances(self, encoder_out, ph_dur: np.ndarray, pitch: np.ndarray, bucket,
+                          seed: int = 0, steps: Optional[int] = None,
+                          noise: Optional[torch.Tensor] = None, **extra) -> Dict[str, np.ndarray]:
+        """-> {variance name: curve [1, T_mel]}. The input curves and a
+        [1, T_mel, F] ``retake`` are keyword arguments; ``noise`` [1, bucket
+        T_mel, total_repeat_bins]."""
+        bp, bm, files = bucket
+        args = self._collect("variance", dict(encoder_out=encoder_out, ph_dur=ph_dur,
+                                              pitch=pitch, **extra), bp, bm)
+        outs = self._run("variance", files, args, steps, seed, noise)
+        return {v: o[:, :pitch.shape[1]].cpu().numpy()
+                for v, o in zip(self.variance_names(), outs)}
 
 
 class VocoderArtifactRuntime:
@@ -214,7 +340,7 @@ class VocoderArtifactRuntime:
         program = self.programs[filename]
         dev = self.device
         with torch.no_grad(), no_tf32():
-            wav = _with_room()(
+            wav = with_room(
                 program, torch.from_numpy(_pad_axis1(np.asarray(mel, np.float32), bm)).to(dev),
                 torch.from_numpy(_pad_axis1(np.asarray(f0, np.float32), bm,
                                             value=220.0)).to(dev),

@@ -1,10 +1,12 @@
 """Shared NN primitives (counterpart of diffsinger_tpu/models/commons.py).
 
 Embeddings and linears with the reference init, the sinusoidal step
-embedding, rotary position embedding, the conv-FFN and the FastSpeech2
-transformer encoder. Activations are channel-last [B, T, C]; attribute names
-follow the reference torch ``state_dict`` (``layers.{i}.op.self_attn.in_proj``,
-``ffn.ffn_1`` ...). Softmax and the rotary phases run in float32.
+embedding, rotary and absolute position embeddings, the conv-FFN and the
+FastSpeech2 transformer encoder, with or without RoPE. Activations are
+channel-last [B, T, C]; attribute names follow the reference torch
+``state_dict`` (``layers.{i}.op.self_attn.in_proj`` with RoPE,
+``self_attn.in_proj_weight`` without, ``ffn.ffn_1`` ...). Softmax and the
+rotary phases run in float32.
 """
 
 from __future__ import annotations
@@ -97,15 +99,80 @@ def apply_rope(x: torch.Tensor) -> torch.Tensor:
     return (xf * cos + rot * sin).to(x.dtype)
 
 
-class SelfAttentionRoPE(nn.Module):
-    """Packed-QKV multi-head self-attention with RoPE (in_proj / out_proj, no bias).
+def sinusoidal_positional_table(num_positions: int, dim: int, padding_idx: int = 0) -> np.ndarray:
+    """Absolute positional table [num_positions, dim] (tensor2tensor layout:
+    sin block then cos block, the reference's
+    ``SinusoidalPositionalEmbedding.get_embedding``); row ``padding_idx`` is 0."""
+    half = dim // 2
+    emb = math.log(10000) / (half - 1)
+    inv = np.exp(np.arange(half, dtype=np.float64) * -emb)
+    pos = np.arange(num_positions, dtype=np.float64)[:, None] * inv[None, :]
+    table = np.concatenate([np.sin(pos), np.cos(pos)], axis=1)
+    if dim % 2 == 1:
+        table = np.concatenate([table, np.zeros((num_positions, 1))], axis=1)
+    table[padding_idx] = 0
+    return table.astype(np.float32)
 
-    The softmax core is K3: on CUDA tensors the flash-attention kernel, on CPU
-    tensors its plain version. Padding follows the TPU kernel's segment ids, so
-    padded query rows differ from a plain masked softmax; the encoder zeroes
-    them right after. While ``torch.export`` traces it, the core is the custom
-    op ``ds::flash_attention``, so that the exported program launches K3.
-    """
+
+def rel_positional_encoding(length: int, dim: int) -> np.ndarray:
+    """ESPnet's relative positional signal for positions [length-1 .. -(length-1)]
+    -> [2*length-1, dim]. The reference's encoders never feed it to an
+    attention (their rel-pos branch only rescales the input), so no path of
+    either package reads it; it is kept beside the table it pairs with."""
+    pos = np.arange(length, dtype=np.float32)
+    inv = np.exp(np.arange(0, dim, 2, dtype=np.float32) * -(math.log(10000.0) / dim))
+    pe_pos = np.zeros((length, dim), np.float32)
+    pe_pos[:, 0::2] = np.sin(pos[:, None] * inv)
+    pe_pos[:, 1::2] = np.cos(pos[:, None] * inv)
+    pe_neg = np.zeros((length, dim), np.float32)
+    pe_neg[:, 0::2] = np.sin(-pos[:, None] * inv)
+    pe_neg[:, 1::2] = np.cos(-pos[:, None] * inv)
+    return np.concatenate([pe_pos[::-1], pe_neg[1:]], axis=0)
+
+
+def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   key_padding_mask: torch.Tensor) -> torch.Tensor:
+    """softmax(q k^T / sqrt(D)) v over [B, H, L, D] in float32: K3 on CUDA
+    tensors, its plain version on CPU tensors. Padding follows the TPU
+    kernel's segment ids (valid sees valid, pad sees pad), so padded query
+    rows differ from a plain masked softmax; the encoder zeroes them right
+    after. While ``torch.export`` traces it, the core is the custom op
+    ``ds::flash_attention``, so that the exported program launches K3."""
+    args = (q.float().contiguous(), k.float().contiguous(), v.float().contiguous(),
+            key_padding_mask.contiguous())
+    sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    if torch.compiler.is_exporting():  # one graph node, launched as K3 by the program
+        return flash_attention_op(*args, sm_scale)
+    return flash_attention(*args, sm_scale=sm_scale)
+
+
+class _PackedSelfAttention(nn.Module):
+    """Multi-head self-attention over a packed QKV projection (no bias) and an
+    ``out_proj``; its softmax core is :func:`attention_core` (K3)."""
+
+    def qkv(self, x: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    def rotate(self, z: torch.Tensor) -> torch.Tensor:
+        return z
+
+    def forward(self, x: torch.Tensor, key_padding_mask: torch.Tensor) -> torch.Tensor:
+        b, length, c = x.shape
+        h = self.num_heads
+        d = c // h
+        q, k, v = self.qkv(x).chunk(3, dim=-1)
+
+        def heads(z):
+            return z.reshape(b, length, h, d).transpose(1, 2)  # [B, H, L, D]
+
+        out = attention_core(self.rotate(heads(q)), self.rotate(heads(k)), heads(v),
+                             key_padding_mask).to(x.dtype)
+        return self.out_proj(out.transpose(1, 2).reshape(b, length, c))
+
+
+class SelfAttentionRoPE(_PackedSelfAttention):
+    """Self-attention with RoPE on the queries and keys (``in_proj`` /
+    ``out_proj`` Linears)."""
 
     def __init__(self, embed_dim: int, num_heads: int):
         super().__init__()
@@ -113,24 +180,31 @@ class SelfAttentionRoPE(nn.Module):
         self.in_proj = nn.Linear(embed_dim, 3 * embed_dim, bias=False)
         self.out_proj = nn.Linear(embed_dim, embed_dim, bias=False)
 
-    def forward(self, x: torch.Tensor, key_padding_mask: torch.Tensor) -> torch.Tensor:
-        b, length, c = x.shape
-        h = self.num_heads
-        d = c // h
-        q, k, v = self.in_proj(x).chunk(3, dim=-1)
+    def qkv(self, x: torch.Tensor) -> torch.Tensor:
+        return self.in_proj(x)
 
-        def heads(z):
-            return z.reshape(b, length, h, d).transpose(1, 2)  # [B, H, L, D]
+    def rotate(self, z: torch.Tensor) -> torch.Tensor:
+        return apply_rope(z)
 
-        q, k, v = apply_rope(heads(q)), apply_rope(heads(k)), heads(v)
-        args = (q.float().contiguous(), k.float().contiguous(), v.float().contiguous(),
-                key_padding_mask.contiguous())
-        if torch.compiler.is_exporting():  # one graph node, launched as K3 by the program
-            out = flash_attention_op(*args, 1.0 / math.sqrt(d))
-        else:
-            out = flash_attention(*args, sm_scale=1.0 / math.sqrt(d))
-        out = out.to(x.dtype)
-        return self.out_proj(out.transpose(1, 2).reshape(b, length, c))
+
+class SelfAttentionAbs(_PackedSelfAttention):
+    """The attention of the encoders without RoPE: the reference's
+    ``nn.MultiheadAttention`` without bias, whose ``state_dict`` names the
+    packed projection ``in_proj_weight`` (a parameter, not a Linear) and the
+    output ``out_proj``. The same core (K3) at the same scale, no rotation.
+    The JAX module masks keys only, so its padded rows attend to the valid
+    keys where K3's attend to the pad keys; the encoder zeroes those rows
+    after every layer, so the outputs agree."""
+
+    def __init__(self, embed_dim: int, num_heads: int):
+        super().__init__()
+        self.num_heads = num_heads
+        self.in_proj_weight = nn.Parameter(torch.empty(3 * embed_dim, embed_dim))
+        nn.init.xavier_uniform_(self.in_proj_weight)
+        self.out_proj = nn.Linear(embed_dim, embed_dim, bias=False)
+
+    def qkv(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.in_proj_weight)
 
 
 def swiglu(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
@@ -173,10 +247,11 @@ class EncSALayer(nn.Module):
     none, as in the JAX encoder)."""
 
     def __init__(self, hidden_size: int, num_heads: int, kernel_size: int = 9,
-                 act: str = "gelu", dropout: float = 0.0):
+                 act: str = "gelu", dropout: float = 0.0, use_rope: bool = True):
         super().__init__()
         self.layer_norm1 = nn.LayerNorm(hidden_size, eps=1e-5)
-        self.self_attn = SelfAttentionRoPE(hidden_size, num_heads)
+        self.self_attn = (SelfAttentionRoPE if use_rope else SelfAttentionAbs)(hidden_size,
+                                                                               num_heads)
         self.layer_norm2 = nn.LayerNorm(hidden_size, eps=1e-5)
         self.ffn = TransformerFFN(hidden_size, 4 * hidden_size, kernel_size=kernel_size, act=act,
                                   dropout=dropout)
@@ -202,23 +277,33 @@ class TransformerEncoderLayer(nn.Module):
 
 
 class FastSpeech2Encoder(nn.Module):
-    """N-layer RoPE transformer with x sqrt(H) input scaling and a final LN.
+    """N-layer transformer with x sqrt(H) input scaling and a final LN.
 
-    With ``use_rope`` no absolute positions are added, so the input is only
-    scaled by sqrt(H). The absolute-position variants wait for a later slice.
+    With ``use_rope`` the attention rotates its queries and keys and no
+    position is added. Without it (:class:`SelfAttentionAbs`) and with
+    ``use_pos_embed``: under ``rel_pos`` the input is scaled by sqrt(H) once
+    more (the reference's ESPnet ``RelPositionalEncoding`` adds nothing
+    absolute, and its position term feeds an attention it never enables);
+    else the sinusoidal table's row of each token's position among the
+    valid tokens (1-based, padding row 0) is added.
     """
 
     def __init__(self, hidden_size: int, num_layers: int, ffn_kernel_size: int = 9,
                  ffn_act: str = "gelu", num_heads: int = 2, use_rope: bool = True,
-                 dropout: float = 0.1):
+                 dropout: float = 0.1, use_pos_embed: bool = True, rel_pos: bool = True,
+                 max_positions: int = 4096):
         super().__init__()
-        if not use_rope:
-            raise NotImplementedError("only the RoPE encoder is ported so far")
         self.hidden_size = hidden_size
+        self.use_rope = use_rope
+        self.use_pos_embed = use_pos_embed
+        self.rel_pos = rel_pos
+        if use_pos_embed and not use_rope and not rel_pos:
+            self.register_buffer("pos_table", torch.from_numpy(
+                sinusoidal_positional_table(max_positions, hidden_size)), persistent=False)
         self.dropout = nn.Dropout(dropout)
         self.layers = nn.ModuleList([
             TransformerEncoderLayer(hidden_size, num_heads, kernel_size=ffn_kernel_size,
-                                    act=ffn_act, dropout=dropout)
+                                    act=ffn_act, dropout=dropout, use_rope=use_rope)
             for _ in range(num_layers)
         ])
         self.layer_norm = nn.LayerNorm(hidden_size, eps=1e-5)
@@ -228,6 +313,13 @@ class FastSpeech2Encoder(nn.Module):
         x = math.sqrt(self.hidden_size) * main_embed
         if extra_embed is not None:
             x = x + extra_embed
+        if self.use_pos_embed and not self.use_rope:
+            if self.rel_pos:
+                x = x * math.sqrt(self.hidden_size)
+            else:
+                valid = ~padding_mask
+                positions = torch.cumsum(valid.long(), dim=1) * valid
+                x = x + self.pos_table.to(x.dtype)[positions]
         nonpadding = (~padding_mask).to(x.dtype)[:, :, None]
         x = self.dropout(x) * nonpadding
         for layer in self.layers:

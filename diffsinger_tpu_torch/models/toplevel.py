@@ -16,9 +16,10 @@ and the variance curves with a sampler each, and runs its training forward
 injected time).
 
 Both cores run rectified flow (``core/reflow.py``) or DDPM (``core/ddpm.py``
-with the fast solvers). ``DiffSingerAcoustic.forward_infer_dynamic`` is the
-deployment forward that ``deployment/`` exports; the variance model's
-deployed views wait for their slice.
+with the fast solvers). ``DiffSingerAcoustic.forward_infer_dynamic`` and
+``DiffSingerVariance.forward_pitch_deployed`` / ``forward_variance_deployed``
+are the deployment forwards that ``deployment/`` exports. The entry points
+run their request loops from a roomy frame (``utils/frames.py``).
 """
 
 from __future__ import annotations
@@ -42,6 +43,7 @@ from diffsinger_tpu_torch.models.backbones import build_backbone, precompute_con
 from diffsinger_tpu_torch.models.commons import CurveEmbed, Embedding
 from diffsinger_tpu_torch.models.variance_encoder import FastSpeech2Variance, MelodyEncoder
 from diffsinger_tpu_torch.utils import no_tf32, resolve_device
+from diffsinger_tpu_torch.utils.frames import runs_with_room
 from diffsinger_tpu_torch.utils.seq import gather_frames, length_regulator, rhythm_regulator
 
 VARIANCE_CHECKLIST = ["energy", "breathiness", "voicing", "tension"]
@@ -233,6 +235,7 @@ class DiffSingerAcoustic:
 
     @torch.no_grad()
     @no_tf32()
+    @runs_with_room
     def forward_infer(self, txt_tokens, mel2ph, f0, *, steps: Optional[int] = None,
                       depth: Optional[int] = None,
                       t_start_infer: Optional[float] = None,
@@ -276,6 +279,7 @@ class DiffSingerAcoustic:
 
     @torch.no_grad()
     @no_tf32()
+    @runs_with_room
     def forward_infer_dynamic(self, txt_tokens, mel2ph, f0, *, depth, steps,
                               noise: torch.Tensor, **kwargs) -> ShallowDiffusionOutput:
         """The deployment forward (counterpart of JAX ``forward_infer_dynamic``):
@@ -544,6 +548,7 @@ class DiffSingerVariance:
 
     @torch.no_grad()
     @no_tf32()
+    @runs_with_room
     def forward_infer(
         self, txt_tokens, midi, ph2word, base_pitch, *, ph_dur=None, word_dur=None,
         mel2ph=None, pitch=None, pitch_expr=None, pitch_retake=None,
@@ -611,14 +616,104 @@ class DiffSingerVariance:
             variances_pred = dict(zip(self.var_list, outs))
         return dur_pred, pitch_pred, variances_pred
 
+    # ------------------------------------------------------------------
+    # Deployed views (counterpart of the JAX ``forward_pitch_deployed`` and
+    # ``forward_variance_deployed``): they start from the linguistic view's
+    # ``encoder_out`` and compute the frame alignment, the smoothed base pitch
+    # and the retake and expr blending from the deployed inputs.
+
+    def _deployed_frame_condition(self, encoder_out, ph_dur, t_mel: int, spk_mix_embed):
+        mel2ph = length_regulator(ph_dur, t_mel)
+        return self.module.frame_condition(encoder_out, mel2ph,
+                                           spk_mix_embed=spk_mix_embed), mel2ph
+
+    @torch.no_grad()
+    @no_tf32()
+    @runs_with_room
+    def forward_pitch_deployed(
+        self, encoder_out, ph_dur, note_midi, note_dur, pitch, retake, *, note_rest=None,
+        note_glide=None, expr=None, spk_mix_embed=None, steps=None, noise=None,
+        generator: Optional[torch.Generator] = None,
+    ) -> torch.Tensor:
+        """The deployed pitch predictor -> the absolute pitch [B, T] (midi): the
+        predicted delta plus the blended base pitch.
+
+        ``ph_dur`` and ``note_dur`` [B, T_ph] are integer frames; ``mel2ph``,
+        ``mel2note`` and the base pitch (the notes' pitch smoothed over
+        ``midi_smooth_width``) come from them. ``retake`` [B, T] bool keeps the
+        input ``pitch`` outside its spans; ``expr`` [B, T] (if given) blends
+        the two rows of the retake embedding. ``steps`` as a 0-d integer
+        tensor selects the deployment sampler (:meth:`_infer_core`);
+        ``noise`` [B, T, repeat_bins] replaces the draw from ``generator``.
+        """
+        from diffsinger_tpu_torch.dsp.common import sinusoidal_smooth
+
+        hp = self.hp
+        m = self.module
+        t_mel = pitch.shape[1]
+        condition, mel2ph = self._deployed_frame_condition(encoder_out, ph_dur, t_mel,
+                                                           spk_mix_embed)
+        mel2note = length_regulator(note_dur, t_mel)
+        frame_midi = gather_frames(note_midi.float()[:, :, None], mel2note)[:, :, 0]
+        timestep = hp["hop_size"] / hp["audio_sample_rate"]
+        base_pitch = sinusoidal_smooth(frame_midi,
+                                       max(1, round(hp["midi_smooth_width"] / timestep)))
+        melody_frame = None
+        delta_pitch_in = None
+        if self.use_melody_encoder:
+            mel_out = m.melody_encode(note_midi, note_rest, note_dur, note_glide=note_glide)
+            melody_frame = gather_frames(mel_out, mel2note)
+            delta_pitch_in = (pitch - base_pitch) * (~retake)
+        pitch_cond, base_pitch = m.pitch_condition(
+            condition, mel2ph, base_pitch, pitch=pitch, pitch_expr=expr, pitch_retake=retake,
+            melody_frame=melody_frame, delta_pitch_in=delta_pitch_in)
+        x = self._infer_core(m.pitch_denoiser, pitch_cond, self.pitch_transform.repeat_bins,
+                             steps, generator, noise, None)
+        return self.pitch_transform.denorm(x) + base_pitch
+
+    @torch.no_grad()
+    @no_tf32()
+    @runs_with_room
+    def forward_variance_deployed(
+        self, encoder_out, ph_dur, pitch, variances: Dict, retake, *, spk_mix_embed=None,
+        steps=None, noise=None, generator: Optional[torch.Generator] = None,
+    ) -> tuple:
+        """The deployed multi-variance predictor -> the predicted curves [B, T]
+        in ``var_list`` order. ``retake`` [B, T, F] bool (F over ``var_list``)
+        keeps the input curves outside its spans; ``noise`` [B, T, F*R]."""
+        m = self.module
+        condition, _ = self._deployed_frame_condition(encoder_out, ph_dur, pitch.shape[1],
+                                                      spk_mix_embed)
+        variance_retake = {v: retake[:, :, i] for i, v in enumerate(self.var_list)}
+        var_cond = m.variance_condition(condition, pitch, variances, variance_retake)
+        width = len(self.var_list) * self.variance_transform.repeat_bins
+        x = self._infer_core(m.variance_denoiser, var_cond, width, steps, generator, noise, None)
+        return tuple(self.variance_transform.denorm(self.variance_transform.unflatten(x)))
+
     def _infer_core(self, denoiser: nn.Module, cond: torch.Tensor, width: int,
-                    steps: Optional[int], generator, noise, noise_fn) -> torch.Tensor:
-        """Sample a flat [B, T, width] tensor from noise with the configured core."""
+                    steps, generator, noise, noise_fn) -> torch.Tensor:
+        """Sample a flat [B, T, width] tensor from noise with the configured core.
+
+        ``steps`` as a 0-d tensor selects the deployment samplers (rectified
+        flow's euler, DDPM's DDIM) from pure noise, with the step count an
+        input of an exported program; an int or None the configured ones."""
         proj = precompute_cond_projections(denoiser, cond)
 
         def denoise(x, t):
             return denoiser(x, t, cond, cond_proj=proj)
 
-        return sample(self.hp, self.schedule, denoise, tuple(cond.shape[:2]) + (width,),
+        shape = tuple(cond.shape[:2]) + (width,)
+        if isinstance(steps, torch.Tensor):
+            if noise is None:
+                noise = torch.randn(shape, generator=generator, dtype=torch.float32,
+                                    device=cond.device)
+            depth = torch.ones((), dtype=torch.float32)
+            if self.schedule is not None:
+                return ddpm_core.inference_dynamic(denoise, self.schedule, noise, depth=depth,
+                                                   steps=steps, k_step=self.k_step)
+            return reflow_core.inference_dynamic(denoise, noise, depth=depth, steps=steps,
+                                                 t_start_min=0.0,
+                                                 time_scale_factor=self.time_scale_factor)
+        return sample(self.hp, self.schedule, denoise, shape,
                       k_step=self.k_step, device=cond.device, generator=generator,
                       noise=noise, noise_fn=noise_fn, steps=steps)

@@ -6,11 +6,12 @@ Channel-last [B, T, C]; the parameters carry the reference torch names that
 ``fs2.onset_embed``, ``fs2.word_dur_embed``, ``fs2.midi_embed``,
 ``fs2.dur_predictor.conv.{i}.1`` (conv) / ``.3`` (LayerNorm),
 ``fs2.dur_predictor.linear``, ``melody_encoder.{note_midi_embed,
-note_dur_embed,note_glide_embed,encoder,out_proj}``). Both encoders are the
-RoPE ``FastSpeech2Encoder``, so their attention is K3. Both take the config's
-``dropout`` (the melody encoder its own ``melody_encoder_args.dropout`` first),
-which acts in training mode only. The conv-stack ``VariancePredictor`` and
-``PitchPredictor`` of the JAX module are on no path and are not ported.
+note_dur_embed,note_glide_embed,encoder,out_proj}``). Both encoders are
+``FastSpeech2Encoder``, with or without RoPE; either way their attention is
+K3. Both take the config's ``dropout`` (the melody encoder its own
+``melody_encoder_args.dropout`` first), which acts in training mode only.
+The conv-stack ``VariancePredictor`` and ``PitchPredictor`` of the JAX
+module are on no path and are not ported.
 """
 
 from __future__ import annotations
@@ -70,7 +71,8 @@ class DurationPredictor(nn.Module):
 class FastSpeech2Variance(nn.Module):
     def __init__(self, vocab_size: int, hidden_size: int = 256, enc_layers: int = 4,
                  enc_ffn_kernel_size: int = 9, ffn_act: str = "gelu", dropout: float = 0.1,
-                 num_heads: int = 2, use_rope: bool = True, use_lang_id: bool = False,
+                 num_heads: int = 2, use_rope: bool = True, use_pos_embed: bool = True,
+                 rel_pos: bool = True, max_positions: int = 4096, use_lang_id: bool = False,
                  num_lang: int = 1, predict_dur: bool = True, dur_args: Optional[dict] = None):
         super().__init__()
         h = hidden_size
@@ -84,7 +86,8 @@ class FastSpeech2Variance(nn.Module):
         self.lang_embed = Embedding(num_lang + 1, h, padding_idx=0) if use_lang_id else None
         self.encoder = FastSpeech2Encoder(
             h, enc_layers, ffn_kernel_size=enc_ffn_kernel_size, ffn_act=ffn_act,
-            num_heads=num_heads, use_rope=use_rope, dropout=dropout)
+            num_heads=num_heads, use_rope=use_rope, dropout=dropout,
+            use_pos_embed=use_pos_embed, rel_pos=rel_pos, max_positions=max_positions)
         if predict_dur:
             dur_args = dur_args or {}
             self.midi_embed = Embedding(128, h)
@@ -140,6 +143,8 @@ class FastSpeech2Variance(nn.Module):
             dropout=hp["dropout"],
             num_heads=hp["num_heads"],
             use_rope=hp.get("use_rope", False),
+            use_pos_embed=hp.get("use_pos_embed", True),
+            rel_pos=hp.get("rel_pos", False),
             use_lang_id=hp.get("use_lang_id", False),
             num_lang=hp.get("num_lang", 1),
             predict_dur=hp["predict_dur"],
@@ -153,7 +158,8 @@ class MelodyEncoder(nn.Module):
 
     def __init__(self, hidden_size: int = 128, out_size: int = 256, enc_layers: int = 4,
                  enc_ffn_kernel_size: int = 9, ffn_act: str = "gelu", dropout: float = 0.1,
-                 num_heads: int = 2, use_rope: bool = True, use_glide_embed: bool = False,
+                 num_heads: int = 2, use_rope: bool = True, use_pos_embed: bool = True,
+                 rel_pos: bool = True, max_positions: int = 4096, use_glide_embed: bool = False,
                  glide_types: tuple = ("up", "down"),
                  glide_embed_scale: float = 11.313708498984760):
         super().__init__()
@@ -165,7 +171,8 @@ class MelodyEncoder(nn.Module):
                                  if use_glide_embed else None)
         self.encoder = FastSpeech2Encoder(
             h, enc_layers, ffn_kernel_size=enc_ffn_kernel_size, ffn_act=ffn_act,
-            num_heads=num_heads, use_rope=use_rope, dropout=dropout)
+            num_heads=num_heads, use_rope=use_rope, dropout=dropout,
+            use_pos_embed=use_pos_embed, rel_pos=rel_pos, max_positions=max_positions)
         self.out_proj = Linear(h, out_size)
 
     def forward(self, note_midi: torch.Tensor, note_rest: torch.Tensor, note_dur: torch.Tensor,
@@ -194,6 +201,8 @@ class MelodyEncoder(nn.Module):
             dropout=get("dropout"),
             num_heads=get("num_heads"),
             use_rope=get("use_rope", False),
+            use_pos_embed=get("use_pos_embed", True),
+            rel_pos=get("rel_pos", False),
             use_glide_embed=hp.get("use_glide_embed", False),
             glide_types=tuple(hp.get("glide_types", ("up", "down"))),
             glide_embed_scale=hp.get("glide_embed_scale", 11.313708498984760),

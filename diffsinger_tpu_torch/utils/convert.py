@@ -51,7 +51,9 @@ def _layernorm(sd: StateDict, prefix: str, node: dict) -> None:
     sd[f"{prefix}.bias"] = _t(node["bias"])
 
 
-def _fs2_encoder(sd: StateDict, prefix: str, p: dict, num_layers: int) -> None:
+def _fs2_encoder(sd: StateDict, prefix: str, p: dict, num_layers: int, use_rope: bool) -> None:
+    """Without RoPE the attention is the reference's ``nn.MultiheadAttention``,
+    whose packed projection is the parameter ``in_proj_weight``."""
     _layernorm(sd, f"{prefix}.layer_norm", p["layer_norm"])
     for i in range(num_layers):
         q, lp = f"{prefix}.layers.{i}.op", p[f"layers_{i}"]
@@ -59,7 +61,11 @@ def _fs2_encoder(sd: StateDict, prefix: str, p: dict, num_layers: int) -> None:
         _layernorm(sd, f"{q}.layer_norm2", lp["layer_norm2"])
         _conv(sd, f"{q}.ffn.ffn_1", lp["ffn"]["ffn_1"])
         _linear(sd, f"{q}.ffn.ffn_2", lp["ffn"]["ffn_2"])
-        _dense(sd, f"{q}.self_attn.in_proj", lp["self_attn"]["in_proj"])
+        if use_rope:
+            _dense(sd, f"{q}.self_attn.in_proj", lp["self_attn"]["in_proj"])
+        else:
+            sd[f"{q}.self_attn.in_proj_weight"] = _t(
+                np.transpose(np.asarray(lp["self_attn"]["in_proj"]["kernel"])))
         _dense(sd, f"{q}.self_attn.out_proj", lp["self_attn"]["out_proj"])
 
 
@@ -67,7 +73,8 @@ def _fs2_acoustic(sd: StateDict, p: dict, hp: dict, prefix: str = "fs2") -> None
     sd[f"{prefix}.txt_embed.weight"] = _t(p["txt_embed"]["embedding"])
     _linear(sd, f"{prefix}.dur_embed", p["dur_embed"])
     _linear(sd, f"{prefix}.pitch_embed", p["pitch_embed"])
-    _fs2_encoder(sd, f"{prefix}.encoder", p["encoder"], hp["enc_layers"])
+    _fs2_encoder(sd, f"{prefix}.encoder", p["encoder"], hp["enc_layers"],
+                 hp.get("use_rope", False))
     if hp.get("use_lang_id", False):
         sd[f"{prefix}.lang_embed.weight"] = _t(p["lang_embed"]["embedding"])
     if hp.get("use_spk_id", False):
@@ -164,7 +171,7 @@ def variance_state_dict_from_flax(params_np: dict, hp: dict) -> StateDict:
     sd: StateDict = {}
     fs2 = p["fs2"]
     sd["fs2.txt_embed.weight"] = _t(fs2["txt_embed"]["embedding"])
-    _fs2_encoder(sd, "fs2.encoder", fs2["encoder"], hp["enc_layers"])
+    _fs2_encoder(sd, "fs2.encoder", fs2["encoder"], hp["enc_layers"], hp.get("use_rope", False))
     if hp.get("use_lang_id", False):
         sd["fs2.lang_embed.weight"] = _t(fs2["lang_embed"]["embedding"])
     if hp["predict_dur"]:
@@ -188,7 +195,8 @@ def variance_state_dict_from_flax(params_np: dict, hp: dict) -> StateDict:
             _linear(sd, "melody_encoder.note_midi_embed", me["note_midi_embed"])
             _linear(sd, "melody_encoder.note_dur_embed", me["note_dur_embed"])
             _fs2_encoder(sd, "melody_encoder.encoder", me["encoder"],
-                         me_hp.get("enc_layers", hp["enc_layers"]))
+                         me_hp.get("enc_layers", hp["enc_layers"]),
+                         me_hp.get("use_rope", hp.get("use_rope", False)))
             _linear(sd, "melody_encoder.out_proj", me["out_proj"])
             if hp.get("use_glide_embed", False):
                 sd["melody_encoder.note_glide_embed.weight"] = _t(

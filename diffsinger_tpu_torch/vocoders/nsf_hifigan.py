@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from diffsinger_tpu_torch.utils import resolve_device, resolve_precision
+from diffsinger_tpu_torch.utils.frames import runs_with_room
 from diffsinger_tpu_torch.vocoders.nsf_hifigan_model import (
     Generator, NsfHifiGanConfig, VocoderNoise)
 from diffsinger_tpu_torch.vocoders.registry import register_vocoder
@@ -84,6 +85,7 @@ class NsfHifiGAN:
             )
 
     @torch.no_grad()
+    @runs_with_room
     def spec2wav_torch(self, mel: torch.Tensor, f0: torch.Tensor, *,
                        noise: Optional[VocoderNoise] = None) -> torch.Tensor:
         """mel [B, T, M] in the configured mel_base; f0 [B, T] -> wav [B, T * hop].

@@ -754,3 +754,114 @@ def test_exported_acoustic_program_launches_k2_and_k3_on_the_card(dev, tmp_path,
     got, program_launches = launches(lambda: program(*args(3)))
     assert program_launches == (2 * calls, 2 * calls, 2)
     assert _max_err(got, want) <= 1e-4
+
+
+@pytest.mark.parametrize("core", ["reflow", "ddpm"])
+def test_exported_variance_views_launch_k3_on_the_card(dev, tmp_path, core):
+    """The variance model's three views (melody encoder on) exported on the
+    card, saved and loaded: the linguistic program launches K3 once an
+    encoder layer, the pitch program once a melody-encoder layer, the
+    variance program none, no view K1, K2 or K3's backward, and each equals
+    the eager view on the same inputs and noise (float32, 1e-6)."""
+    from pathlib import Path
+
+    from diffsinger_tpu_torch.config import load_config
+    from diffsinger_tpu_torch.deployment.exporters import VarianceProgram
+    from diffsinger_tpu_torch.models.toplevel import DiffSingerVariance
+    from diffsinger_tpu_torch.utils import no_tf32
+
+    hp = load_config(Path(__file__).resolve().parents[1] / "configs" / "variance.yaml")
+    hp.update(hidden_size=128, enc_layers=3, predict_energy=True, predict_tension=True,
+              use_melody_encoder=True, melody_encoder_args=dict(hidden_size=64, enc_layers=2),
+              pitch_prediction_args=dict(hp["pitch_prediction_args"], backbone_args=dict(
+                  hp["pitch_prediction_args"]["backbone_args"], num_layers=4, num_channels=64)),
+              variances_prediction_args=dict(hp["variances_prediction_args"], backbone_args=dict(
+                  hp["variances_prediction_args"]["backbone_args"], num_layers=2,
+                  num_channels=64)))
+    if core == "ddpm":
+        hp.update(diffusion_type="ddpm", timesteps=100, K_step=100)
+    torch.manual_seed(0)
+    model = DiffSingerVariance(hp, vocab_size=40, device=dev)
+    model.module.requires_grad_(False)
+    g = torch.Generator(device=dev).manual_seed(1)
+    i32 = torch.int32
+    rb = hp["pitch_prediction_args"]["repeat_bins"]
+    trb = hp["variances_prediction_args"]["total_repeat_bins"]
+    ling = dict(tokens=torch.randint(1, 40, (1, 16), generator=g, device=dev, dtype=i32),
+                midi=torch.full((1, 16), 60, device=dev, dtype=i32),
+                ph2word=torch.arange(1, 17, device=dev, dtype=i32)[None] // 2 + 1,
+                word_dur=torch.full((1, 16), 8.0, device=dev))
+    ph_dur = torch.full((1, 16), 4, device=dev, dtype=i32)
+    pitch_in = dict(encoder_out=None, ph_dur=ph_dur,
+                    note_midi=60 + 5 * torch.rand((1, 16), generator=g, device=dev),
+                    note_rest=torch.zeros((1, 16), device=dev, dtype=torch.bool), note_dur=ph_dur,
+                    pitch=torch.full((1, 64), 62.0, device=dev),
+                    expr=torch.ones((1, 64), device=dev),
+                    retake=torch.ones((1, 64), device=dev, dtype=torch.bool),
+                    steps=torch.tensor(3, dtype=i32),
+                    noise=torch.randn((1, 64, rb), generator=g, device=dev))
+    var_in = dict(encoder_out=None, ph_dur=ph_dur, pitch=pitch_in["pitch"],
+                  **{v: torch.zeros((1, 64), device=dev) for v in model.var_list},
+                  retake=torch.ones((1, 64, len(model.var_list)), device=dev, dtype=torch.bool),
+                  steps=torch.tensor(3, dtype=i32),
+                  noise=torch.randn((1, 64, trb), generator=g, device=dev))
+
+    def launches(fn):
+        before = (depthwise_conv.launches, lynx_fused.launches, flash_attention.launches,
+                  flash_attention.bwd_launches)
+        with torch.no_grad(), no_tf32():
+            out = fn()
+        torch.cuda.synchronize()
+        after = (depthwise_conv.launches, lynx_fused.launches, flash_attention.launches,
+                 flash_attention.bwd_launches)
+        return out, tuple(a - b for a, b in zip(after, before))
+
+    def loaded(view, inputs):
+        program = VarianceProgram(model, view, list(inputs))
+        with torch.no_grad():
+            ep = torch.export.export(program, tuple(inputs.values()))
+        torch.export.save(ep, str(tmp_path / f"{view}.pt2"))
+        return program, torch.export.load(str(tmp_path / f"{view}.pt2")).module()
+
+    eager, program = loaded("linguistic", ling)
+    (enc, dur), n = launches(lambda: program(*ling.values()))
+    assert n == (0, 0, hp["enc_layers"], 0)
+    want, _ = launches(lambda: eager(*ling.values()))
+    assert _max_err(enc, want[0]) <= 1e-6 and _max_err(dur, want[1]) <= 1e-6
+    for view, inputs, k3 in (("pitch", pitch_in, 2), ("variance", var_in, 0)):
+        inputs["encoder_out"] = enc
+        eager, program = loaded(view, inputs)
+        got, n = launches(lambda: program(*inputs.values()))
+        assert n == (0, 0, k3, 0), view
+        want, n_eager = launches(lambda: eager(*inputs.values()))
+        assert n_eager == n, view
+        for a, b in zip(got if view == "variance" else [got], want if view == "variance"
+                        else [want]):
+            assert _max_err(a, b) <= 1e-6, view
+
+
+@pytest.mark.parametrize("rel_pos", [True, False])
+def test_k3_in_the_encoder_without_rope_matches_its_plain_version(dev, rel_pos):
+    """A FastSpeech2 encoder without RoPE on the card launches K3 once a layer
+    and matches the same encoder on the CPU, where the attention is K3's
+    plain version (float32, 1e-4)."""
+    from diffsinger_tpu_torch.models.commons import FastSpeech2Encoder, SelfAttentionAbs
+
+    torch.manual_seed(0)
+    enc = FastSpeech2Encoder(256, 4, ffn_kernel_size=9, num_heads=2, use_rope=False,
+                             use_pos_embed=True, rel_pos=rel_pos).eval()
+    assert isinstance(enc.layers[0].op.self_attn, SelfAttentionAbs)
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn((3, 176, 256), generator=g)
+    extra = 0.1 * torch.randn((3, 176, 256), generator=g)
+    pad = torch.zeros((3, 176), dtype=torch.bool)
+    pad[1, 150:] = True
+    pad[2, 40:] = True
+    with torch.no_grad():
+        want = enc(x, extra, pad)
+        enc.to(dev)
+        n = flash_attention.launches
+        got = enc(x.to(dev), extra.to(dev), pad.to(dev))
+        torch.cuda.synchronize()
+    assert flash_attention.launches == n + 4
+    assert _max_err(got.cpu(), want) <= 1e-4

@@ -7,8 +7,8 @@ against the JAX package's, on the CPU in float32.
 * the ``.pt2`` programs saved, loaded and run through the artifact runtimes
   against the eager model and generator: <= 1e-6 (the ONNX graphs are
   ``tests/test_torch_onnx.py``'s);
-* the runtimes' bucket choice and refusals, and ``cli.export`` in a process
-  that cannot import JAX.
+* the runtimes' bucket choice and refusals, and ``cli.export`` (acoustic,
+  vocoder and variance bundles) in a process that cannot import JAX.
 """
 
 import subprocess
@@ -207,10 +207,8 @@ export.main(["acoustic", "--exp", "cli", "--out", sys.argv[1] + "/acoustic", "--
              "both", "--freeze_gender", "0", "--buckets", "16x64", "--device", "cpu"])
 export.main(["nsf-hifigan", "--config", sys.argv[2], "--out", sys.argv[1] + "/vocoder",
              "--buckets", "64", "--device", "cpu"])
-try:
-    export.main(["variance", "--exp", "cli"])
-except NotImplementedError as e:
-    print("VARIANCE:", e)
+export.main(["variance", "--exp", "cli_var", "--out", sys.argv[1] + "/variance", "--format",
+             "both", "--freeze_glide", "--buckets", "16x64", "--device", "cpu"])
 jax_modules = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "diffsinger_tpu"))
 print("JAX-PACKAGE-MODULES", jax_modules)
 """
@@ -219,7 +217,10 @@ print("JAX-PACKAGE-MODULES", jax_modules)
 def test_cli_export_without_the_jax_package(tmp_path):
     import os
 
+    from tests.torch_parity import make_variance_exp
+
     ckpt_root = make_exp(tmp_path, "cli", dict(ONE_LAYER, use_key_shift_embed=True))
+    make_variance_exp(tmp_path, "cli_var", dict(use_melody_encoder=True, use_glide_embed=True))
     cfg = tmp_path / "vocoder.yaml"
     cfg.write_text(yaml.safe_dump(dict(base_config=[str(REPO / "configs" / "acoustic.yaml")],
                                        vocoder_ckpt=str(tmp_path / "vocoder" / "model.ckpt"),
@@ -234,7 +235,6 @@ def test_cli_export_without_the_jax_package(tmp_path):
                           env=dict(os.environ, DS_CKPT_ROOT=str(ckpt_root)))
     assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
     assert "JAX-PACKAGE-MODULES []" in proc.stdout
-    assert "VARIANCE: variance export is not ported yet (ROADMAP 15b)" in proc.stdout
     out = tmp_path / "out"
     manifest = yaml.safe_load((out / "acoustic" / "dsconfig.yaml").read_text())
     assert manifest["flavor"] == "both" and manifest["device"] == "cpu"
@@ -242,3 +242,15 @@ def test_cli_export_without_the_jax_package(tmp_path):
     assert {"cli.diffusion.pt2", "cli.fs2_aux.pt2", "cli.acoustic.onnx", "cli.fs2_aux.onnx",
             "phonemes.json", "dictionary.txt"} <= {p.name for p in (out / "acoustic").iterdir()}
     assert (out / "vocoder" / "nsf_hifigan.pt2").exists()
+    manifest = yaml.safe_load((out / "variance" / "dsconfig.yaml").read_text())
+    assert manifest["flavor"] == "both" and manifest["device"] == "cpu"
+    assert manifest["linguistic"] == "cli_var.linguistic_dur.pt2"
+    assert manifest["use_glide_embed"] is False and manifest["use_note_rest"] is True  # frozen
+    assert manifest["inputs"]["pitch"] == ["encoder_out", "ph_dur", "note_midi", "note_rest",
+                                           "note_dur", "pitch", "expr", "retake", "steps"]
+    assert manifest["inputs"]["variance"] == ["encoder_out", "ph_dur", "pitch", "energy",
+                                              "breathiness", "voicing", "tension", "retake",
+                                              "steps"]
+    assert {f"cli_var.{v}.{ext}" for v in ("pitch", "variance") for ext in ("pt2", "onnx")} | {
+        "cli_var.linguistic_dur.pt2", "cli_var.linguistic.onnx", "phonemes.json",
+        "dictionary.txt"} <= {p.name for p in (out / "variance").iterdir()}

@@ -167,6 +167,31 @@ def test_convs():
     assert "ConvTranspose" in {n.op_type for n in g.nodes}
 
 
+def test_the_variance_views_ops():
+    """What the variance model's deployed views add: ``length_regulator``'s
+    ``searchsorted`` (left and right), ``sinusoidal_smooth``'s replicate
+    padding, the duration predictor's ReLU, ``log1p``, bool masks in
+    arithmetic and a WaveNet's dilated convolution."""
+    from diffsinger_tpu_torch.dsp.common import sinusoidal_smooth
+    from diffsinger_tpu_torch.utils.seq import length_regulator
+
+    def f(m, dur, x, keep, curve):
+        left = torch.searchsorted(torch.cumsum(dur, 1).contiguous(),
+                                  torch.full((2, 3), 7, dtype=torch.int64), right=False)
+        return (length_regulator(dur, 30), left, sinusoidal_smooth(curve, 5),
+                F.relu(x) + torch.log1p(x.abs()), x * ~keep, m.c(x[:, None].expand(-1, 4, -1)))
+
+    torch.manual_seed(0)
+    conv = torch.nn.Conv1d(4, 8, 3, padding=4, dilation=4)
+    dur = torch.tensor([[3, 0, 5, 2, 4], [1, 1, 6, 0, 0]])
+    keep = torch.from_numpy(np.random.default_rng(2).random((2, 12)) < 0.5)
+    curve = torch.from_numpy(np.cumsum(np.random.default_rng(3).standard_normal((2, 30)), 1)
+                             .astype(np.float32))
+    g = check(Fn(f, c=conv), (dur, rand(2, 12), keep, curve), ["dur", "x", "keep", "curve"],
+              tol=1e-4)
+    assert "ReduceSum" in {n.op_type for n in g.nodes}
+
+
 def test_an_op_without_lowering_names_the_aten_op():
     with torch.no_grad():
         ep = torch.export.export(Fn(lambda m, x: torch.fft.rfft(x).abs()), (rand(8),))

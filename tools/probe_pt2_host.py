@@ -3,8 +3,9 @@ process, against a fresh one.
 
 In ``chip_smoke.py``'s long process the ``.pt2`` request ran at 2-7x eager
 while a fresh process ran it as eager, until the artifact runtimes called
-their programs from a frame with room (``deployment.runtime._with_room``):
-the cause is CPython's frame stack. This script runs ``chip_smoke.main`` up
+their programs from a frame with room (``utils.frames.with_room``): the
+cause is CPython's frame stack. The eager entry points run their request
+loops from the same frame. This script runs ``chip_smoke.main`` up
 to ``[export]`` in its own process and looks at the host at each phase
 boundary:
 
@@ -315,16 +316,16 @@ def same(fn):
 
 @contextlib.contextmanager
 def without_room():
-    """The runtimes call their programs directly, not from a frame with room
-    (``deployment.runtime._with_room``)."""
-    from diffsinger_tpu_torch.deployment import runtime
+    """The runtimes' programs and the eager entry points' request loops are
+    called directly, not from a frame with room (``utils.frames.with_room``)."""
+    from diffsinger_tpu_torch.utils import frames
 
-    saved = runtime._with_room
-    runtime._with_room = lambda: (lambda fn, *args: fn(*args))
+    saved = frames._roomy
+    frames._roomy = lambda: (lambda fn, *args, **kwargs: fn(*args, **kwargs))
     try:
         yield
     finally:
-        runtime._with_room = saved
+        frames._roomy = saved
 
 
 # each variant: (context, how the request is called)
