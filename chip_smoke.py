@@ -1111,6 +1111,89 @@ def variance_request(t_ph: int, seed: int) -> dict:
         + 0.3 * np.sin(np.linspace(0, 30, t_mel, dtype=np.float32))[None])
 
 
+def variance_view_calls(model, rt, req: dict, bp: int, bm: int) -> dict:
+    """The three variance views on the score ``req`` as eager calls of
+    ``model`` on inputs padded to the bucket (bp, bm) and as ``.pt2`` calls
+    through the runtime ``rt``, with one seeded noise for each sampling view
+    that both routes share; eager runs in float32 throughout, as the runtime
+    calls its programs."""
+    import numpy as np
+    import torch
+
+    from diffsinger_tpu_torch.utils import no_tf32
+
+    dev = torch.device("cuda")
+    hp = model.hp
+    names = rt.variance_names()
+    steps = torch.tensor(int(rt.manifest["sampling_steps"]))
+    gen = torch.Generator(device=dev).manual_seed(4)
+    noise_p = torch.randn((1, bm, hp["pitch_prediction_args"]["repeat_bins"]), generator=gen,
+                          device=dev)
+    noise_v = torch.randn((1, bm, hp["variances_prediction_args"]["total_repeat_bins"]),
+                          generator=gen, device=dev)
+    retake = torch.ones((1, bm, len(names)), dtype=torch.bool, device=dev)
+    expr = torch.ones((1, bm), device=dev)
+    zeros = torch.zeros((1, bm), device=dev)
+    t_mel = req["pitch"].shape[1]
+
+    def padded(key, n, value=0):
+        a = req[key]
+        return torch.from_numpy(np.pad(a, [(0, 0), (0, n - a.shape[1])],
+                                       constant_values=value)).to(dev)
+
+    def eager_encode():
+        with torch.no_grad(), no_tf32():
+            return model.module.encode(padded("tokens", bp), padded("midi", bp),
+                                       padded("ph2word", bp), word_dur=padded("word_dur", bp))
+
+    def eager_pitch(enc):
+        return model.forward_pitch_deployed(
+            enc, padded("ph_dur", bp), padded("note_midi", bp), padded("note_dur", bp),
+            padded("pitch", bm), retake[:, :, 0], expr=expr, steps=steps, noise=noise_p)
+
+    def eager_variance(enc, pitch):
+        return model.forward_variance_deployed(
+            enc, padded("ph_dur", bp), pitch, {v: zeros for v in names}, retake,
+            steps=steps, noise=noise_v)
+
+    def pt2_encode():
+        return rt.encode(req["tokens"], req["midi"], req["ph2word"], req["word_dur"], t_mel)
+
+    def pt2_pitch(enc, bucket):
+        return rt.predict_pitch(enc, req["ph_dur"], req["note_midi"], req["note_dur"],
+                                req["pitch"], bucket, noise=noise_p)
+
+    def pt2_variance(enc, pitch, bucket):
+        return rt.predict_variances(enc, req["ph_dur"], pitch, bucket, noise=noise_v)
+
+    return dict(eager_encode=eager_encode, eager_pitch=eager_pitch,
+                eager_variance=eager_variance, pt2_encode=pt2_encode, pt2_pitch=pt2_pitch,
+                pt2_variance=pt2_variance)
+
+
+def variance_view_turns(calls: dict, bm: int) -> dict:
+    """Each view's request timed in turns with eager (``export_turns``), on
+    the inputs ``variance_view_calls`` pads: {view: turns}."""
+    import numpy as np
+    import torch
+
+    enc, _, bucket = calls["pt2_encode"]()
+    pitch = calls["pt2_pitch"](enc, bucket)
+    enc_e, _ = calls["eager_encode"]()
+    pitch_dev = torch.from_numpy(np.pad(pitch, [(0, 0), (0, bm - pitch.shape[1])])).to(
+        enc_e.device)
+    views = {
+        "linguistic": (lambda: calls["pt2_encode"]()[1],
+                       lambda: calls["eager_encode"]()[1].cpu()),
+        "pitch": (lambda: calls["pt2_pitch"](enc, bucket),
+                  lambda: calls["eager_pitch"](enc_e).cpu()),
+        "variance": (lambda: calls["pt2_variance"](enc, pitch, bucket),
+                     lambda: calls["eager_variance"](enc_e, pitch_dev)[0].cpu()),
+    }
+    return {view: export_turns(run_eager, run_pt2)
+            for view, (run_pt2, run_eager) in views.items()}
+
+
 def variance_export_check(root, card, reset_counts, read_counts, acoustic_runtime,
                           vocoder_runtime) -> dict:
     """[export]'s variance case: configs/variance.yaml at full width with all
@@ -1130,7 +1213,6 @@ def variance_export_check(root, card, reset_counts, read_counts, acoustic_runtim
     from diffsinger_tpu_torch.deployment.onnx.checker import check_model
     from diffsinger_tpu_torch.deployment.runtime import VarianceArtifactRuntime
     from diffsinger_tpu_torch.ops import flash_attention
-    from diffsinger_tpu_torch.utils import no_tf32
 
     dev = torch.device("cuda")
     name, cfg, _ = write_variance_experiment(root)
@@ -1158,45 +1240,11 @@ def variance_export_check(root, card, reset_counts, read_counts, acoustic_runtim
     bp, bm = EXPORT_BUCKETS[0]
     req = variance_request(56, seed=31)
     t_ph, t_mel = req["tokens"].shape[1], req["pitch"].shape[1]
-
-    def padded(key, n, value=0):
-        a = req[key]
-        return torch.from_numpy(np.pad(a, [(0, 0), (0, n - a.shape[1])],
-                                       constant_values=value)).to(dev)
-
-    gen = torch.Generator(device=dev).manual_seed(4)
-    noise_p = torch.randn((1, bm, rb), generator=gen, device=dev)
-    noise_v = torch.randn((1, bm, trb), generator=gen, device=dev)
-    retake = torch.ones((1, bm, len(names)), dtype=torch.bool, device=dev)
-    expr = torch.ones((1, bm), device=dev)
-    zeros = torch.zeros((1, bm), device=dev)
-
-    def eager_encode():  # float32 throughout, as the runtime calls its programs
-        with torch.no_grad(), no_tf32():
-            return model.module.encode(padded("tokens", bp), padded("midi", bp),
-                                       padded("ph2word", bp), word_dur=padded("word_dur", bp))
-
-    def eager_pitch(enc):
-        return model.forward_pitch_deployed(
-            enc, padded("ph_dur", bp), padded("note_midi", bp), padded("note_dur", bp),
-            padded("pitch", bm), retake[:, :, 0], expr=expr, steps=torch.tensor(steps),
-            noise=noise_p)
-
-    def eager_variance(enc, pitch):
-        return model.forward_variance_deployed(
-            enc, padded("ph_dur", bp), pitch, {v: zeros for v in names}, retake,
-            steps=torch.tensor(steps), noise=noise_v)
-
-    def pt2_encode():
-        return rt.encode(req["tokens"], req["midi"], req["ph2word"], req["word_dur"], t_mel)
-
-    def pt2_pitch(enc, bucket):
-        return rt.predict_pitch(enc, req["ph_dur"], req["note_midi"], req["note_dur"],
-                                req["pitch"], bucket, noise=noise_p)
-
-    def pt2_variance(enc, pitch, bucket):
-        return rt.predict_variances(enc, req["ph_dur"], pitch, bucket, noise=noise_v)
-
+    calls = variance_view_calls(model, rt, req, bp, bm)
+    eager_encode, eager_pitch, eager_variance = (calls["eager_encode"], calls["eager_pitch"],
+                                                 calls["eager_variance"])
+    pt2_encode, pt2_pitch, pt2_variance = (calls["pt2_encode"], calls["pt2_pitch"],
+                                           calls["pt2_variance"])
     launches = {}
     reset_counts()
     enc, dur, bucket = pt2_encode()
@@ -1237,16 +1285,8 @@ def variance_export_check(root, card, reset_counts, read_counts, acoustic_runtim
         fail("export: a variance .pt2 view disagrees with the eager view on the card")
 
     # 2. each view's request timed in turns with eager
-    pitch_dev = torch.from_numpy(np.pad(pitch, [(0, 0), (0, bm - t_mel)])).to(dev)
-    views = {
-        "linguistic": (lambda: pt2_encode()[1], lambda: eager_encode()[1].cpu()),
-        "pitch": (lambda: pt2_pitch(enc, bucket), lambda: eager_pitch(enc_e).cpu()),
-        "variance": (lambda: pt2_variance(enc, pitch, bucket),
-                     lambda: eager_variance(enc_e, pitch_dev)[0].cpu()),
-    }
-    out["request_s"] = {}
-    for view, (run_pt2, run_eager) in views.items():
-        r = out["request_s"][view] = export_turns(run_eager, run_pt2)
+    out["request_s"] = variance_view_turns(calls, bm)
+    for view, r in out["request_s"].items():
         log(f"[export] variance {view} request [1,{t_ph}] x [1,{t_mel}], {steps} steps: .pt2 "
             f"{r['mean']['pt2'] * 1e3:.2f} ms mean ({r['best']['pt2'] * 1e3:.2f} best), eager "
             f"{r['mean']['eager'] * 1e3:.2f} ms mean ({r['best']['eager'] * 1e3:.2f} best); "

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 import yaml
 
+from diffsinger_tpu_torch.models.acoustic_encoder import VARIANCE_CHECKLIST
 # registers the ds:: custom ops that the programs call
 from diffsinger_tpu_torch.ops import depthwise_conv, flash_attention, lynx_fused  # noqa: F401
 from diffsinger_tpu_torch.utils import no_tf32, resolve_device
@@ -67,14 +68,10 @@ class _Programs:
         return self._loaded[filename]
 
 
-class AcousticArtifactRuntime:
-    """Serve an exported acoustic bundle: (tokens, mel2ph, f0) -> mel.
-
-    :param bundle_dir: the folder with ``dsconfig.yaml`` and the ``.pt2``
-        programs of ``DiffSingerAcousticExporter``
-    :param device: the device to run on: the card unless the caller names
-        another; it must be the one the bundle was exported for
-    """
+class _BundleRuntime:
+    """Load a bundle's ``dsconfig.yaml``, refuse what the runtime cannot
+    serve, and hold its bucket table: [(t_short, t_mel, files), ...] sorted
+    by mel length, then by the text or phoneme length ``t_short``."""
 
     def __init__(self, bundle_dir, device=None):
         self.dir = pathlib.Path(bundle_dir)
@@ -85,18 +82,28 @@ class AcousticArtifactRuntime:
         buckets = self.manifest.get("buckets") or {}
         if not buckets:
             raise ValueError("manifest has no bucket table")
-        # [(t_txt, t_mel, files), ...] sorted by mel length, then text length
         self.buckets = sorted((tuple(int(d) for d in key.split("x")) + (files,)
                                for key, files in buckets.items()),
                               key=lambda b: (b[1], b[0]))
         self.programs = _Programs(self.dir)
 
-    def pick_bucket(self, t_txt: int, t_mel: int) -> Tuple[int, int, dict]:
+    def pick_bucket(self, t_short: int, t_mel: int) -> Tuple[int, int, dict]:
+        """The smallest bucket that holds ``t_short`` tokens and ``t_mel`` frames."""
         for bt, bm, files in self.buckets:
-            if t_txt <= bt and t_mel <= bm:
+            if t_short <= bt and t_mel <= bm:
                 return bt, bm, files
-        raise ValueError(f"no exported bucket fits (t_txt={t_txt}, t_mel={t_mel}); "
+        raise ValueError(f"no exported bucket fits (t_short={t_short}, t_mel={t_mel}); "
                          f"available: {[(b[0], b[1]) for b in self.buckets]}")
+
+
+class AcousticArtifactRuntime(_BundleRuntime):
+    """Serve an exported acoustic bundle: (tokens, mel2ph, f0) -> mel.
+
+    :param bundle_dir: the folder with ``dsconfig.yaml`` and the ``.pt2``
+        programs of ``DiffSingerAcousticExporter``
+    :param device: the device to run on: the card unless the caller names
+        another; it must be the one the bundle was exported for
+    """
 
     def synthesize_mel(self, tokens: np.ndarray, mel2ph: np.ndarray, f0: np.ndarray,
                        seed: int = 0, depth: Optional[float] = None,
@@ -154,10 +161,7 @@ class AcousticArtifactRuntime:
         return mel[:, :t_mel].cpu().numpy()
 
 
-VARIANCES = ("energy", "breathiness", "voicing", "tension")
-
-
-class VarianceArtifactRuntime:
+class VarianceArtifactRuntime(_BundleRuntime):
     """Serve an exported variance bundle through its deployed views: the
     linguistic view (tokens -> encoder_out, ph_dur_pred), then the pitch and
     variance views, which take ``encoder_out``, frame durations, the notes,
@@ -181,31 +185,13 @@ class VarianceArtifactRuntime:
             "expr": ("mel", 1.0, np.float32), "retake": ("mel", True, np.bool_)}
 
     def __init__(self, bundle_dir, device=None):
-        self.dir = pathlib.Path(bundle_dir)
-        self.device = resolve_device(device)
-        with open(self.dir / "dsconfig.yaml") as f:
-            self.manifest = yaml.safe_load(f)
-        _check_bundle(self.manifest, self.device)
+        super().__init__(bundle_dir, device)
         if "linguistic" not in self.manifest:
             raise ValueError("not a variance bundle: its manifest has no 'linguistic' view")
-        buckets = self.manifest.get("buckets") or {}
-        if not buckets:
-            raise ValueError("manifest has no bucket table")
-        self.buckets = sorted((tuple(int(d) for d in key.split("x")) + (files,)
-                               for key, files in buckets.items()),
-                              key=lambda b: (b[1], b[0]))
         self.inputs = self.manifest.get("inputs") or {}
-        self.programs = _Programs(self.dir)
 
     def variance_names(self) -> list:
-        return [v for v in VARIANCES if self.manifest.get(f"predict_{v}", False)]
-
-    def pick_bucket(self, t_ph: int, t_mel: int) -> Tuple[int, int, dict]:
-        for bp, bm, files in self.buckets:
-            if t_ph <= bp and t_mel <= bm:
-                return bp, bm, files
-        raise ValueError(f"no exported bucket fits (t_ph={t_ph}, t_mel={t_mel}); "
-                         f"available: {[(b[0], b[1]) for b in self.buckets]}")
+        return [v for v in VARIANCE_CHECKLIST if self.manifest.get(f"predict_{v}", False)]
 
     def _collect(self, view: str, given: dict, bp: int, bm: int) -> list:
         """The view's inputs before ``steps`` as tensors on the device, padded
@@ -228,7 +214,7 @@ class VarianceArtifactRuntime:
                     val = np.ones((1, t_mel), np.float32)
                 elif name in ("note_rest", "note_glide"):
                     val = np.zeros((1, given["note_midi"].shape[1]), np.int32)
-                elif name in VARIANCES:
+                elif name in VARIANCE_CHECKLIST:
                     val = np.zeros((1, t_mel), np.float32)
                 else:
                     raise ValueError(f"view '{view}' takes input '{name}', which has no "

@@ -23,8 +23,7 @@ class FastSpeech2Acoustic(nn.Module):
                  enc_ffn_kernel_size: int = 9, ffn_act: str = "gelu", dropout: float = 0.1,
                  num_heads: int = 2,
                  use_rope: bool = True, use_pos_embed: bool = True,
-                 rel_pos: bool = True, max_positions: int = 4096,
-                 use_lang_id: bool = False, num_lang: int = 1,
+                 rel_pos: bool = True, use_lang_id: bool = False, num_lang: int = 1,
                  use_spk_id: bool = False, num_spk: int = 1, variance_embed_list: tuple = (),
                  use_key_shift_embed: bool = False, use_speed_embed: bool = False):
         super().__init__()
@@ -34,7 +33,7 @@ class FastSpeech2Acoustic(nn.Module):
         self.encoder = FastSpeech2Encoder(
             h, enc_layers, ffn_kernel_size=enc_ffn_kernel_size, ffn_act=ffn_act,
             num_heads=num_heads, use_rope=use_rope, dropout=dropout,
-            use_pos_embed=use_pos_embed, rel_pos=rel_pos, max_positions=max_positions)
+            use_pos_embed=use_pos_embed, rel_pos=rel_pos)
         self.pitch_embed = CurveEmbed(h)
         self.lang_embed = Embedding(num_lang + 1, h, padding_idx=0) if use_lang_id else None
         self.spk_embed = Embedding(num_spk, h) if use_spk_id else None

@@ -99,6 +99,11 @@ def apply_rope(x: torch.Tensor) -> torch.Tensor:
     return (xf * cos + rot * sin).to(x.dtype)
 
 
+# Rows of the absolute positional table: the longest phoneme or note sequence
+# an encoder without RoPE and relative positions can take.
+MAX_POSITIONS = 4096
+
+
 def sinusoidal_positional_table(num_positions: int, dim: int, padding_idx: int = 0) -> np.ndarray:
     """Absolute positional table [num_positions, dim] (tensor2tensor layout:
     sin block then cos block, the reference's
@@ -112,22 +117,6 @@ def sinusoidal_positional_table(num_positions: int, dim: int, padding_idx: int =
         table = np.concatenate([table, np.zeros((num_positions, 1))], axis=1)
     table[padding_idx] = 0
     return table.astype(np.float32)
-
-
-def rel_positional_encoding(length: int, dim: int) -> np.ndarray:
-    """ESPnet's relative positional signal for positions [length-1 .. -(length-1)]
-    -> [2*length-1, dim]. The reference's encoders never feed it to an
-    attention (their rel-pos branch only rescales the input), so no path of
-    either package reads it; it is kept beside the table it pairs with."""
-    pos = np.arange(length, dtype=np.float32)
-    inv = np.exp(np.arange(0, dim, 2, dtype=np.float32) * -(math.log(10000.0) / dim))
-    pe_pos = np.zeros((length, dim), np.float32)
-    pe_pos[:, 0::2] = np.sin(pos[:, None] * inv)
-    pe_pos[:, 1::2] = np.cos(pos[:, None] * inv)
-    pe_neg = np.zeros((length, dim), np.float32)
-    pe_neg[:, 0::2] = np.sin(-pos[:, None] * inv)
-    pe_neg[:, 1::2] = np.cos(-pos[:, None] * inv)
-    return np.concatenate([pe_pos[::-1], pe_neg[1:]], axis=0)
 
 
 def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -290,8 +279,7 @@ class FastSpeech2Encoder(nn.Module):
 
     def __init__(self, hidden_size: int, num_layers: int, ffn_kernel_size: int = 9,
                  ffn_act: str = "gelu", num_heads: int = 2, use_rope: bool = True,
-                 dropout: float = 0.1, use_pos_embed: bool = True, rel_pos: bool = True,
-                 max_positions: int = 4096):
+                 dropout: float = 0.1, use_pos_embed: bool = True, rel_pos: bool = True):
         super().__init__()
         self.hidden_size = hidden_size
         self.use_rope = use_rope
@@ -299,7 +287,7 @@ class FastSpeech2Encoder(nn.Module):
         self.rel_pos = rel_pos
         if use_pos_embed and not use_rope and not rel_pos:
             self.register_buffer("pos_table", torch.from_numpy(
-                sinusoidal_positional_table(max_positions, hidden_size)), persistent=False)
+                sinusoidal_positional_table(MAX_POSITIONS, hidden_size)), persistent=False)
         self.dropout = nn.Dropout(dropout)
         self.layers = nn.ModuleList([
             TransformerEncoderLayer(hidden_size, num_heads, kernel_size=ffn_kernel_size,

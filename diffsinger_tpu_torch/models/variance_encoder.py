@@ -72,7 +72,7 @@ class FastSpeech2Variance(nn.Module):
     def __init__(self, vocab_size: int, hidden_size: int = 256, enc_layers: int = 4,
                  enc_ffn_kernel_size: int = 9, ffn_act: str = "gelu", dropout: float = 0.1,
                  num_heads: int = 2, use_rope: bool = True, use_pos_embed: bool = True,
-                 rel_pos: bool = True, max_positions: int = 4096, use_lang_id: bool = False,
+                 rel_pos: bool = True, use_lang_id: bool = False,
                  num_lang: int = 1, predict_dur: bool = True, dur_args: Optional[dict] = None):
         super().__init__()
         h = hidden_size
@@ -87,7 +87,7 @@ class FastSpeech2Variance(nn.Module):
         self.encoder = FastSpeech2Encoder(
             h, enc_layers, ffn_kernel_size=enc_ffn_kernel_size, ffn_act=ffn_act,
             num_heads=num_heads, use_rope=use_rope, dropout=dropout,
-            use_pos_embed=use_pos_embed, rel_pos=rel_pos, max_positions=max_positions)
+            use_pos_embed=use_pos_embed, rel_pos=rel_pos)
         if predict_dur:
             dur_args = dur_args or {}
             self.midi_embed = Embedding(128, h)
@@ -159,7 +159,7 @@ class MelodyEncoder(nn.Module):
     def __init__(self, hidden_size: int = 128, out_size: int = 256, enc_layers: int = 4,
                  enc_ffn_kernel_size: int = 9, ffn_act: str = "gelu", dropout: float = 0.1,
                  num_heads: int = 2, use_rope: bool = True, use_pos_embed: bool = True,
-                 rel_pos: bool = True, max_positions: int = 4096, use_glide_embed: bool = False,
+                 rel_pos: bool = True, use_glide_embed: bool = False,
                  glide_types: tuple = ("up", "down"),
                  glide_embed_scale: float = 11.313708498984760):
         super().__init__()
@@ -172,7 +172,7 @@ class MelodyEncoder(nn.Module):
         self.encoder = FastSpeech2Encoder(
             h, enc_layers, ffn_kernel_size=enc_ffn_kernel_size, ffn_act=ffn_act,
             num_heads=num_heads, use_rope=use_rope, dropout=dropout,
-            use_pos_embed=use_pos_embed, rel_pos=rel_pos, max_positions=max_positions)
+            use_pos_embed=use_pos_embed, rel_pos=rel_pos)
         self.out_proj = Linear(h, out_size)
 
     def forward(self, note_midi: torch.Tensor, note_rest: torch.Tensor, note_dur: torch.Tensor,
