@@ -61,6 +61,26 @@ Phases, each printed as it ends; any failure exits non-zero:
    unipc: mel frames/s of the acoustic part, K1 and K2 launches against 6 x
    the denoiser calls, and a float32 B=2, T_mel=512 request against the
    plain versions (mel 1e-3);
+6b. lynx_act: LYNXNet with ``activation: SiLU`` or ``ReLU``: K1 and K2 with
+   each against their plain versions (the main path's shapes, ragged ones,
+   float32); configs/acoustic.yaml with SiLU at full width at the bench
+   request with [e2e]'s mini-NSF vocoder (mel frames/s, K1 = K2 = 6 x 50 and
+   K3 4 a request from the counters), the same weights under ReLU (two
+   requests, their launches); a float32 SiLU request (B=1, T_mel 128, 8
+   steps) on the card against the CPU (mel 1e-3); one float32 training step
+   of a narrow SiLU model on the card against the CPU (as [train]'s); the
+   SiLU experiment as a ``.pt2`` at (16, 64) on the card, launching K2 and
+   bit-equal to eager; the kernel line's SiLU and ReLU rows (``[lynx_act]``
+   lines);
+6c. vocoders: on the 11.9 s request's mel and f0, DDSP (a pc-ddsp CombSub
+   bundle traced at its published widths: 128 mels, 512 harmonic and 256
+   noise bands, window 2048), DDSPNative at its defaults and Griffin-Lim (32
+   rounds), each on the card against the CPU on the same noise
+   (``VOCODER_TOL``), its seconds a second of audio, kernel launches and
+   idle share under the profiler, the port's counters at 0; then
+   ``cli.vocode`` (a ``.mel.npz`` of two overlapping segments) and
+   ``cli.val_nsf_hifigan`` (a 3 s take) once on the card with a full-NSF
+   experiment folder (``[vocoders]`` lines);
 7. export: the acoustic model at full width (seeded weights in an
    experiment folder, 50 steps) exported on the card through
    ``deployment.exporters`` as ``.pt2`` programs and ONNX graphs at the
@@ -180,6 +200,7 @@ number to chiprun_out/chip_smoke.json.
 from __future__ import annotations
 
 import contextlib
+import copy
 import io
 import json
 import math
@@ -3425,6 +3446,519 @@ def binarize_ext_phase(card, reset_counts, read_counts):
     return report, counts
 
 
+LYNX_ACTIVATIONS = ("SiLU", "ReLU")
+LYNX_ACT_CPU = dict(b=1, t_txt=16, t_mel=128, steps=8)  # the float32 request on the CPU too
+LYNX_ACT_BUCKET = (16, 64)  # the SiLU .pt2's bucket
+
+
+def lynx_act_phase(hp, card, reset_counts, read_counts, check, request, run, vocoder):
+    """[lynx_act]: LYNXNet with ``activation: SiLU`` or ``ReLU``. K1 and K2
+    with each activation against their plain versions (the main path's
+    shapes, ragged ones, float32); configs/acoustic.yaml with SiLU at full
+    width and bench.py's request (B=16, T_mel 1024, 50 steps, bf16, with
+    [e2e]'s mini-NSF vocoder): mel frames/s and launches (K1 = K2 = 6 x 50,
+    K3 4 a request); the same weights under ReLU for its launches; a float32
+    SiLU request on the card against the CPU on the same weights and noise;
+    one float32 training step of a narrow SiLU model on the card against the
+    CPU's; the SiLU experiment exported as a ``.pt2`` at (16, 64) on the card,
+    launching K2 and bit-equal to eager. Returns the report, the SiLU
+    request's launches and the kernel line's entries."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from diffsinger_tpu_torch.config import load_config
+    from diffsinger_tpu_torch.deployment.exporters import DiffSingerAcousticExporter
+    from diffsinger_tpu_torch.deployment.runtime import AcousticArtifactRuntime
+    from diffsinger_tpu_torch.models.toplevel import DiffSingerAcoustic
+    from diffsinger_tpu_torch.ops import depthwise_conv, lynx_fused
+    from diffsinger_tpu_torch.training.acoustic_task import AcousticTask
+
+    t_phase = time.perf_counter()
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    report = {}
+    gen = torch.Generator(device=dev).manual_seed(40)
+
+    def randn(*shape, dtype=torch.float32, scale=1.0, shift=0.0):
+        return (shift + torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+    missed = []
+
+    def held(name, got, want, tol):
+        err = check(f"{name} (lynx_act)", got, want, tol)
+        if not (math.isfinite(err) and err <= tol):
+            missed.append(name)
+        return err
+
+    # 1. the kernels with each activation (alpha is not passed: no slopes)
+    inner, c = 2048, 1024
+    s = randn(B, T_MEL, inner, dtype=bf)
+    dw_w, dw_b = randn(inner, 31, dtype=bf, scale=0.2), randn(inner, dtype=bf, scale=0.1)
+    x = randn(B, T_MEL, c, dtype=bf)
+
+    def k2_params(cc, ii, k, dtype):
+        return dict(ln_scale=randn(cc, dtype=dtype, scale=0.2, shift=1.0),
+                    ln_bias=randn(cc, dtype=dtype, scale=0.1),
+                    w1=randn(2 * ii, cc, dtype=dtype, scale=cc ** -0.5),
+                    b1=randn(2 * ii, dtype=dtype, scale=0.1),
+                    dw_w=randn(ii, k, dtype=dtype, scale=0.2), dw_b=randn(ii, dtype=dtype, scale=0.1),
+                    alpha=None, w2=randn(cc, ii, dtype=dtype, scale=ii ** -0.5),
+                    b2=randn(cc, dtype=dtype, scale=0.1))
+
+    p2 = k2_params(c, inner, 31, bf)
+    errs = {}
+    for act in LYNX_ACTIVATIONS:
+        want = depthwise_conv.depthwise_conv1d_prelu_plain(s, dw_w, None, dw_b, act)
+        errs["K1", act] = held(f"K1 bf16 [16,1024,2048] k=31 {act}",
+                               depthwise_conv.depthwise_conv1d_prelu(s, dw_w, None, dw_b, act),
+                               want, 2 ** -7 * want.float().abs().max().item())
+        for dtype, b, t, cc, k in ((bf, 3, 333, 2048, 31), (bf, 1, 17, 64, 31),
+                                   (bf, 5, 77, 160, 7), (torch.float32, 2, 100, 100, 4)):
+            xk = randn(b, t, cc, dtype=dtype)
+            xk[0, -1] = 100.0  # must not reach sequence 1
+            args = (xk, randn(cc, k, dtype=dtype, scale=0.2), None, randn(cc, dtype=dtype, scale=0.1))
+            want_k = depthwise_conv.depthwise_conv1d_prelu_plain(*args, act)
+            f32 = dtype == torch.float32
+            held("K1 %s [%d,%d,%d] k=%d %s" % ("f32" if f32 else "bf16", b, t, cc, k, act),
+                 depthwise_conv.depthwise_conv1d_prelu(*args, act), want_k,
+                 1e-3 if f32 else 2 ** -7 * want_k.float().abs().max().item())
+        want = lynx_fused.fused_conv_module_plain(x, **p2, activation=act)
+        errs["K2", act] = held(f"K2 bf16 [16,1024,1024] I=2048 k=31 {act}",
+                               lynx_fused.fused_conv_module(x, **p2, activation=act), want,
+                               2 ** -6 * want.float().abs().max().item())
+        for b, t, cc, ii, k, dtype in ((3, 333, 1024, 2048, 31, bf), (2, 100, 64, 128, 31,
+                                                                       torch.float32)):
+            xr, pr = randn(b, t, cc, dtype=dtype), k2_params(cc, ii, k, dtype)
+            want_r = lynx_fused.fused_conv_module_plain(xr, **pr, activation=act)
+            f32 = dtype == torch.float32
+            held("K2 %s x [%d,%d,%d] I=%d k=%d %s" % ("f32" if f32 else "bf16", b, t, cc, ii, k, act),
+                 lynx_fused.fused_conv_module(xr, **pr, activation=act), want_r,
+                 1e-3 if f32 else 2 ** -6 * want_r.float().abs().max().item())
+    torch.cuda.synchronize()
+    if missed:
+        fail(f"[lynx_act] kernels disagree with their plain versions: {missed}")
+
+    # 2. the SiLU model at bench.py's request, then the same weights under ReLU
+    hp_act = {act: dict(hp, backbone_args=dict(hp["backbone_args"], activation=act))
+              for act in LYNX_ACTIVATIONS}
+    n_mels, n_layers, n_enc = hp["audio_num_mel_bins"], hp["backbone_args"]["num_layers"], hp["enc_layers"]
+    torch.manual_seed(41)
+    model32 = DiffSingerAcoustic(hp_act["SiLU"], vocab_size=VOCAB, out_dims=n_mels,
+                                 dtype=torch.float32)
+    seeded_weights(model32.module, 42)
+    if not isinstance(model32.module.denoiser.residual_layers[0].convmodule.net[5], torch.nn.SiLU):
+        fail("[lynx_act] the SiLU config did not build nn.SiLU into the conv module")
+    inputs = request(B, T_TXT, T_MEL)
+    per_request = {"K1": n_layers * STEPS, "K2": n_layers * STEPS, "K3": n_enc}
+    launches = {}
+    for act in LYNX_ACTIVATIONS:
+        model = DiffSingerAcoustic(hp_act[act], vocab_size=VOCAB, out_dims=n_mels, dtype=bf)
+        model.module.load_state_dict(model32.module.state_dict())
+        n_req = REQUESTS if act == "SiLU" else 2
+        reset_counts()
+        times = []
+        for r in range(n_req):  # the first warms up
+            mel, wav, t_ac, t_voc = run(model, vocoder, *inputs, noise_seed=r)
+            times.append(t_ac + t_voc)
+        counts = read_counts()
+        want = {k: v * n_req for k, v in per_request.items()}
+        if counts != want:
+            fail(f"[lynx_act] {act} requests: launch counts {counts} != {want}")
+        if not (mel.shape == (B, T_MEL, n_mels) and torch.isfinite(mel).all()
+                and wav.shape == (B, T_MEL * vocoder.config.hop_size)
+                and torch.isfinite(wav).all()):
+            fail(f"[lynx_act] {act} request: mel {tuple(mel.shape)}, wav {tuple(wav.shape)} "
+                 "or not finite")
+        if (mel[inputs[1] == 0] != 0).any():
+            fail(f"[lynx_act] {act} request: padded frames are not zero")
+        fps = B * T_MEL / (sum(times[1:]) / len(times[1:]))
+        launches[act] = counts
+        report[f"{act}_request"] = {"times_s": times, "frames_per_s": fps, "launches": counts}
+        log(f"[lynx_act] {act} request B={B} T_mel={T_MEL} {STEPS} steps bf16 (+ mini-NSF): "
+            f"times {['%.3f s' % t for t in times]}, {fps:.1f} mel frames/s on {card}; "
+            f"launches {counts} over {n_req} requests (expected {want})")
+        del model
+
+    # 3. a float32 SiLU request on the card against the CPU, same weights and noise
+    cpu32 = DiffSingerAcoustic(hp_act["SiLU"], vocab_size=VOCAB, out_dims=n_mels,
+                               dtype=torch.float32, device="cpu")
+    cpu32.module.load_state_dict(model32.module.state_dict())
+    a = LYNX_ACT_CPU
+    small = request(a["b"], a["t_txt"], a["t_mel"])
+    noise = torch.randn((a["b"], a["t_mel"], n_mels), generator=torch.Generator().manual_seed(43))
+    reset_counts()
+    mel_card = model32.forward_infer(*small, steps=a["steps"], noise=noise.to(dev)).diff_out
+    card_counts = read_counts()
+    mel_cpu = cpu32.forward_infer(*(t.cpu() for t in small), steps=a["steps"], noise=noise).diff_out
+    err = max_err(mel_card.cpu(), mel_cpu)
+    want = {"K1": n_layers * a["steps"], "K2": n_layers * a["steps"], "K3": n_enc}
+    log(f"[lynx_act] SiLU f32 request B={a['b']} T_mel={a['t_mel']} {a['steps']} steps, card vs "
+        f"CPU: max|mel err| {err:.3e} (tolerance 1e-3); card launches {card_counts} "
+        f"(expected {want})")
+    if not err <= 1e-3 or card_counts != want:
+        fail("[lynx_act] the float32 SiLU request on the card disagrees with the CPU")
+    report["f32_card_vs_cpu_mel"] = err
+    del cpu32, model32
+
+    # 4. one float32 training step of a narrow SiLU model, card against CPU
+    tmp = Path(tempfile.mkdtemp(prefix="lynx_act_", dir=OUT_DIR))
+    try:
+        narrow = dict(hidden_size=64, enc_layers=2, dropout=0.0, pl_trainer_precision="32-true",
+                      backbone_args=dict(num_channels=128, num_layers=2, kernel_size=31,
+                                         dropout_rate=0.0, strong_cond=True, activation="SiLU"))
+        tasks = []
+        for device in ("cuda", "cpu"):
+            hp_n = acoustic_train_hp(tmp / f"narrow_{device}", **narrow)
+            hp_n["shallow_diffusion_args"] = dict(
+                hp_n["shallow_diffusion_args"], aux_decoder_args=dict(
+                    num_channels=64, num_layers=2, kernel_size=7, dropout_rate=0.0))
+            torch.manual_seed(44)
+            tasks.append(quiet(AcousticTask, hp_n, device=device))
+            tasks[-1].configure_optimizer()
+        seeded_weights(tasks[0].module, 45)
+        tasks[1].module.load_state_dict(tasks[0].module.state_dict())
+        rng = np.random.default_rng(46)
+        ds = memory_acoustic_dataset(train_items(rng, 4, 32, 256, 128, 150, 256), tasks[0].hp)
+        batch = {k: v for k, v in ds.collater([ds[i] for i in range(4)]).items()
+                 if isinstance(v, np.ndarray) and k != "indices"}
+        draws = dict(t=torch.from_numpy(rng.uniform(0.4, 1, 4).astype(np.float32)),
+                     noise=torch.from_numpy(rng.standard_normal((4, 256, 128)).astype(np.float32)))
+        reset_counts()
+        report["f32_step_vs_cpu"], launched = card_vs_cpu_step("lynx_act", tasks, batch, draws,
+                                                               " (SiLU)")
+        counts = read_counts()
+        if launched != [(2, 2), (0, 0)] or counts["K2"] != 2 or counts["K1"] != 2:
+            fail(f"[lynx_act] the narrow SiLU step launched K3 {launched}, K1/K2 {counts}: "
+                 "expected K3 (2, 2) on the card and K1 = K2 = 2")
+        del tasks
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # 5. the SiLU experiment as a .pt2 at a small bucket, on the card
+    root = Path(tempfile.mkdtemp(prefix="lynx_act_export_"))
+    try:
+        name, _, _ = write_experiment(root, hp_act["SiLU"])
+        hp_e = load_config(exp_name=name, infer=True, ckpt_root=root / "checkpoints")
+        exporter = DiffSingerAcousticExporter(hp_e, root / "acoustic", buckets=[LYNX_ACT_BUCKET],
+                                              fmt="pt2", device="cuda")
+        t0 = time.perf_counter()
+        quiet(exporter.export)
+        export_s = time.perf_counter() - t0
+        runtime = AcousticArtifactRuntime(root / "acoustic", device="cuda")
+        t_txt, t_mel = LYNX_ACT_BUCKET
+        tokens, mel2ph, f0 = export_inputs(t_txt, t_mel, seed=47)
+        depth, steps = float(runtime.manifest["max_depth"]), hp_e["sampling_steps"]
+        noise = torch.randn((1, t_mel, n_mels), generator=torch.Generator(device=dev).manual_seed(48),
+                            device=dev)
+        reset_counts()
+        mel_pt2 = runtime.synthesize_mel(tokens, mel2ph, f0, noise=noise)
+        pt2_counts = read_counts()
+        reset_counts()
+        mel_eager = eager_dynamic(exporter.model, tokens, mel2ph, f0, noise, steps,
+                                  depth).cpu().numpy()
+        eager_counts = read_counts()
+        want = {"K1": n_layers * steps, "K2": n_layers * steps, "K3": n_enc}
+        equal = bool(np.array_equal(mel_pt2, mel_eager))
+        log(f"[lynx_act] SiLU .pt2 at {LYNX_ACT_BUCKET} exported on the card in {export_s:.1f} s; "
+            f"a request ({steps} steps, float32): launches {pt2_counts} (eager {eager_counts}, "
+            f"expected {want}); bit-equal to eager: {equal} (max|diff| "
+            f"{float(np.abs(mel_pt2 - mel_eager).max()):.3e})")
+        if pt2_counts != want or eager_counts != want or not equal:
+            fail("[lynx_act] the SiLU .pt2 request disagrees with eager or launched otherwise")
+        report["pt2"] = {"export_s": export_s, "launches": pt2_counts, "bit_equal": equal}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    # the kernel line's entries: the PReLU rows' bounds (the same bytes and
+    # products), the library call F.conv1d(groups=C) then the activation
+    bt = B * T_MEL
+    k1_bound = max((2 * (2 * bt * inner) + 2 * (inner * 31 + 2 * inner)) / PEAK_BYTES,
+                   2 * 31 * bt * inner / PEAK_F32)
+    k2_bytes = 2 * (2 * bt * c) + 2 * (2 * inner * c + inner * c + 31 * inner + 4 * inner + 4 * c)
+    k2_bound = max(k2_bytes / PEAK_BYTES, (2 * bt * c * 2 * inner + 2 * bt * inner * c) / PEAK_BF16_TC,
+                   2 * 31 * bt * inner / PEAK_F32)
+    s_t = s.transpose(1, 2).contiguous()
+    w_conv = dw_w[:, None, :].contiguous()
+    library = {"SiLU": F.silu, "ReLU": F.relu}
+    entries = []
+    for act in LYNX_ACTIVATIONS:
+        n_req = REQUESTS if act == "SiLU" else 2
+        for key, name, src, replaces, fn, plain, lib, bound, by in (
+            ("K1", f"depthwise_conv1d_prelu ({act})",
+             "diffsinger_tpu_torch/ops/csrc/depthwise_conv.cu", "diffsinger_tpu/ops/depthwise_conv.py:83",
+             lambda: depthwise_conv.depthwise_conv1d_prelu(s, dw_w, None, dw_b, act),
+             lambda: depthwise_conv.depthwise_conv1d_prelu_plain(s, dw_w, None, dw_b, act),
+             lambda: library[act](F.conv1d(s_t, w_conv, dw_b, padding=15, groups=inner)),
+             k1_bound, "bytes"),
+            ("K2", f"fused_conv_module ({act})", "diffsinger_tpu_torch/ops/csrc/lynx_fused.cu",
+             "diffsinger_tpu/ops/lynx_fused.py:153",
+             lambda: lynx_fused.fused_conv_module(x, **p2, activation=act),
+             lambda: lynx_fused.fused_conv_module_plain(x, **p2, activation=act),
+             None, k2_bound, "operations"),
+        ):
+            entry = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
+                     "launches": launches[act][key],
+                     "launches_per_request": launches[act][key] // n_req,
+                     "launches_from": f"[lynx_act]'s {n_req} {act} requests at B={B}, "
+                                      f"T_mel={T_MEL}, {STEPS} steps",
+                     "max_abs_err": errs[key, act], "ms": time_ms(fn),
+                     "plain_ms": time_ms(plain, iters=5, warmup=1), "bound_ms": bound * 1e3,
+                     "bound_by": by, "library_ms": time_ms(lib) if lib is not None else None}
+            entries.append(entry)
+            log(f"[time] {key} {name}: {entry['ms']:.4f} ms (bound {entry['bound_ms']:.4f} ms by "
+                f"{by}; plain {entry['plain_ms']:.4f} ms; library "
+                f"{'null' if lib is None else '%.4f ms' % entry['library_ms']}) on {card}")
+    report["phase_s"] = time.perf_counter() - t_phase
+    log(f"[lynx_act] phase {report['phase_s']:.1f} s")
+    return report, launches["SiLU"], entries
+
+
+# card against CPU. The DDSP vocoders sum their sources' phases in float64
+# (a float32 sum's drift over the request, printed for each device, moves
+# the pulses by fractions of a sample), so the two devices agree to float32
+# rounding: their samples are held directly and against a float64 run of the
+# same vocoder on the CPU. Griffin-Lim's phase recovery divides by
+# magnitudes near zero, which amplifies rounding round after round: its
+# samples are held on the request's first frames, and its whole log-mel.
+VOCODER_TOL = {
+    "controls": 1e-3,  # the control networks' outputs, whole request, max|err| / max|CPU|
+    "samples": 1e-3,  # DDSP vocoders: the whole request's samples, max|err| / peak
+    "vs_float64": 2.0,  # DDSP vocoders: card's max|err| against float64 / the CPU float32 run's
+    "short": 1e-2,  # Griffin-Lim: samples of the first VOCODER_SHORT frames, max|err| / peak
+    "log_mel": 2e-3,  # Griffin-Lim: the whole waveform's log-mel, mean |err| (natural log)
+}
+VOCODER_SHORT = 64  # frames (0.74 s)
+
+
+def ddsp_bundle(folder: Path) -> Path:
+    """A pc-ddsp CombSub bundle at its published widths (44.1 kHz, block 512,
+    window 2048, 128 mels, 512 harmonic and 256 noise bands, so that the
+    vocoder resamples its bands to the window's 1025 bins): Mel2Control's
+    parameters under pc-ddsp's names, weight norm on the last layer, seeded,
+    traced with ``torch.jit.trace`` on the host, with its ``config.yaml``."""
+    import torch
+    import yaml
+
+    n_mels, n_harm, n_noise = 128, 512, 256
+
+    class Mel2Control(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.stack = torch.nn.Sequential(
+                torch.nn.Conv1d(n_mels, 64, 3, 1, 1), torch.nn.GroupNorm(4, 64),
+                torch.nn.LeakyReLU(), torch.nn.Conv1d(64, 64, 3, 1, 1))
+            self.decoder = torch.nn.LSTM(64, 128, batch_first=True, bidirectional=True)
+            self.norm = torch.nn.LayerNorm(256)
+            self.dense_out = torch.nn.utils.parametrizations.weight_norm(
+                torch.nn.Linear(256, 2 * n_harm + n_noise))
+
+        def forward(self, mel):
+            x = self.stack(mel.transpose(1, 2)).transpose(1, 2)
+            return self.dense_out(self.norm(self.decoder(x)[0]))
+
+    class Bundle(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.mel2ctrl = Mel2Control()
+
+        def forward(self, mel):
+            return self.mel2ctrl(mel)
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(50)
+        model = Bundle().eval()
+        with torch.no_grad():  # biases and norms off their inits
+            for name, p in model.named_parameters():
+                if name.endswith("bias") or name.startswith(("mel2ctrl.stack.1", "mel2ctrl.norm")):
+                    p.add_(0.1 * torch.randn(p.shape))
+        path = folder / "combsub.jit"
+        torch.jit.trace(model, (torch.randn(1, 12, n_mels),)).save(str(path))
+    (folder / "config.yaml").write_text(yaml.safe_dump({
+        "model": {"type": "CombSub", "n_mag_harmonic": n_harm, "n_mag_noise": n_noise},
+        "data": {"sampling_rate": 44100, "block_size": 512, "win_length": 2048,
+                 "n_mels": n_mels}}))
+    return path
+
+
+def read_wav(path) -> "tuple":
+    import numpy as np
+
+    with wave.open(str(path), "rb") as f:
+        return f.getframerate(), np.frombuffer(f.readframes(f.getnframes()), np.int16)
+
+
+def vocoders_phase(card, reset_counts, read_counts, hp, mel, f0):
+    """[vocoders]: DDSP (a bundle traced at pc-ddsp's CombSub widths),
+    DDSPNative at its defaults and Griffin-Lim (32 rounds) on the 11.9 s
+    request's mel [1, 1024, 128] (natural log) and f0, each on the card
+    against the CPU on the same noise (``VOCODER_TOL``: the control
+    networks, the samples, and the samples against a float64 run for the
+    DDSP vocoders; Griffin-Lim's first 64 frames and whole log-mel), its
+    seconds a second of
+    audio, its kernel launches under the profiler and the port's kernel
+    counters (0); then ``cli.vocode`` and ``cli.val_nsf_hifigan`` once on the
+    card with a full-NSF experiment folder. Returns the report."""
+    root = Path(tempfile.mkdtemp(prefix="vocoders_"))
+    try:
+        return vocoder_checks(root, card, reset_counts, read_counts, hp, mel, f0)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def vocoder_checks(root, card, reset_counts, read_counts, hp, mel, f0):
+    """The body of :func:`vocoders_phase`, writing under ``root``."""
+    import numpy as np
+    import torch
+
+    from diffsinger_tpu_torch.cli import val_nsf_hifigan, vocode
+    from diffsinger_tpu_torch.dsp.griffin_lim import GriffinLimVocoder
+    from diffsinger_tpu_torch.dsp.mel import MelSpectrogram
+    from diffsinger_tpu_torch.utils.infer_utils import save_wav
+    from diffsinger_tpu_torch.vocoders.ddsp import DDSP
+    from diffsinger_tpu_torch.vocoders.ddsp_native import DDSPNative
+
+    t_phase = time.perf_counter()
+    sr, hop = hp["audio_sample_rate"], hp["hop_size"]
+    audio_s = mel.shape[1] * hop / sr
+    mel, f0 = mel.float().contiguous(), f0.float().contiguous()
+    mel_cpu, f0_cpu = mel.cpu(), f0.cpu()
+    base = {"audio_sample_rate": sr, "audio_num_mel_bins": hp["audio_num_mel_bins"],
+            "hop_size": hop, "win_size": hp["win_size"], "mel_base": hp["mel_base"]}
+    ddsp_hp = dict(base, vocoder_ckpt=str(ddsp_bundle(root)))
+    with warnings.catch_warnings():  # DDSPNative has no checkpoint: seeded random weights
+        warnings.simplefilter("ignore")
+        native = [DDSPNative(dict(base), device=d) for d in ("cuda", "cpu")]
+    made = {
+        "DDSP": [quiet(DDSP, ddsp_hp, device=d) for d in ("cuda", "cpu")],
+        "DDSPNative": native,
+        "GriffinLim": [GriffinLimVocoder.from_hparams(hp, n_iter=32, device=d)
+                       for d in ("cuda", "cpu")],
+    }
+    log_mel = MelSpectrogram(sr=sr, n_mels=hp["audio_num_mel_bins"], n_fft=hp["fft_size"],
+                             win_size=hp["win_size"], hop_size=hop, fmin=hp["fmin"],
+                             fmax=hp["fmax"])
+    # the DDSP vocoders' noise, drawn once on the host for both devices (a
+    # generator of one seed gives other numbers on the card than on the CPU)
+    noise = torch.rand((1, mel.shape[1] * hop), generator=torch.Generator().manual_seed(0)) * 2 - 1
+    out = {"audio_s": audio_s, "tolerances": VOCODER_TOL}
+    # why the DDSP sources sum their phases in float64: the request's phase
+    # (the f0 upsampled as CombSub does) summed in float32 on each device,
+    # against the float64 sum, in cycles
+    from diffsinger_tpu_torch.vocoders.ddsp_combsub import upsample_align_corners
+
+    f0_up = upsample_align_corners(f0, hop)
+    exact = torch.cumsum(f0_up.cpu().double() / sr, dim=1)
+    out["float32_phase_drift_cycles"] = drift = {
+        name: (torch.cumsum(f0_up.to(where) / sr, dim=1).cpu().double() - exact).abs().max().item()
+        for name, where in (("card", f0.device), ("cpu", "cpu"))}
+    log(f"[vocoders] the request's phase ({exact[0, -1].item():.1f} cycles) summed in float32 "
+        f"against float64: max drift {drift['card']:.3e} cycles on the card, {drift['cpu']:.3e} "
+        f"on the CPU (the vocoders sum in float64)")
+    for name, (card_voc, cpu_voc) in made.items():
+        if name == "GriffinLim":
+            call = lambda v, m, _f: v.spec2wav_torch(m)  # noqa: E731
+        else:
+            call = lambda v, m, f: v.spec2wav_torch(  # noqa: E731
+                m, f, noise=noise[:, :m.shape[1] * hop].to(m.device))
+        reset_counts()
+        wav = call(card_voc, mel, f0)  # warms up
+        times = timed_requests(lambda: call(card_voc, mel, f0))
+        counts = read_counts()
+        prof = profile_request(lambda: call(card_voc, mel, f0), f"{name} vocoding 11.9 s",
+                               table=f"chip_smoke_profile_{name.lower()}.txt")
+        want = call(cpu_voc, mel_cpu, f0_cpu)
+        got = wav.cpu()
+        if got.shape != (1, mel.shape[1] * hop) or not torch.isfinite(got).all():
+            fail(f"[vocoders] {name}: wav {tuple(got.shape)} or not finite")
+        peak = want.abs().max().item()
+        mel_mae = (log_mel(got) - log_mel(want)).abs().mean().item()
+        if name == "GriffinLim":
+            short = (mel[:, :VOCODER_SHORT], f0[:, :VOCODER_SHORT])
+            want_short = call(cpu_voc, *(t.cpu() for t in short))
+            errs = {"short": max_err(call(card_voc, *short).cpu(), want_short)
+                    / want_short.abs().max().item(), "log_mel": mel_mae}
+        else:
+            # the control frames, then the samples against a float64 run
+            with torch.no_grad():
+                if name == "DDSP":
+                    net_in = card_voc.mel_to_log10(mel)
+                    ctrl_card = list(card_voc.model.mel2ctrl(net_in).values())
+                    ctrl_cpu = list(cpu_voc.model.mel2ctrl(net_in.cpu()).values())
+                else:
+                    net_in = mel if hp["mel_base"] == "e" else 2.30259 * mel
+                    ctrl_card = card_voc.model.control(net_in)
+                    ctrl_cpu = cpu_voc.model.control(net_in.cpu())
+                model64 = copy.deepcopy(cpu_voc.model).double()
+                truth = model64(net_in.cpu().double(), f0_cpu.double(), noise=noise.double())
+            cpu_err = max_err(want, truth) / peak
+            errs = {"controls": max(max_err(a.cpu(), w) / w.abs().max().item()
+                                    for a, w in zip(ctrl_card, ctrl_cpu)),
+                    "samples": max_err(got, want) / peak,
+                    "vs_float64": max_err(got, truth) / peak / max(cpu_err, 1e-7)}
+            log(f"[vocoders] {name}: max|err| / peak against float64: card {errs['vs_float64'] * max(cpu_err, 1e-7):.3e}, "
+                f"CPU {cpu_err:.3e}; card vs CPU log-mel mean |err| {mel_mae:.3e}")
+        ok = all(v <= VOCODER_TOL[k] for k, v in errs.items()) and counts == {"K1": 0, "K2": 0,
+                                                                             "K3": 0}
+        mean_s = sum(times) / len(times)
+        out[name] = {"times_s": times, "s_per_audio_s": mean_s / audio_s, "errors": errs,
+                     "log_mel_mae": mel_mae, "kernel_counters": counts, "profile": prof,
+                     "peak": peak}
+        log(f"[vocoders] {name}: {mean_s * 1e3:.1f} ms for {audio_s:.2f} s of audio "
+            f"({['%.1f' % (t * 1e3) for t in times]} ms), {mean_s / audio_s:.5f} s a second of "
+            f"audio on {card}; {prof.get('kernel_launches', 'not measured')} kernel launches, idle "
+            f"share {prof.get('idle_share', float('nan')):.3f}; the port's kernels {counts}; card "
+            f"vs CPU " + ", ".join(f"{k} {v:.3e} (tolerance {VOCODER_TOL[k]:.0e})"
+                                   for k, v in errs.items()))
+        if not ok:
+            fail(f"[vocoders] {name} on the card disagrees with the CPU or launched a kernel")
+        torch.cuda.synchronize()
+    del made
+
+    # the two commands, once each on the card (no --device: the default)
+    name, _, _ = write_experiment(root / "exp", hp)
+    exp_dir = root / "exp" / "checkpoints" / name
+    # two segments of the request's mel (frames 0-600 and 500-1024 of 1024):
+    # the second starts before the first ends, so the command cross-fades
+    t = mel.shape[1]
+    end0, start1 = t * 600 // 1024, t * 500 // 1024
+    mel_np, f0_np = mel_cpu[0].numpy(), f0_cpu[0].numpy()
+    np.savez(root / "song.mel.npz", num_segments=2, mel_0=mel_np[:end0], f0_0=f0_np[:end0],
+             offset_0=0.0, mel_1=mel_np[start1:], f0_1=f0_np[start1:], offset_1=start1 * hop / sr)
+    saved = os.environ.get("DS_CKPT_ROOT")
+    os.environ["DS_CKPT_ROOT"] = str(root / "exp" / "checkpoints")
+    try:
+        t0 = time.perf_counter()
+        path = quiet(vocode.main, [str(root / "song.mel.npz"), "--exp", name,
+                                   "--out", str(root / "out")])
+        vocode_s = time.perf_counter() - t0
+    finally:
+        if saved is None:
+            os.environ.pop("DS_CKPT_ROOT")
+        else:
+            os.environ["DS_CKPT_ROOT"] = saved
+    rate, samples = read_wav(path)
+    if rate != sr or samples.size != mel.shape[1] * hop or not np.abs(samples).max() > 0:
+        fail(f"[vocoders] cli.vocode wrote {samples.size} samples at {rate} Hz")
+    n = np.arange(int(3.0 * sr))
+    take = 0.5 * np.sin(2 * np.pi * np.cumsum(220 * 2 ** (0.5 * np.sin(2 * np.pi * n / sr))) / sr)
+    save_wav(take, root / "take.wav", sr)
+    t0 = time.perf_counter()
+    path = quiet(val_nsf_hifigan.main, [str(root / "take.wav"), "--config",
+                                        str(exp_dir / "config.yaml"), "--out", str(root / "out")])
+    val_s = time.perf_counter() - t0
+    rate, resynth = read_wav(path)
+    frames = log_mel.num_frames(n.size)
+    if rate != sr or resynth.size != frames * hop or not np.abs(resynth).max() > 0:
+        fail(f"[vocoders] cli.val_nsf_hifigan wrote {resynth.size} samples at {rate} Hz")
+    out["cli"] = {"vocode_s": vocode_s, "val_nsf_hifigan_s": val_s}
+    log(f"[vocoders] cli.vocode (2 segments, {samples.size / sr:.2f} s, full-NSF bf16) "
+        f"{vocode_s:.2f} s with loading; cli.val_nsf_hifigan (3 s take) {val_s:.2f} s with "
+        f"loading, on {card}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[vocoders] phase {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> None:
     t_script = time.perf_counter()
     import torch
@@ -3686,6 +4220,7 @@ def main() -> None:
     main_counts = counts
     expect_counts(counts, REQUESTS, f"{REQUESTS} requests B={B} T_mel={T_MEL}")
     check_out(mel, wav, inputs[1], "requests")
+    bench_mel, bench_f0 = mel[:1].float(), inputs[2][:1]  # the vocoders' 11.9 s request
     steady = times[1:]
     fps = B * T_MEL / (sum(steady) / len(steady))
     log(f"[e2e] request times {['%.3f s' % t for t in times]}; steady {fps:.1f} mel frames/s "
@@ -3797,6 +4332,10 @@ def main() -> None:
     if not all(c["ok"] for c in checks):
         fail("K3 disagrees with its plain version at a variance shape")
     report["phases"]["ddpm"], ddpm_counts = ddpm_phase(hp, card, reset_counts, read_counts, request)
+    report["phases"]["lynx_act"], act_counts, act_kernels = lynx_act_phase(
+        hp, card, reset_counts, read_counts, check, request, run, vocoder)
+    report["phases"]["vocoders"] = vocoders_phase(card, reset_counts, read_counts, hp,
+                                                  bench_mel, bench_f0)
     report["phases"]["export"], export_counts = export_phase(card, reset_counts, read_counts)
     report["phases"]["train"], train_counts, bwd_cases = train_phase(
         card, reset_counts, read_counts, check)
@@ -3924,6 +4463,7 @@ def main() -> None:
             "launches_served_score": serve_counts[key],
             "launches_variance_score": var_counts[key],
             "launches_ddpm_request": {acc: c[key] for acc, c in ddpm_counts.items()},
+            "launches_silu_requests": act_counts[key],
             "launches_export_request": export_counts[key],
             "launches_train_steps": train_counts[key],
             "launches_train_variance_steps": var_train_counts[key],
@@ -3942,6 +4482,7 @@ def main() -> None:
             f"{entry['bound_by']}; plain {entry['plain_ms']:.4f} ms; library "
             f"{entry['library_ms'] if entry['library_ms'] is None else '%.4f ms' % entry['library_ms']}) "
             f"on {card}")
+    kernels += act_kernels  # K1 and K2 with SiLU and ReLU, timed in [lynx_act]
     # K3's backward at the training batch's shape and the long shape: the
     # wrapper (dK/dV with delta and dS, then dQ), each kernel alone, the plain
     # backward and SDPA's backward; the bound of the route the kernel takes

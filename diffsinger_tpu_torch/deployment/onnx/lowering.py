@@ -745,7 +745,9 @@ def lower_node(ctx: Ctx, node) -> None:
 
 def plain_decompositions() -> dict:
     """The default core-ATen table, with each kernel's custom op replaced by
-    its plain PyTorch version."""
+    its plain PyTorch version, which takes the op's arguments as they are
+    (K1's and K2's ``activation`` included: SiLU decomposes to a product
+    with a sigmoid, ReLU to a maximum)."""
     from diffsinger_tpu_torch.ops import depthwise_conv, flash_attention, lynx_fused
 
     table = torch.export.default_decompositions()

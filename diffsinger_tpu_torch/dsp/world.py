@@ -16,9 +16,10 @@ the native replacement for pyworld in the reference's ``world`` harmonic split
   ``device`` runs the float32 twin of :mod:`diffsinger_tpu_torch.dsp.world_device`
   on the waveform's device.
 
-The JAX module's fast alternatives (``estimate_aperiodicity``, a
-spectral-floor aperiodicity, and ``synthesize``, an overlap-add synthesis)
-have no caller in either package and are not carried over.
+* :func:`estimate_aperiodicity` (a spectral-floor aperiodicity) and
+  :func:`synthesize` (an overlap-add synthesis): the JAX module's fast
+  alternatives, in float32 on the tensors' device. No code of either
+  package calls them.
 """
 
 from __future__ import annotations
@@ -154,6 +155,100 @@ def cheaptrick(x: torch.Tensor, f0: torch.Tensor, *, fs: int, fft_size: int,
     recovery_lifter = (1.0 + 2.0 * q1) - 2.0 * q1 * torch.cos(2.0 * arg)
     log_env = torch.fft.rfft(ceps * smoothing_lifter * recovery_lifter, dim=1).real
     return torch.exp(log_env)
+
+
+@no_tf32()
+def estimate_aperiodicity(x: torch.Tensor, f0: torch.Tensor, *, fs: int, fft_size: int,
+                          hop: int) -> torch.Tensor:
+    """Per-frame, per-bin aperiodicity in [0, 1]: the square root of the
+    ratio of the inter-harmonic floor to the harmonic peaks of a Blackman-
+    windowed power spectrum, each a masked mean over a band of about 2 f0.
+    x [L], f0 [F] (0 = unvoiced, whose frames get 1) -> [F, fft_size//2+1],
+    on x's device in float32. A fast heuristic beside D4C; no path calls it."""
+    n_frames = f0.shape[0]
+    n_bins = fft_size // 2 + 1
+    dev = x.device
+    voiced = f0 > 0
+    f0_eff = torch.where(voiced, f0, torch.full_like(f0, DEFAULT_F0))
+    # frames centred on f * hop, zeros beyond the signal (indices clamped to
+    # the padded signal, as a JAX gather clamps them)
+    xp = F.pad(x, (fft_size, fft_size))
+    idx = (torch.arange(n_frames, device=dev)[:, None] * hop
+           + torch.arange(fft_size, device=dev)[None, :] - fft_size // 2 + fft_size)
+    frames = xp[idx.clamp(0, xp.shape[0] - 1)]
+    window = torch.from_numpy(np.blackman(fft_size).astype(np.float32)).to(dev)
+    power = torch.fft.rfft(frames * window, dim=1).abs() ** 2 + 1e-12
+
+    bin_hz = fs / fft_size
+    # distance of each bin from the nearest harmonic in units of f0
+    ratio = (torch.arange(n_bins, device=dev)[None, :] * bin_hz) / f0_eff[:, None]
+    frac = torch.abs(ratio - torch.round(ratio))  # 0 at harmonics, 0.5 between
+    width = torch.clamp((2.0 * f0_eff / bin_hz).to(torch.int32), min=4).long()[:, None]
+    pos = torch.arange(n_bins, device=dev)[None, :]
+    lo = torch.clamp(pos - width, 0, n_bins)
+    hi = torch.clamp(pos + width, 0, n_bins)
+
+    def band_stat(mask):  # the masked mean of the power over [pos - width, pos + width)
+        w = mask.to(power.dtype)
+        csum_p = torch.cumsum(F.pad(power * w, (1, 0)), dim=1)
+        csum_w = torch.cumsum(F.pad(w, (1, 0)), dim=1)
+        num = csum_p.gather(1, hi) - csum_p.gather(1, lo)
+        den = csum_w.gather(1, hi) - csum_w.gather(1, lo)
+        return num / torch.clamp(den, min=1.0)
+
+    peak_env = band_stat(frac < 0.15)
+    floor_env = band_stat(frac > 0.35)
+    ap = torch.sqrt(torch.clamp(floor_env / torch.clamp(peak_env, min=1e-12), 0.0, 1.0))
+    return torch.where(voiced[:, None], ap, torch.ones_like(ap))
+
+
+def pulse_excitation(f0: torch.Tensor, *, fs: int, hop: int) -> torch.Tensor:
+    """The periodic excitation of :func:`synthesize`, f0 [F] -> [F * hop]: a
+    pulse where the phase (a cumulative sum of f0 / fs) passes an integer,
+    scaled to about unit power a period, silent in unvoiced frames. The JAX
+    package sums in float32; where the phase lands within rounding of an
+    integer, the order of such a sum decides the sample, so the port sums in
+    float64 and its pulses fall where the exact phase puts them."""
+    voiced = f0 > 0
+    f0_up = torch.repeat_interleave(torch.where(voiced, f0, torch.full_like(f0, DEFAULT_F0)), hop)
+    phase = torch.cumsum(f0_up.double() / fs, dim=0)
+    previous = torch.cat([torch.zeros(1, dtype=phase.dtype, device=f0.device), phase[:-1]])
+    pulse = (torch.floor(phase) - torch.floor(previous)) > 0
+    return (pulse.float() * torch.sqrt(torch.clamp(fs / f0_up, min=1.0))
+            * torch.repeat_interleave(voiced, hop))
+
+
+@no_tf32()
+def synthesize(f0: torch.Tensor, envelope: torch.Tensor, aperiodicity: torch.Tensor, *,
+               fs: int, fft_size: int, hop: int, noise: torch.Tensor | None = None,
+               generator: torch.Generator | None = None) -> torch.Tensor:
+    """Overlap-add synthesis from (f0 [F], envelope [F, bins], aperiodicity
+    [F, bins]) -> [F * hop], on f0's device in float32: the pulse train of
+    :func:`pulse_excitation` and normal noise (``noise`` [F * hop], else
+    drawn from ``generator``), each filtered in the STFT domain by the
+    envelope's square root and weighted per bin by sqrt(1 - ap^2) (pulses)
+    and ap (noise), then overlap-added. An approximation of WORLD's synthesis
+    (``synthesize_world`` is the exact one); no path calls it."""
+    from diffsinger_tpu_torch.dsp.stft import istft, stft_complex
+
+    periodic = pulse_excitation(f0, fs=fs, hop=hop)
+    if noise is None:
+        noise = torch.randn(periodic.shape, generator=generator, device=f0.device)
+    window = torch.from_numpy(np.hanning(fft_size + 1)[:-1].astype(np.float32)).to(f0.device)
+    stft = dict(n_fft=fft_size, hop=hop, win_size=fft_size, window=window, center=True)
+    amp = torch.sqrt(envelope)
+    per_w = torch.sqrt(torch.clamp(1.0 - aperiodicity ** 2, 0.0, 1.0))
+    spec_p = stft_complex(periodic[None], **stft)
+    spec_n = stft_complex(noise[None], **stft)
+    fcount = spec_p.shape[1]
+
+    def fit(a):  # rows cut or zero-padded to the STFT's frames
+        a = a[:fcount]
+        return F.pad(a, (0, 0, 0, fcount - a.shape[0]))
+
+    spec = (spec_p * (fit(amp) * fit(per_w))[None]
+            + spec_n * (fit(amp) * fit(aperiodicity))[None])
+    return istft(spec, length=periodic.shape[0], **stft)[0]
 
 
 # ---------------------------------------------------------------------------

@@ -1,11 +1,12 @@
 """LYNXNet denoiser backbone (counterpart of diffsinger_tpu/models/backbones/lynxnet.py).
 
 Conformer-style residual layers: LayerNorm -> 1x1 conv to 2*inner -> SwiGLU
--> depthwise conv (k=31) -> PReLU -> 1x1 conv back, with the condition and
-the diffusion step injected per layer. Channel-last throughout. With the
-PReLU activation the conv module is K2 (``ops.lynx_fused``): its kernels on
-CUDA, its plain version on the CPU; where gradients are wanted, K2's forward
-under its autograd Function, whose backward runs stock ops. While
+-> depthwise conv (k=31) -> PReLU (or SiLU, ReLU) -> 1x1 conv back, with the
+condition and the diffusion step injected per layer. Channel-last throughout.
+The conv module is K2 (``ops.lynx_fused``) with the activation in its
+depthwise stage's epilogue, whichever the config names: its kernels on CUDA,
+its plain version on the CPU; where gradients are wanted, K2's forward under
+its autograd Function, whose backward runs stock ops. While
 ``torch.export`` traces it, the conv module is the custom op
 ``ds::fused_conv_module`` instead, so that the exported program launches K2.
 """
@@ -43,36 +44,41 @@ class PReLU(nn.Module):
 
 class LYNXConvModule(nn.Module):
     """``net`` indices follow the reference: 0 LayerNorm, 1 transpose, 2 pw conv
-    C -> 2I, 3 SwiGLU, 4 depthwise conv, 5 PReLU, 6 pw conv I -> C. The
+    C -> 2I, 3 SwiGLU, 4 depthwise conv, 5 the activation (``PReLU(I)``, or
+    the parameter-free ``nn.SiLU()`` / ``nn.ReLU()``), 6 pw conv I -> C. The
     parameter-free slots are placeholders so the ``state_dict`` names match.
-    The forward is one K2 call, then dropout (training mode). The SiLU and ReLU
-    activations of the JAX module are not ported."""
+    The forward is one K2 call with the activation, then dropout (training
+    mode)."""
 
     def __init__(self, dim: int, expansion_factor: int, kernel_size: int = 31,
                  activation: str = "PReLU", dropout: float = 0.0):
         super().__init__()
-        if activation != "PReLU":
-            raise NotImplementedError(f"activation {activation!r} is not ported")
         inner = dim * expansion_factor
+        acts = {"PReLU": lambda: PReLU(inner), "SiLU": nn.SiLU, "ReLU": nn.ReLU}
+        if activation not in acts:
+            raise ValueError(f"{activation} is not a valid activation")
+        self.activation = activation
         self.net = nn.ModuleList([
             nn.LayerNorm(dim, eps=1e-5),
             nn.Identity(),
             nn.Conv1d(dim, inner * 2, 1),
             nn.Identity(),
             nn.Conv1d(inner, inner, kernel_size, groups=inner),
-            PReLU(inner),
+            acts[activation](),
             nn.Conv1d(inner, dim, 1),
         ])
         self.dropout = nn.Dropout(dropout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         params = conv_module_params_from_module(self)
+        act = self.activation
         if torch.compiler.is_exporting():  # one graph node, launched as K2 by the program
-            return self.dropout(fused_conv_module_op(x, *(params[n] for n in PARAM_NAMES)))
+            return self.dropout(fused_conv_module_op(x, *(params[n] for n in PARAM_NAMES),
+                                                     activation=act))
         if torch.is_grad_enabled() and (x.requires_grad
                                         or any(p.requires_grad for p in self.parameters())):
-            return self.dropout(fused_conv_module_train(x, **params))
-        return self.dropout(fused_conv_module(x, **params))
+            return self.dropout(fused_conv_module_train(x, act, **params))
+        return self.dropout(fused_conv_module(x, **params, activation=act))
 
 
 class LYNXNetResidualLayer(nn.Module):

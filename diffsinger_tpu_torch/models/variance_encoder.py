@@ -10,8 +10,10 @@ note_dur_embed,note_glide_embed,encoder,out_proj}``). Both encoders are
 ``FastSpeech2Encoder``, with or without RoPE; either way their attention is
 K3. Both take the config's ``dropout`` (the melody encoder its own
 ``melody_encoder_args.dropout`` first), which acts in training mode only.
-The conv-stack ``VariancePredictor`` and ``PitchPredictor`` of the JAX
-module are on no path and are not ported.
+The conv-stack ``VariancePredictor`` and ``PitchPredictor`` keep the
+reference's names (``conv.{i}.0`` conv, ``.2`` LayerNorm, ``linear``,
+``pos_embed_alpha``, ``base_pitch_embed``); no path of either package uses
+them.
 """
 
 from __future__ import annotations
@@ -22,7 +24,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from diffsinger_tpu_torch.models.commons import CurveEmbed, Embedding, FastSpeech2Encoder, Linear
+from diffsinger_tpu_torch.models.commons import (
+    MAX_POSITIONS, CurveEmbed, Embedding, FastSpeech2Encoder, Linear, sinusoidal_positional_table)
 
 
 class DurationPredictor(nn.Module):
@@ -66,6 +69,75 @@ class DurationPredictor(nn.Module):
         if not infer:
             return dur_log
         return torch.clamp(torch.exp(dur_log) - self.offset, min=0.0)
+
+
+class _ConvStack(nn.Module):
+    """The conv stack of the two curve predictors: a scaled absolute
+    position embedding (positions 1..T), then ``conv.{i}`` = Conv1d, ReLU,
+    LayerNorm (eps 1e-12), Dropout, channel-last."""
+
+    def __init__(self, in_dims: int, n_layers: int, n_chans: int, kernel_size: int,
+                 dropout_rate: float):
+        super().__init__()
+        self.conv = nn.ModuleList([
+            nn.Sequential(
+                nn.Conv1d(in_dims if i == 0 else n_chans, n_chans, kernel_size,
+                          padding=kernel_size // 2),
+                nn.ReLU(),
+                nn.LayerNorm(n_chans, eps=1e-12),
+                nn.Dropout(dropout_rate),
+            )
+            for i in range(n_layers)
+        ])
+        self.pos_embed_alpha = nn.Parameter(torch.ones(1))
+        self.register_buffer("pos_table", torch.from_numpy(
+            sinusoidal_positional_table(MAX_POSITIONS, in_dims)), persistent=False)
+
+    def convs(self, xs: torch.Tensor) -> torch.Tensor:
+        xs = xs + self.pos_embed_alpha * self.pos_table[1:xs.shape[1] + 1]
+        for conv, relu, norm, dropout in self.conv:
+            xs = dropout(norm(relu(conv(xs.transpose(1, 2)).transpose(1, 2))))
+        return xs
+
+
+class VariancePredictor(_ConvStack):
+    """Conv-stack scalar-curve predictor: xs [B, T, H] -> [B, T], mapped from
+    [-1, 1] to [vmin, vmax] when ``infer``."""
+
+    def __init__(self, vmin: float, vmax: float, in_dims: int, n_layers: int = 5,
+                 n_chans: int = 512, kernel_size: int = 5, dropout_rate: float = 0.1):
+        super().__init__(in_dims, n_layers, n_chans, kernel_size, dropout_rate)
+        self.vmin, self.vmax = vmin, vmax
+        self.linear = Linear(n_chans, 1)
+
+    def forward(self, xs: torch.Tensor, infer: bool = True) -> torch.Tensor:
+        xs = self.linear(self.convs(xs))[:, :, 0]
+        if infer:
+            xs = (xs + 1) / 2 * (self.vmax - self.vmin) + self.vmin
+        return xs
+
+
+class PitchPredictor(_ConvStack):
+    """Binned sigmoid pitch predictor: xs [B, T, H], base [B, T] -> (pitch
+    [B, T], logits [B, T, num_bins]); the pitch is the sigmoid-weighted mean
+    bin over [vmin, vmax], added to ``base``."""
+
+    def __init__(self, vmin: float, vmax: float, num_bins: int, deviation: float, in_dims: int,
+                 n_layers: int = 5, n_chans: int = 384, kernel_size: int = 5,
+                 dropout_rate: float = 0.1):
+        super().__init__(in_dims, n_layers, n_chans, kernel_size, dropout_rate)
+        self.vmin, self.vmax, self.num_bins, self.deviation = vmin, vmax, num_bins, deviation
+        self.interval = (vmax - vmin) / (num_bins - 1)
+        self.base_pitch_embed = Linear(1, in_dims)
+        self.linear = Linear(n_chans, num_bins)
+
+    def forward(self, xs: torch.Tensor, base: torch.Tensor):
+        xs = xs + self.base_pitch_embed(base[:, :, None])
+        logits = self.linear(self.convs(xs))
+        probs = torch.sigmoid(logits)
+        bins = (torch.sum(torch.arange(self.num_bins, device=xs.device) * probs, dim=2)
+                / torch.clamp(torch.sum(probs, dim=2), min=1e-8))
+        return bins * self.interval + self.vmin + base, logits
 
 
 class FastSpeech2Variance(nn.Module):

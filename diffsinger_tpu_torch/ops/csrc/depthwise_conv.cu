@@ -1,5 +1,6 @@
-// K1: 'same'-padded depthwise 1-D convolution + optional bias + per-channel
-// PReLU over channel-last x [B, T, C].
+// K1: 'same'-padded depthwise 1-D convolution + optional bias + an activation
+// over channel-last x [B, T, C]: per-channel PReLU (LYNXNet's default), SiLU or
+// ReLU, chosen at compile time (LYNXNet's `activation`).
 //
 // Replaces the TPU kernel diffsinger_tpu/ops/depthwise_conv.py
 // (depthwise_conv1d_prelu, Pallas _kernel). On the main path it is the middle
@@ -57,13 +58,32 @@
 
 namespace ds {
 
+// the epilogue's activation, a template argument of both kernels; alpha (the
+// PReLU slopes) is read only for ACT_PRELU
+enum : int { ACT_PRELU = 0, ACT_SILU = 1, ACT_RELU = 2 };
+
+template <int ACT>
+__device__ __forceinline__ float activate(float v, float a) {
+  if constexpr (ACT == ACT_PRELU) {
+    return v >= 0.f ? v : a * v;
+  } else if constexpr (ACT == ACT_SILU) {
+    // a fast exponential and a fast division (a reciprocal and a product)
+    // keep the epilogue to a few instructions an output, where an IEEE
+    // division takes a dozen. For v < -87 the exponential is inf and the
+    // result -0 (SiLU's limit).
+    return __fdividef(v, 1.f + __expf(-v));
+  } else {
+    return v > 0.f ? v : 0.f;
+  }
+}
+
 // ---------------------------------------------------------------- generic k
 constexpr int DW_CT = 64;        // channels per block
 constexpr int DW_TT = 64;        // output rows per block
 constexpr int DW_THREADS = 256;  // 64 channels x 4 groups of 16 rows
 constexpr int DW_MAX_K = 61;     // keeps the staged tile under 48 KB
 
-template <typename T>
+template <typename T, int ACT>
 __global__ void __launch_bounds__(DW_THREADS)
 dwconv_prelu_generic_kernel(const T* __restrict__ x, const T* __restrict__ w,
                             const T* __restrict__ bias, const T* __restrict__ alpha,
@@ -95,7 +115,7 @@ dwconv_prelu_generic_kernel(const T* __restrict__ x, const T* __restrict__ w,
   constexpr int ROWS = DW_TT / (DW_THREADS / DW_CT);
   const int r0 = (threadIdx.x / DW_CT) * ROWS;
   const float bv = bias ? to_f(bias[c]) : 0.f;
-  const float av = to_f(alpha[c]);
+  const float av = ACT == ACT_PRELU ? to_f(alpha[c]) : 0.f;
   T* ob = out + (size_t)b * T_len * C;
   for (int rr = 0; rr < ROWS; ++rr) {
     const int r = r0 + rr, t = t0 + r;
@@ -103,17 +123,17 @@ dwconv_prelu_generic_kernel(const T* __restrict__ x, const T* __restrict__ w,
     float acc = 0.f;
     for (int j = 0; j < K; ++j) acc += xs[(r + j) * DW_CT + cc] * ws[j * DW_CT + cc];
     acc += bv;
-    acc = acc >= 0.f ? acc : av * acc;
+    acc = activate<ACT>(acc, av);
     ob[(size_t)t * C + c] = from_f<T>(acc);
   }
 }
 
-template <typename T>
+template <typename T, int ACT>
 int launch_generic(const void* x, const void* w, const void* bias, const void* alpha,
                    void* out, int B, int T_len, int C, int K, cudaStream_t stream) {
   const dim3 grid((C + DW_CT - 1) / DW_CT, (T_len + DW_TT - 1) / DW_TT, B);
   const size_t smem = (size_t)(DW_TT + 2 * K - 1) * DW_CT * sizeof(float);
-  dwconv_prelu_generic_kernel<T><<<grid, DW_THREADS, smem, stream>>>(
+  dwconv_prelu_generic_kernel<T, ACT><<<grid, DW_THREADS, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(w), static_cast<const T*>(bias),
       static_cast<const T*>(alpha), static_cast<T*>(out), T_len, C, K);
   return (int)cudaGetLastError();
@@ -160,7 +180,7 @@ __device__ __forceinline__ uint4 quad_transpose(uint32_t v0, uint32_t v1, uint32
 
 // blocks that share an SM: four in bf16 (128 registers a thread), two in float32,
 // whose stages are twice as large
-template <typename T, int K, int TT>
+template <typename T, int K, int TT, int ACT>
 __global__ void __launch_bounds__(DWT_THREADS, sizeof(T) == 2 ? DW_PROBE_BLOCKS : 2)
 dwconv_prelu_tile_kernel(const T* __restrict__ x, const T* __restrict__ w,
                          const T* __restrict__ bias, const T* __restrict__ alpha,
@@ -220,8 +240,8 @@ dwconv_prelu_tile_kernel(const T* __restrict__ x, const T* __restrict__ w,
   }
   const float b0 = (bias && live) ? to_f(bias[c]) : 0.f;
   const float b1 = (bias && live) ? to_f(bias[c + 1]) : 0.f;
-  const float a0 = live ? to_f(alpha[c]) : 0.f;
-  const float a1 = live ? to_f(alpha[c + 1]) : 0.f;
+  const float a0 = (ACT == ACT_PRELU && live) ? to_f(alpha[c]) : 0.f;
+  const float a1 = (ACT == ACT_PRELU && live) ? to_f(alpha[c + 1]) : 0.f;
   T* ob = out + (size_t)b * T_len * C;
 
 #pragma unroll 1
@@ -263,8 +283,8 @@ dwconv_prelu_tile_kernel(const T* __restrict__ x, const T* __restrict__ w,
       for (int r = 0; r < R; ++r) {
         acc0[r] += b0;
         acc1[r] += b1;
-        acc0[r] = acc0[r] >= 0.f ? acc0[r] : a0 * acc0[r];
-        acc1[r] = acc1[r] >= 0.f ? acc1[r] : a1 * acc1[r];
+        acc0[r] = activate<ACT>(acc0[r], a0);
+        acc1[r] = activate<ACT>(acc1[r], a1);
       }
       if constexpr (sizeof(T) == 2) {
         // the quad's four words of a row become one lane's 16 bytes
@@ -298,11 +318,11 @@ dwconv_prelu_tile_kernel(const T* __restrict__ x, const T* __restrict__ w,
   }
 }
 
-template <typename T, int K, int TT>
+template <typename T, int K, int TT, int ACT>
 int launch_tile(const void* x, const void* w, const void* bias, const void* alpha, void* out,
                 int B, int T_len, int C, int span, cudaStream_t stream) {
   constexpr size_t smem = (size_t)(2 * (TT + K - 1) * DWT_CT + DWT_CT * K) * sizeof(T);
-  auto kernel = dwconv_prelu_tile_kernel<T, K, TT>;
+  auto kernel = dwconv_prelu_tile_kernel<T, K, TT, ACT>;
   if (smem > 48 * 1024) {
     static bool raised = false;
     if (!raised) {
@@ -320,44 +340,62 @@ int launch_tile(const void* x, const void* w, const void* bias, const void* alph
   return (int)cudaGetLastError();
 }
 
-template <typename T, int K, typename... Args>
+template <typename T, int K, int ACT, typename... Args>
 int tile_by_rows(int rows, Args... args) {
   switch (rows) {
-    case 64: return launch_tile<T, K, 64>(args...);
-    case 128: return launch_tile<T, K, 128>(args...);
+    case 64: return launch_tile<T, K, 64, ACT>(args...);
+    case 128: return launch_tile<T, K, 128, ACT>(args...);
   }
   return (int)cudaErrorInvalidValue;
 }
 
-template <typename T, typename... Args>
+template <typename T, int ACT, typename... Args>
 int tile_by_k(int K, int rows, Args... args) {
   switch (K) {
-    case 7: return tile_by_rows<T, 7>(rows, args...);
-    case 31: return tile_by_rows<T, 31>(rows, args...);
+    case 7: return tile_by_rows<T, 7, ACT>(rows, args...);
+    case 31: return tile_by_rows<T, 31, ACT>(rows, args...);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// one kernel of each dtype for the activation code
+template <int ACT>
+int launch(const void* x, const void* w, const void* bias, const void* alpha, void* out,
+           int B, int T, int C, int K, int dtype, int rows, int span, cudaStream_t s) {
+  if (rows == 0) {
+    if (K < 1 || K > DW_MAX_K) return (int)cudaErrorInvalidValue;
+    return dtype == 0 ? launch_generic<float, ACT>(x, w, bias, alpha, out, B, T, C, K, s)
+                      : launch_generic<bf16, ACT>(x, w, bias, alpha, out, B, T, C, K, s);
+  }
+  if (C % 8 || span < 1) return (int)cudaErrorInvalidValue;
+  return dtype == 0
+             ? tile_by_k<float, ACT>(K, rows, x, w, bias, alpha, out, B, T, C, span, s)
+             : tile_by_k<bf16, ACT>(K, rows, x, w, bias, alpha, out, B, T, C, span, s);
 }
 
 }  // namespace ds
 
-// x, out: [B, T, C]; w: [C, K] taps; bias (may be null), alpha: [C]; all of
-// one element type (dtype 0 = float32, 1 = bfloat16). rows = 0 runs the
+// x, out: [B, T, C]; w: [C, K] taps; bias (may be null), alpha: [C] (read
+// for act 0 only, may be null otherwise); all of one element type (dtype 0 =
+// float32, 1 = bfloat16). act: 0 PReLU, 1 SiLU, 2 ReLU. rows = 0 runs the
 // generic kernel (K from 1 to 61, any C). rows = 64 or 128 runs the tile
 // kernel with that many output rows a tile and `span` consecutive tiles a
 // block; it takes K = 7 or 31 and C % 8 == 0. Returns the CUDA error.
 extern "C" int ds_dwconv_prelu(const void* x, const void* w, const void* bias,
                                const void* alpha, void* out, int B, int T, int C,
-                               int K, int dtype, int rows, int span, void* stream) {
+                               int K, int dtype, int rows, int span, int act,
+                               void* stream) {
   if (B < 1 || B > 65535 || T < 1 || C < 1) return (int)cudaErrorInvalidValue;
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  if (act == ds::ACT_PRELU && alpha == nullptr) return (int)cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
-  if (rows == 0) {
-    if (K < 1 || K > ds::DW_MAX_K) return (int)cudaErrorInvalidValue;
-    return dtype == 0 ? ds::launch_generic<float>(x, w, bias, alpha, out, B, T, C, K, s)
-                      : ds::launch_generic<ds::bf16>(x, w, bias, alpha, out, B, T, C, K, s);
+  switch (act) {
+    case ds::ACT_PRELU:
+      return ds::launch<ds::ACT_PRELU>(x, w, bias, alpha, out, B, T, C, K, dtype, rows, span, s);
+    case ds::ACT_SILU:
+      return ds::launch<ds::ACT_SILU>(x, w, bias, alpha, out, B, T, C, K, dtype, rows, span, s);
+    case ds::ACT_RELU:
+      return ds::launch<ds::ACT_RELU>(x, w, bias, alpha, out, B, T, C, K, dtype, rows, span, s);
   }
-  if (C % 8 || span < 1) return (int)cudaErrorInvalidValue;
-  return dtype == 0
-             ? ds::tile_by_k<float>(K, rows, x, w, bias, alpha, out, B, T, C, span, s)
-             : ds::tile_by_k<ds::bf16>(K, rows, x, w, bias, alpha, out, B, T, C, span, s);
+  return (int)cudaErrorInvalidValue;
 }

@@ -43,7 +43,7 @@ _libs: Dict[str, ctypes.CDLL] = {}
 # All return an int: the cudaError_t of cudaGetLastError() after the launch.
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
-    ("depthwise_conv", "ds_dwconv_prelu"): (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    ("depthwise_conv", "ds_dwconv_prelu"): (_P, _P, _P, _P, _P) + (_I,) * 8 + (_P,),
     ("lynx_fused", "ds_lynx_ln_stats"): (_P, _P, _P, _I, _I, _F, _I, _P),
     ("lynx_fused", "ds_lynx_pw1_swiglu"): (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     ("lynx_fused", "ds_lynx_pw2"): (_P, _P, _P, _P, _I, _I, _I, _I, _P),

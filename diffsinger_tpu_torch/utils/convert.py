@@ -102,7 +102,8 @@ def _lynxnet(sd: StateDict, prefix: str, p: dict, num_layers: int) -> None:
         _layernorm(sd, f"{q}.convmodule.net.0", cm["norm"])
         _conv(sd, f"{q}.convmodule.net.2", cm["pw_conv1"])
         _conv(sd, f"{q}.convmodule.net.4", cm["dw_conv"])
-        sd[f"{q}.convmodule.net.5.weight"] = _t(cm["act"]["alpha"])
+        if "act" in cm:  # PReLU's slopes; SiLU and ReLU have no parameters
+            sd[f"{q}.convmodule.net.5.weight"] = _t(cm["act"]["alpha"])
         _conv(sd, f"{q}.convmodule.net.6", cm["pw_conv2"])
 
 

@@ -77,7 +77,7 @@ def test_k1_every_tile_choice_agrees(dev):
             out = torch.full_like(x, float("nan"))
             native.check(lib.ds_dwconv_prelu(
                 x.data_ptr(), w.data_ptr(), None, alpha.data_ptr(), out.data_ptr(), b, t, c, k,
-                1, rows, span, native.stream_ptr(x)), "depthwise_conv1d_prelu")
+                1, rows, span, 0, native.stream_ptr(x)), "depthwise_conv1d_prelu")
             torch.cuda.synchronize()
             assert _max_err(out, want) <= 2 ** -7 * want[1:].float().abs().max().item(), (rows, span)
 
@@ -187,6 +187,88 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     q = torch.randn(1, 1, 8, 48, device=dev)
     with pytest.raises(ValueError):
         flash_attention.flash_attention(q, q, q)
+
+
+# ---------------------------------------------------------------- LYNXNet's other activations
+# K1's epilogue is built once for each activation; K2 passes it on. SiLU and
+# ReLU take no slopes (alpha None). Tolerances as above: float32 1e-3 (the
+# kernel's __expf against torch's exp), bf16 one ulp of the largest output
+# for K1, two for K2.
+
+@pytest.mark.parametrize("activation", ["SiLU", "ReLU"])
+@pytest.mark.parametrize("dtype,b,t,c,k", [
+    (torch.float32, 2, 100, 96, 31),
+    (torch.bfloat16, 16, 1024, 2048, 31),  # the main path's shape
+    (torch.bfloat16, 3, 333, 2048, 31),    # T ragged against every tile
+    (torch.bfloat16, 2, 64, 96, 7),
+    (torch.bfloat16, 1, 17, 64, 31),       # T shorter than the halo
+    (torch.float32, 2, 100, 100, 4),       # even k, C % 8 != 0: the generic kernel
+    (torch.bfloat16, 2, 50, 64, 61),       # the largest k: the generic kernel
+])
+def test_k1_kernel_activations(dev, activation, dtype, b, t, c, k):
+    g = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randn(b, t, c, generator=g, device=dev).to(dtype)
+    x[0, -1] = 100.0  # must not leak into the first rows of sequence 1
+    w = (0.2 * torch.randn(c, k, generator=g, device=dev)).to(dtype)
+    bias = (0.1 * torch.randn(c, generator=g, device=dev)).to(dtype)
+    n = depthwise_conv.launches
+    got = depthwise_conv.depthwise_conv1d_prelu(x, w, None, bias, activation)
+    torch.cuda.synchronize()
+    assert depthwise_conv.launches == n + 1
+    want = depthwise_conv.depthwise_conv1d_prelu_plain(x, w, None, bias, activation)
+    assert (want < 0).any() == (activation == "SiLU")
+
+    def tol(ref):
+        return 1e-3 if dtype == torch.float32 else 2 ** -7 * ref.float().abs().max().item()
+
+    assert _max_err(got, want) <= tol(want)
+    if b > 1:
+        assert _max_err(got[1:], want[1:]) <= tol(want[1:])
+
+
+@pytest.mark.parametrize("activation", ["SiLU", "ReLU"])
+@pytest.mark.parametrize("dtype,b,t,c,inner,k", [
+    (torch.float32, 2, 100, 64, 128, 31),
+    (torch.bfloat16, 16, 1024, 1024, 2048, 31),  # the main path's shape
+    (torch.bfloat16, 3, 333, 1024, 2048, 31),
+    (torch.bfloat16, 5, 77, 96, 160, 7),
+])
+def test_k2_kernel_activations(dev, activation, dtype, b, t, c, inner, k):
+    x, args = _k2_case(dev, b, t, c, inner, k, dtype, seed=2)
+    args["alpha"] = None
+    n = lynx_fused.launches
+    got = lynx_fused.fused_conv_module(x, **args, activation=activation)
+    torch.cuda.synchronize()
+    assert lynx_fused.launches == n + 1
+    want = lynx_fused.fused_conv_module_plain(x, **args, activation=activation)
+    tol = 1e-3 if dtype == torch.float32 else 2 ** -6 * want.float().abs().max().item()
+    assert _max_err(got, want) <= tol
+
+
+@pytest.mark.parametrize("activation", ["SiLU", "ReLU"])
+def test_k2_function_gradients_with_activation(dev, activation):
+    """K2 under autograd with SiLU or ReLU in float32: its counter moves and
+    every gradient is autograd's of the plain version within 1e-4 of the
+    largest entry; the module has no slope parameter."""
+    from diffsinger_tpu_torch.models.backbones.lynxnet import LYNXConvModule
+
+    torch.manual_seed(0)
+    m = LYNXConvModule(256, 2, 31, activation=activation).to(dev)
+    assert "net.5.weight" not in m.state_dict()
+    with torch.no_grad():
+        for p in m.parameters():
+            p.add_(0.05 * torch.randn_like(p))
+    x = torch.randn(2, 300, 256, device=dev, requires_grad=True)
+    n = lynx_fused.launches
+    y = m(x)
+    assert lynx_fused.launches == n + 1
+    dy = torch.randn_like(y)
+    got = torch.autograd.grad(y, [x, *m.parameters()], dy)
+    ref = lynx_fused.fused_conv_module_plain(
+        x, **lynx_fused.conv_module_params_from_module(m), activation=activation)
+    want = torch.autograd.grad(ref, [x, *m.parameters()], dy)
+    for a, w in zip(got, want):
+        assert _max_err(a, w) <= 1e-4 * w.abs().max().item()
 
 
 # ---------------------------------------------------------------- the shapes serving sends

@@ -401,10 +401,12 @@ def test_a_checkpoint_with_other_keys_is_refused(tmp_path):
         DiffSingerAcousticInfer(hp, load_vocoder=False, device="cpu")
 
 
-@pytest.mark.parametrize("name", ["DDSP", "DDSPNative"])
-def test_registry_names_the_vocoders_that_wait(name):
-    with pytest.raises(NotImplementedError, match=name):
-        get_vocoder_cls({"vocoder": name})
+@pytest.mark.parametrize("name", ["DDSP", "ddsp", "DDSPNative", "ddspnative"])
+def test_registry_returns_the_ports_ddsp_vocoders(name):
+    from diffsinger_tpu_torch.vocoders import ddsp, ddsp_native
+
+    want = ddsp.DDSP if name.lower() == "ddsp" else ddsp_native.DDSPNative
+    assert get_vocoder_cls({"vocoder": name}) is want
     assert get_vocoder_cls({"vocoder": "NsfHifiGAN"}).__name__ == "NsfHifiGAN"
 
 

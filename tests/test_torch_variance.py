@@ -328,3 +328,62 @@ def test_forward_infer_switches_tf32_off_for_its_call(monkeypatch):
                                    predict_pitch=False, predict_variances=False)
     assert seen == [(False, False)] and torch.isfinite(dur).all()
     assert torch.backends.cudnn.allow_tf32 and torch.backends.cuda.matmul.allow_tf32
+
+
+# ---------------------------------------------------------------------------
+# the conv-stack curve predictors (no path of either package uses them)
+
+def _predictor_state(p: dict, n_layers: int) -> dict:
+    """The JAX predictor's parameters under the reference's torch names."""
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(np.asarray(a)))  # noqa: E731
+    sd = {"pos_embed_alpha": t(p["pos_embed_alpha"]),
+          "linear.weight": t(np.asarray(p["linear"]["dense"]["kernel"]).T),
+          "linear.bias": t(p["linear"]["dense"]["bias"])}
+    for i in range(n_layers):
+        sd[f"conv.{i}.0.weight"] = t(np.asarray(p[f"conv_{i}"]["kernel"]).transpose(2, 1, 0))
+        sd[f"conv.{i}.0.bias"] = t(p[f"conv_{i}"]["bias"])
+        sd[f"conv.{i}.2.weight"] = t(p[f"norm_{i}"]["scale"])
+        sd[f"conv.{i}.2.bias"] = t(p[f"norm_{i}"]["bias"])
+    if "base_pitch_embed" in p:
+        sd["base_pitch_embed.weight"] = t(np.asarray(p["base_pitch_embed"]["dense"]["kernel"]).T)
+        sd["base_pitch_embed.bias"] = t(p["base_pitch_embed"]["dense"]["bias"])
+    return sd
+
+
+@pytest.mark.parametrize("infer", [True, False])
+def test_variance_predictor(infer):
+    from diffsinger_tpu.models.variance_encoder import VariancePredictor as JaxPredictor
+    from diffsinger_tpu_torch.models.variance_encoder import VariancePredictor
+    from tests.torch_parity import randomize
+
+    rng = np.random.default_rng(31)
+    xs = rng.standard_normal((2, 30, 32)).astype(np.float32)
+    jm = JaxPredictor(vmin=-3.0, vmax=5.0, n_layers=3, n_chans=24)
+    params = randomize(jm.init(jax.random.PRNGKey(0), jnp.asarray(xs)), 1)
+    want = jm.apply(params, jnp.asarray(xs), infer=infer)
+    port = VariancePredictor(-3.0, 5.0, 32, n_layers=3, n_chans=24).eval()
+    port.load_state_dict(_predictor_state(params["params"], 3), strict=True)
+    with torch.no_grad():
+        got = port(torch.from_numpy(xs), infer=infer)
+    assert got.shape == (2, 30)
+    assert_close(got, want)
+
+
+def test_pitch_predictor():
+    from diffsinger_tpu.models.variance_encoder import PitchPredictor as JaxPredictor
+    from diffsinger_tpu_torch.models.variance_encoder import PitchPredictor
+    from tests.torch_parity import randomize
+
+    rng = np.random.default_rng(32)
+    xs = rng.standard_normal((2, 30, 32)).astype(np.float32)
+    base = rng.uniform(55, 75, (2, 30)).astype(np.float32)
+    jm = JaxPredictor(vmin=-8.0, vmax=8.0, num_bins=40, n_layers=2, n_chans=24)
+    params = randomize(jm.init(jax.random.PRNGKey(1), jnp.asarray(xs), jnp.asarray(base)), 2)
+    want_pitch, want_logits = jm.apply(params, jnp.asarray(xs), jnp.asarray(base))
+    port = PitchPredictor(-8.0, 8.0, 40, 1.0, 32, n_layers=2, n_chans=24).eval()
+    port.load_state_dict(_predictor_state(params["params"], 2), strict=True)
+    with torch.no_grad():
+        pitch, logits = port(torch.from_numpy(xs), torch.from_numpy(base))
+    assert logits.shape == (2, 30, 40)
+    assert_close(logits, want_logits)
+    assert_close(pitch, want_pitch, atol=1e-4)

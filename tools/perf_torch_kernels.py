@@ -104,7 +104,7 @@ def sweep_k1(dev, gen) -> int:
         def call(rows, span):
             native.check(lib.ds_dwconv_prelu(
                 x.data_ptr(), w.data_ptr(), bias.data_ptr(), alpha.data_ptr(), out.data_ptr(),
-                b, t, c, k, 1, rows, span, native.stream_ptr(x)), "depthwise_conv1d_prelu")
+                b, t, c, k, 1, rows, span, 0, native.stream_ptr(x)), "depthwise_conv1d_prelu")
 
         choices = [(0, 1)] + [(rows, span) for rows in reversed(dw.TILE_ROWS)
                               for span in (1, 2, 4, 8, 16, 64) if span == 1 or span < 2 * t // rows]
@@ -170,7 +170,7 @@ def probe_k1(dev, gen) -> int:
         lib.ds_dwconv_prelu.argtypes = list(native.SIGNATURES[("depthwise_conv", "ds_dwconv_prelu")])
         ms = time_ms(lambda: native.check(lib.ds_dwconv_prelu(
             x.data_ptr(), w.data_ptr(), bias.data_ptr(), alpha.data_ptr(), out.data_ptr(),
-            b, t, c, k, 1, rows, span, native.stream_ptr(x)), "probe"))
+            b, t, c, k, 1, rows, span, 0, native.stream_ptr(x)), "probe"))
         print(f"K1 probe [{b},{t},{c}] k={k} tile {rows} x {span}, {name}: {ms:.4f} ms ({used})")
     print(f"   a copy of x: {time_ms(lambda: out.copy_(x)):.4f} ms")
     # the SM clock and the power draw while the shipped kernel runs back to back
