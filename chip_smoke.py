@@ -161,9 +161,9 @@ Phases, each printed as it ends; any failure exits non-zero:
    the path finder on the host against a loop of torch operations on the
    card; five items of each family (and a shifted, stretched copy of each
    acoustic one) on the card against the CPU within the CPU tests'
-   tolerances; the card's stores (HDF5 where h5py imports, else kept in
-   memory) read back through the datasets into one step of a narrow
-   acoustic and variance task with finite losses (``[binarize]`` lines);
+   tolerances; the card's HDF5 stores (MB on disk, write seconds) read
+   back from disk through the datasets into one step of a narrow acoustic
+   and variance task with finite losses (``[binarize]`` lines);
 12. binarize_ext: the extractors that voicebank makers configure, with
    seeded checkpoints at the published widths (RMVPE ``E2E0(4, 1, (2, 2))``;
    CascadedNet nout 32, nout_lstm 128, stereo, n_fft 2048, hop 512): over
@@ -181,14 +181,31 @@ Phases, each printed as it ends; any failure exits non-zero:
    bounds on its fixtures, three items of each run on the card against the
    CPU (``binarize_ext_card_vs_cpu``), one narrow training step from each
    store (``[binarize_ext]`` lines);
+12b. pipeline: the commands a voicebank maker runs, through their
+   ``main(argv)`` with the default device (the card), under a temporary
+   ``DS_CKPT_ROOT`` in chiprun_out/: ``cli.binarize`` of a user config over
+   configs/acoustic.yaml and one over configs/variance.yaml (the four
+   curves) on [binarize]'s seeded corpus, into HDF5 stores on disk (seconds
+   a second of audio with the write, MB, items/s read back through the
+   datasets); ``cli.train`` of each at full width in '16-mixed' at its frame
+   budget for 8 steps, then resumed to 12 (each step's launches: K1 = K2 = 6
+   acoustic, K3 = K3-bwd = 4; time to the first optimizer step, steps/s,
+   the share of the run in ``epoch_batches``, validation, save and resume
+   seconds); ``cli.infer variance`` on samples/09 and ``cli.infer
+   acoustic`` on its output (a wav of the score's length; K2 = 6 x the
+   sampler's steps a segment) and on samples/00; ``cli.export`` of both
+   (``.pt2``) with one segment through the artifact runtimes bit-equal to
+   the eager models (``[pipeline]`` lines);
 13. times: K1 at the long phrase's shape [1, 4096, 2048], K3 at the long
    shape [16, 2, 512, 128], K2's two GEMMs alone and K3's backward at
    [48, 2, 128, 128] and [16, 2, 512, 128] with each of its kernels alone
    and its bound on the CUDA cores and in 3xTF32, then K3 and its backward
    at the variance training shapes (``[time]`` lines), the whole script's
-   seconds, then the ``kernels`` JSON line (launches of every path, the
-   training steps' included, time, bound, plain and library times) and the
-   last line ``{"ok": true, "device": {...}}``.
+   seconds, one ``[summary]`` line a phase (its seconds and main numbers,
+   where the tail of the output keeps them), the card's name and power
+   limit, then the ``kernels`` JSON line (launches of every path, the
+   training steps' and the pipeline's included, time, bound, plain and
+   library times) and the last line ``{"ok": true, "device": {...}}``.
 
 The models switch TF32 off for their own calls (``utils.no_tf32``), so the
 float32 phases run as the entry points do, with no setting of this script's.
@@ -424,7 +441,6 @@ def write_experiment(root: Path, hp: dict) -> str:
     from diffsinger_tpu_torch.models.toplevel import DiffSingerAcoustic
     from diffsinger_tpu_torch.utils.ckpt import checkpoint_path
     from diffsinger_tpu_torch.utils.text import load_phoneme_dictionary
-    from diffsinger_tpu_torch.vocoders.nsf_hifigan_model import Generator, NsfHifiGanConfig
 
     name = "smoke_acoustic"
     work_dir = root / "checkpoints" / name
@@ -449,8 +465,17 @@ def write_experiment(root: Path, hp: dict) -> str:
     torch.save({"state_dict": {"model." + k: v for k, v in acoustic_state.items()},
                 "category": "acoustic", "global_step": 1000}, checkpoint_path(work_dir, 1000))
 
-    # the default full-NSF vocoder (hop 512, 512 channels), seeded
-    voc_cfg = dict(num_mels=cfg["audio_num_mel_bins"], sampling_rate=cfg["audio_sample_rate"],
+    return name, acoustic_state, write_vocoder(voc_dir, cfg)
+
+
+def write_vocoder(voc_dir: Path, hp: dict) -> dict:
+    """The default full-NSF vocoder (hop 512, 512 channels) for ``hp``'s mels,
+    seeded, as ``voc_dir/{config.json,model.ckpt}``; returns its state dict."""
+    import torch
+
+    from diffsinger_tpu_torch.vocoders.nsf_hifigan_model import Generator, NsfHifiGanConfig
+
+    voc_cfg = dict(num_mels=hp["audio_num_mel_bins"], sampling_rate=hp["audio_sample_rate"],
                    upsample_rates=[8, 8, 2, 2, 2], upsample_kernel_sizes=[16, 16, 4, 4, 4],
                    upsample_initial_channel=VOCODER_CHANNELS, resblock="1",
                    resblock_kernel_sizes=[3, 7, 11],
@@ -461,7 +486,7 @@ def write_experiment(root: Path, hp: dict) -> str:
     gen = Generator(NsfHifiGanConfig.from_json(voc_cfg), dtype=torch.float32)
     vocoder_state = {k: v.cpu() for k, v in gen.state_dict().items()}
     torch.save({"generator": vocoder_state}, voc_dir / "model.ckpt")
-    return name, acoustic_state, vocoder_state
+    return vocoder_state
 
 
 def serve_phase(hp, card, reset_counts, read_counts, request_profile):
@@ -1143,7 +1168,7 @@ def variance_view_calls(model, rt, req: dict, bp: int, bm: int) -> dict:
 
     from diffsinger_tpu_torch.utils import no_tf32
 
-    dev = torch.device("cuda")
+    dev = rt.device
     hp = model.hp
     names = rt.variance_names()
     steps = torch.tensor(int(rt.manifest["sampling_steps"]))
@@ -2734,54 +2759,16 @@ def binarize_card_vs_cpu(raw: Path, work: Path, n_items: int) -> dict:
     return {"worst": worst, "failures": failures}
 
 
-def store_interface():
-    """(extra arguments of ``binarize``, a dataset constructor, the store's
-    kind): HDF5 files where h5py imports, else the stores kept in memory by
-    ``IndexedDatasetBuilder``'s interface and read back by the datasets."""
-    from unittest import mock
-
-    from diffsinger_tpu_torch.data import dataset as dataset_mod
-
-    try:
-        import h5py  # noqa: F401
-
-        memory = None
-        store_kind = "HDF5 files (h5py)"
-    except ImportError:
-        memory = {}
-        store_kind = "in memory (no h5py on this machine: the file write is left out)"
-
-    class MemoryBuilder:
-        """``IndexedDatasetBuilder``'s interface over a list."""
-
-        def __init__(self, path, prefix, allowed_attr):
-            self.allowed = set(allowed_attr)
-            self.items = memory[Path(path), prefix] = []
-
-        def add_item(self, item):
-            self.items.append({k: v for k, v in item.items()
-                               if k in self.allowed and v is not None})
-            return len(self.items) - 1
-
-        def finalize(self):
-            pass
-
-    def dataset(cls, data_dir, hp, prefix):
-        if memory is None:
-            return cls(data_dir, hp, prefix)
-        with mock.patch.object(dataset_mod, "IndexedDataset",
-                               lambda path, prefix_: memory[Path(path), prefix_]):
-            return cls(data_dir, hp, prefix)
-
-    return ({} if memory is None else {"builder": MemoryBuilder}), dataset, store_kind
+def store_mb(out: Path) -> float:
+    """The MB of a binarized folder's item stores (``*.data``) on disk."""
+    return sum(f.stat().st_size for f in out.glob("*.data")) / 1e6
 
 
-def narrow_store_steps(tag: str, stores: dict, tmp: Path, dataset, store_kind: str,
-                       n_batch: int = 8) -> dict:
-    """Each store ({name: (folder, hp)}) read back through its family's
-    dataset and collater into one optimizer step of a narrow task on the
-    card; fails on a store whose item count is not its .meta's or on a loss
-    that is not finite. Returns the steps' losses by store."""
+def narrow_store_steps(tag: str, stores: dict, tmp: Path, n_batch: int = 8) -> dict:
+    """Each store ({name: (folder, hp)}) read back from disk through its
+    family's dataset and collater into one optimizer step of a narrow task
+    on the card; fails on a store whose item count is not its .meta's or on
+    a loss that is not finite. Returns the steps' losses by store."""
     import pickle
 
     import numpy as np
@@ -2807,7 +2794,7 @@ def narrow_store_steps(tag: str, stores: dict, tmp: Path, dataset, store_kind: s
                 variances_prediction_args=dict(hp["variances_prediction_args"], backbone_args=dict(
                     num_layers=2, num_channels=64, dilation_cycle_length=2)))
         hp = dict(hp, **narrow, work_dir=str(tmp / f"task_{name}".replace(" ", "_")))
-        ds = dataset(cls, out, hp, "train")
+        ds = cls(out, hp, "train")
         with open(out / "train.meta", "rb") as f:
             n_meta = len(pickle.load(f)["lengths"])
         n = min(n_batch, len(ds))
@@ -2822,7 +2809,7 @@ def narrow_store_steps(tag: str, stores: dict, tmp: Path, dataset, store_kind: s
         losses = {k: float(v) for k, v in losses.items()}
         steps[name] = {"items": len(ds), "meta_items": n_meta, "losses": losses,
                        "grad_norm": float(norm)}
-        log(f"{tag} {name} store ({store_kind}): {len(ds)} items read back, "
+        log(f"{tag} {name} store ({store_mb(out):.1f} MB on disk): {len(ds)} items read back, "
             f"a batch of {n} ({', '.join(f'{k} {list(v.shape)}' for k, v in batch.items())}), one "
             f"step of a narrow {task_cls.__name__}: " + " ".join(
                 f"{k}={v:.4f}" for k, v in losses.items()))
@@ -2847,8 +2834,8 @@ def binarize_phase(card, reset_counts, read_counts):
     family on the card against the CPU (``binarize_card_vs_cpu``), and the
     card's stores read back through the datasets and collaters into one
     optimizer step of a narrow acoustic and variance task (finite losses).
-    The stores are HDF5 where h5py imports, else kept in memory by the same
-    interface. Returns the report and the launch counts."""
+    The stores are HDF5 files written and read by the port's own codec.
+    Returns the report and the launch counts."""
     import random
 
     import numpy as np
@@ -2868,7 +2855,6 @@ def binarize_phase(card, reset_counts, read_counts):
         f"{time.perf_counter() - t0:.1f} s")
     report["corpus_audio_s"] = audio_s
 
-    extra, dataset, store_kind = store_interface()
     runs = [("acoustic", "no augmentation", ())]
     runs += [("acoustic", what, names) for what, names in BIN_AUGMENTATION.items()]
     runs += [("variance", "no augmentation (the family has none)", ())]
@@ -2885,23 +2871,25 @@ def binarize_phase(card, reset_counts, read_counts):
         t0 = time.perf_counter()
         with warnings.catch_warnings():
             warnings.simplefilter("ignore")  # vr without a checkpoint: comb
-            b = quiet(binarize, hp, **extra)
+            b = quiet(binarize, hp)
         wall = time.perf_counter() - t0
         run_counts = dict(read_counts(), K3bwd=flash_attention.bwd_launches)
         counts = {k: counts[k] + v for k, v in run_counts.items()}
         stores[family] = (out, hp)
+        mb = store_mb(out)
         audio = sum(t["seconds"] for t in b.totals.values())
         items = sum(t["items"] for t in b.totals.values())
         split = dict(b.timer.seconds, **{f"pitch {k}": v for k, v in b.pe.seconds.items()})
         peak = (torch.cuda.max_memory_allocated() - held) / 2**30
         rec = {"family": family, "augmentation": what, "items": items, "audio_s": audio,
                "wall_s": wall, "s_per_audio_s": wall / audio, "items_per_s": items / wall,
-               "split_s": split, "peak_mem_gib": peak, "launches": run_counts}
+               "split_s": split, "peak_mem_gib": peak, "launches": run_counts, "store_mb": mb,
+               "write_s": b.timer.seconds["write"]}
         report["runs"].append(rec)
         log(f"[binarize] {family}, {what}: {items} items ({audio:.1f} s of audio) in {wall:.2f} "
             f"s: {wall / audio:.5f} s of binarization a second of audio, {items / wall:.2f} "
             f"items/s, peak memory {peak:.3f} GiB above what the earlier phases hold, store "
-            f"{store_kind}, on {card}")
+            f"{mb:.1f} MB on disk written in {b.timer.seconds['write']:.3f} s, on {card}")
         log(f"[binarize]   split: " + ", ".join(f"{k} {v:.3f} s" for k, v in split.items())
             + f"; unaccounted {wall - sum(b.timer.seconds.values()):.3f} s; launches {run_counts}")
         if any(run_counts.values()):
@@ -3006,9 +2994,7 @@ def binarize_phase(card, reset_counts, read_counts):
              + "; ".join(check["failures"][:10]))
 
     # the card's stores through the datasets and collaters into one narrow step each
-    steps = narrow_store_steps("[binarize]", stores, tmp, dataset, store_kind)
-    report["train_steps"] = steps
-    report["store"] = store_kind
+    report["train_steps"] = narrow_store_steps("[binarize]", stores, tmp)
     shutil.rmtree(tmp, ignore_errors=True)
     torch.cuda.empty_cache()
     return report, counts
@@ -3256,7 +3242,6 @@ def binarize_ext_phase(card, reset_counts, read_counts):
         with wave.open(str(wav_fn)) as f:
             lengths[wav_fn.stem] = f.getnframes()
     buckets = sorted({(n // vr_hop + 1) // 32 for n in lengths.values()})
-    extra, dataset, store_kind = store_interface()
     stores, counts, report["runs"] = {}, {"K1": 0, "K2": 0, "K3": 0, "K3bwd": 0}, []
     shortest = min(raw_w.glob("wavs/*.wav"), key=lambda p: p.stat().st_size).stem
     runs = [(*EXT_RUNS[0], raw, "first pass"), (*EXT_RUNS[0], raw, "again"),
@@ -3270,7 +3255,7 @@ def binarize_ext_phase(card, reset_counts, read_counts):
         held = torch.cuda.memory_allocated()
         reset_counts()
         t0 = time.perf_counter()
-        b = quiet(binarize, hp, **extra)
+        b = quiet(binarize, hp)
         wall = time.perf_counter() - t0
         run_counts = dict(read_counts(), K3bwd=flash_attention.bwd_launches)
         counts = {k: counts[k] + v for k, v in run_counts.items()}
@@ -3284,10 +3269,12 @@ def binarize_ext_phase(card, reset_counts, read_counts):
         provenance = b.feature_provenance()
         rec = {"run": run, "items": items, "audio_s": audio, "wall_s": wall,
                "s_per_audio_s": wall / audio, "items_per_s": items / wall, "split_s": split,
-               "peak_mem_gib": peak, "launches": run_counts, "provenance": provenance}
+               "peak_mem_gib": peak, "launches": run_counts, "provenance": provenance,
+               "store_mb": store_mb(out), "write_s": b.timer.seconds["write"]}
         log(f"{tag} {run}: {items} items ({audio:.1f} s of audio) in {wall:.2f} s: "
             f"{wall / audio:.5f} s of binarization a second of audio, {items / wall:.2f} items/s, "
-            f"peak memory {peak:.3f} GiB, store {store_kind}, provenance {provenance['pe']} / "
+            f"peak memory {peak:.3f} GiB, store {rec['store_mb']:.1f} MB on disk written in "
+            f"{rec['write_s']:.3f} s, provenance {provenance['pe']} / "
             f"{provenance['hnsep']}, on {card}")
         log(f"{tag}   split: " + ", ".join(f"{k} {v:.3f} s" for k, v in split.items())
             + f"; unaccounted {wall - sum(b.timer.seconds.values()):.3f} s; launches {run_counts}")
@@ -3434,8 +3421,7 @@ def binarize_ext_phase(card, reset_counts, read_counts):
     if check["failures"]:
         fail(f"{tag} the card's features disagree with the CPU's: " + "; ".join(check["failures"][:10]))
 
-    report["train_steps"] = narrow_store_steps(tag, stores, tmp, dataset, store_kind)
-    report["store"] = store_kind
+    report["train_steps"] = narrow_store_steps(tag, stores, tmp)
     report["phase_peak_mem_gib"] = (max(peaks + [torch.cuda.max_memory_allocated()])
                                     - held0) / 2**30
     report["phase_s"] = time.perf_counter() - t_phase
@@ -3444,6 +3430,416 @@ def binarize_ext_phase(card, reset_counts, read_counts):
     shutil.rmtree(tmp, ignore_errors=True)
     torch.cuda.empty_cache()
     return report, counts
+
+
+PIPE_ITEMS = BIN_ITEMS  # [binarize]'s corpus (same seed)
+PIPE_STEPS = (8, 12)  # optimizer steps of cli.train's first call, then of the resumed one
+PIPE_SCORE = "09_xing_he.ds"  # cli.infer variance, then acoustic on its output
+PIPE_PLAIN_SCORE = "00_xiao_xing_xing.ds"  # straight through cli.infer acoustic
+# more keys of a family's config: none on the card (the CPU rehearsal narrows the models)
+PIPE_CONFIG = {"acoustic": {}, "variance": {}}
+
+
+def pipeline_config(family: str, raw: Path, out: Path, vocoder_ckpt: Path) -> dict:
+    """A user's config for the seeded corpus: the shipped config of the family
+    with its data paths set (corpus, dictionary, binary folder, vocoder) and,
+    for the variance model, the four curves predicted (labels from the .ds
+    files)."""
+    cfg = {"base_config": [str(ROOT / "configs" / f"{family}.yaml")],
+           "binary_data_dir": str(out),
+           "dictionary": str(ROOT / "dictionaries" / "opencpop-extension.txt"),
+           "datasets": [{"raw_data_dir": str(raw), "speaker": "synth", "language": "zh",
+                         "test_prefixes": ["song000", "song001"]}]}
+    if family == "acoustic":
+        cfg["vocoder_ckpt"] = str(vocoder_ckpt)
+    else:
+        cfg.update({f"predict_{v}": True for v in VARIANCES})
+        cfg["binarization_args"] = {"prefer_ds": True}
+    return dict(cfg, **PIPE_CONFIG[family])
+
+
+class TrainProbe:
+    """Wrappers around ``BaseTask``'s methods while a ``cli.train`` call runs
+    (restored on exit): the seconds to the first optimizer step (synchronised),
+    each step's host end, the kernels' launches of each step (reset when the
+    step's forward starts, read after its update), the seconds spent in each
+    ``epoch_batches`` fetch (read and collate from disk), and the seconds of
+    each save, resume and validation (each synchronised at its start)."""
+
+    NAMES = ("train_step", "apply_update", "epoch_batches", "save", "init_or_resume",
+             "run_validation")
+
+    def __init__(self, reset_counts, read_counts):
+        self.reset_counts, self.read_counts = reset_counts, read_counts
+
+    def __enter__(self):
+        import torch
+
+        from diffsinger_tpu_torch.ops import flash_attention
+        from diffsinger_tpu_torch.training.base_task import BaseTask
+
+        self.t0 = time.perf_counter()
+        self.first_step_s = None
+        self.first_step_no = None
+        self.step_ends, self.step_counts, self.losses, self.fetch_s = [], [], [], []
+        self.save_s, self.resume_s, self.validations = [], [], []
+        self.saved = {n: getattr(BaseTask, n) for n in self.NAMES}
+        orig, probe = self.saved, self
+
+        def timed(name, out):
+            def wrapper(task, *args, **kwargs):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                result = orig[name](task, *args, **kwargs)
+                torch.cuda.synchronize()
+                out.append((t0, time.perf_counter() - t0))
+                return result
+            return wrapper
+
+        def train_step(task, *args, **kwargs):
+            probe.reset_counts()
+            losses = orig["train_step"](task, *args, **kwargs)
+            probe.losses.append(losses)
+            return losses
+
+        def apply_update(task):
+            norm = orig["apply_update"](task)
+            if probe.first_step_s is None:
+                torch.cuda.synchronize()
+                probe.first_step_s = time.perf_counter() - probe.t0
+                probe.first_step_no = task.global_step
+            probe.step_ends.append(time.perf_counter())
+            probe.step_counts.append(dict(probe.read_counts(),
+                                          K3bwd=flash_attention.bwd_launches))
+            return norm
+
+        def epoch_batches(task, train_ds, epoch):
+            batches = orig["epoch_batches"](task, train_ds, epoch)
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    batch = next(batches)
+                except StopIteration:
+                    return
+                probe.fetch_s.append(time.perf_counter() - t0)
+                yield batch
+
+        for name, fn in (("train_step", train_step), ("apply_update", apply_update),
+                         ("epoch_batches", epoch_batches), ("save", timed("save", self.save_s)),
+                         ("init_or_resume", timed("init_or_resume", self.resume_s)),
+                         ("run_validation", timed("run_validation", self.validations))):
+            setattr(BaseTask, name, fn)
+        return self
+
+    def __exit__(self, *exc):
+        from diffsinger_tpu_torch.training.base_task import BaseTask
+
+        for name, fn in self.saved.items():
+            setattr(BaseTask, name, fn)
+
+    def summary(self) -> dict:
+        """Steps/s and the fetch share over the window from the first step's
+        end to the first validation after the last step (the end of training);
+        the first step's fetch happens before the window and is left out."""
+        n = len(self.step_ends)
+        end = min(t for t, _ in self.validations if t >= self.step_ends[-1])
+        window = end - self.step_ends[0]
+        return {"steps": n, "first_global_step": self.first_step_no,
+                "time_to_first_step_s": self.first_step_s,
+                "steps_per_s": (n - 1) / window if n > 1 else None,
+                "fetch_share": sum(self.fetch_s[1:]) / window if n > 1 else None,
+                "fetch_ms": [1e3 * t for t in self.fetch_s],
+                "save_s": [d for _, d in self.save_s], "resume_s": [d for _, d in self.resume_s],
+                "validation_s": [d for _, d in self.validations],
+                "launches_per_step": self.step_counts,
+                "last_losses": {k: float(v) for k, v in self.losses[-1].items()}}
+
+
+def score_samples(score: list, sr: int, hop: int) -> int:
+    """The samples of a rendered score: its last segment's offset, then that
+    segment's frames (``preprocess_input``'s rounding of the durations)."""
+    import numpy as np
+
+    ph_dur = np.asarray(score[-1]["ph_dur"].split(), np.float64)
+    frames = int(np.round(np.cumsum(ph_dur) / (hop / sr) + 0.5)[-1])
+    return round(score[-1]["offset"] * sr) + frames * hop
+
+
+def pipeline_phase(card, reset_counts, read_counts):
+    """[pipeline]: the commands a voicebank maker runs, from files, through
+    their ``main(argv)`` in this process (the card by default, no
+    ``--device``): ``cli.binarize`` of both families over [binarize]'s seeded
+    corpus into HDF5 stores on disk, the stores read back through the
+    datasets; ``cli.train`` of each family at full width in '16-mixed' at its
+    frame budget (the steps' launches, time to the first optimizer step,
+    steps/s, the share of the run in ``epoch_batches``, validation, save),
+    then resumed for more steps; ``cli.infer variance`` on a shipped score
+    and ``cli.infer acoustic`` on its output (a wav of the score's length),
+    and a shipped score straight through ``cli.infer acoustic``;
+    ``cli.export`` of both families (``.pt2``) and the programs through the
+    artifact runtimes against the eager models, bit for bit. Everything is
+    written under a temporary ``DS_CKPT_ROOT`` in chiprun_out/ and removed at
+    the end. Returns the report and the launches by command."""
+    tmp = Path(tempfile.mkdtemp(prefix="pipeline_", dir=OUT_DIR))
+    saved_root = os.environ.get("DS_CKPT_ROOT")
+    os.environ["DS_CKPT_ROOT"] = str(tmp / "checkpoints")
+    try:
+        return pipeline_checks(tmp, card, reset_counts, read_counts)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        if saved_root is None:
+            os.environ.pop("DS_CKPT_ROOT", None)
+        else:
+            os.environ["DS_CKPT_ROOT"] = saved_root
+
+
+def pipeline_checks(tmp: Path, card, reset_counts, read_counts):
+    """The body of :func:`pipeline_phase`, writing under ``tmp``."""
+    import gc
+    import pickle
+
+    import numpy as np
+    import torch
+    import yaml
+
+    from diffsinger_tpu_torch.cli import binarize as cli_binarize
+    from diffsinger_tpu_torch.cli import export as cli_export
+    from diffsinger_tpu_torch.cli import infer as cli_infer
+    from diffsinger_tpu_torch.cli import train as cli_train
+    from diffsinger_tpu_torch.config import load_config
+    from diffsinger_tpu_torch.data.dataset import AcousticDataset, VarianceDataset
+    from diffsinger_tpu_torch.deployment.exporters import (
+        DiffSingerAcousticExporter, DiffSingerVarianceExporter)
+    from diffsinger_tpu_torch.deployment.runtime import (
+        AcousticArtifactRuntime, VarianceArtifactRuntime)
+    from diffsinger_tpu_torch.ops import flash_attention
+
+    tag = "[pipeline]"
+    t_phase = time.perf_counter()
+    report, launches = {}, {}
+    ckpt_root = tmp / "checkpoints"
+
+    def counts():
+        return dict(read_counts(), K3bwd=flash_attention.bwd_launches)
+
+    t0 = time.perf_counter()
+    audio_s = synth_corpus(tmp, PIPE_ITEMS, 60, *BIN_SECONDS,
+                           ROOT / "dictionaries" / "opencpop-extension.txt")
+    (tmp / "vocoder").mkdir()
+    configs = {}
+    for family in ("acoustic", "variance"):
+        configs[family] = tmp / f"{family}.yaml"
+        configs[family].write_text(yaml.safe_dump(pipeline_config(
+            family, tmp / "raw", tmp / f"binary_{family}", tmp / "vocoder" / "model.ckpt")))
+    write_vocoder(tmp / "vocoder", load_config(configs["acoustic"]))
+    log(f"{tag} corpus: {PIPE_ITEMS} phrases, {audio_s:.1f} s of audio; configs "
+        f"{[str(p.name) for p in configs.values()]} over configs/acoustic.yaml and "
+        f"configs/variance.yaml; made in {time.perf_counter() - t0:.1f} s")
+
+    # 1. binarize, each family to HDF5 files, then the stores read back from disk
+    for family, cfg in configs.items():
+        reset_counts()
+        t0 = time.perf_counter()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # vr without a checkpoint: comb
+            quiet(cli_binarize.main, ["--config", str(cfg)])
+        wall = time.perf_counter() - t0
+        launches[f"binarize {family}"] = c = counts()
+        hp = load_config(cfg)
+        out = Path(hp["binary_data_dir"])
+        meta = {}
+        for prefix in ("train", "valid"):
+            with open(out / f"{prefix}.meta", "rb") as f:
+                meta[prefix] = len(pickle.load(f)["lengths"])
+        ds_cls = AcousticDataset if family == "acoustic" else VarianceDataset
+        t0 = time.perf_counter()
+        ds = ds_cls(out, hp, "train")
+        items = [ds[i] for i in range(len(ds))]
+        read_s = time.perf_counter() - t0
+        read_mb = sum(v.nbytes for it in items for v in it.values()
+                      if isinstance(v, np.ndarray)) / 1e6
+        mb = store_mb(out)
+        rec = {"wall_s": wall, "s_per_audio_s": wall / audio_s, "store_mb": mb,
+               "items": meta, "launches": c, "read_items_per_s": len(items) / read_s,
+               "read_mb_per_s": read_mb / read_s}
+        report[f"binarize_{family}"] = rec
+        log(f"{tag} cli.binarize {family}: {sum(meta.values())} items in {wall:.2f} s with the "
+            f"file write: {wall / audio_s:.5f} s a second of audio; store {mb:.1f} MB on disk; "
+            f"read back through {ds_cls.__name__}: {len(items)} items in {read_s:.3f} s, "
+            f"{len(items) / read_s:.0f} items/s, {read_mb / read_s:.0f} MB/s of arrays; "
+            f"launches {c} on {card}")
+        if any(c.values()):
+            fail(f"{tag} cli.binarize {family} launched a model kernel: {c}")
+        if len(items) != meta["train"] or not meta["valid"]:
+            fail(f"{tag} the {family} store holds {len(items)} items, its .meta {meta}")
+        del ds, items
+
+    # 2. train at full width, then resume
+    per_step = {"acoustic": TRAIN_PER_STEP, "variance": VAR_TRAIN_PER_STEP}
+    for family, exp in (("acoustic", "pipe_ac"), ("variance", "pipe_var")):
+        hp = load_config(configs[family])
+        n_layers = hp["backbone_args"]["num_layers"] if family == "acoustic" else 0
+        want = {"K1": n_layers, "K2": n_layers, "K3": hp["enc_layers"], "K3bwd": hp["enc_layers"]}
+        runs = []
+        for steps in PIPE_STEPS:
+            argv = ["--config", str(configs[family]), "--exp_name", exp, "--ckpt_root",
+                    str(ckpt_root), "--max_steps", str(steps)]
+            with TrainProbe(reset_counts, read_counts) as probe:
+                task = quiet(cli_train.main, argv)
+            run = probe.summary()
+            run["global_step"] = task.global_step
+            run["parameters"] = sum(p.numel() for p in task.module.parameters())
+            run["checkpoint"] = (task.work_dir / f"model_ckpt_steps_{steps}.ckpt").is_file()
+            runs.append(run)
+            del task
+            gc.collect()
+            torch.cuda.empty_cache()
+            per = run["launches_per_step"]
+            log(f"{tag} cli.train {family} ({run['parameters']:,} parameters, "
+                f"{hp['pl_trainer_precision']}, max_batch_frames {hp['max_batch_frames']}) to step "
+                f"{steps} from step {run['first_global_step'] - 1}: first optimizer step "
+                f"{run['time_to_first_step_s']:.2f} s after the call, "
+                f"{run['steps_per_s'] or 0:.3f} steps/s, share of the run in epoch_batches "
+                f"{run['fetch_share'] or 0:.4f} (fetches {np.median(run['fetch_ms']):.1f} ms "
+                f"median), save {sum(run['save_s']):.2f} s, resume "
+                f"{sum(run['resume_s']):.2f} s, validations "
+                f"{[round(v, 2) for v in run['validation_s']]} s, last losses "
+                + " ".join(f"{k}={v:.4f}" for k, v in run["last_losses"].items())
+                + f"; launches a step {per[0]} (every step alike: "
+                f"{all(p == per[0] for p in per)}) on {card}")
+            if any(p != want for p in per):
+                fail(f"{tag} cli.train {family}: a step launched {per}, not {want} "
+                     f"(expected {per_step[family]} at the shipped widths)")
+            if (run["global_step"] != steps or not run["checkpoint"]
+                    or len(run["validation_s"]) < 2 or not all(
+                        math.isfinite(v) for v in run["last_losses"].values())):
+                fail(f"{tag} cli.train {family} to step {steps}: {run}")
+        if runs[1]["first_global_step"] != PIPE_STEPS[0] + 1 or not runs[1]["resume_s"]:
+            fail(f"{tag} cli.train {family} did not resume from step {PIPE_STEPS[0]}: {runs[1]}")
+        report[f"train_{family}"] = runs
+        launches[f"train {family} step"] = runs[0]["launches_per_step"][0]
+
+    # 3. infer: the variance model on a shipped score, the acoustic model on its output,
+    # and a shipped score straight through the acoustic model
+    ac_hp = load_config(exp_name="pipe_ac", infer=True, ckpt_root=ckpt_root)
+    sr, hop = ac_hp["audio_sample_rate"], ac_hp["hop_size"]
+    steps = ac_hp["sampling_steps"]
+    n_layers, n_enc = ac_hp["backbone_args"]["num_layers"], ac_hp["enc_layers"]
+    var_enc = load_config(exp_name="pipe_var", infer=True, ckpt_root=ckpt_root)["enc_layers"]
+    chain = tmp / "chain"
+    calls = [("variance", ROOT / "samples" / PIPE_SCORE, "pipe_var", chain / "ds"),
+             ("acoustic", chain / "ds" / PIPE_SCORE, "pipe_ac", chain / "wav"),
+             ("acoustic", ROOT / "samples" / PIPE_PLAIN_SCORE, "pipe_ac", chain / "wav")]
+    report["infer"] = []
+    for kind, score_path, exp, out_dir in calls:
+        reset_counts()
+        t0 = time.perf_counter()
+        loaded(f"cli.infer {kind}", cli_infer.main,
+               [kind, str(score_path), "--exp", exp, "--seed", "1", "--out", str(out_dir)])
+        wall = time.perf_counter() - t0
+        c = counts()
+        with open(score_path, encoding="utf-8") as f:
+            score = json.load(f)
+        n_seg = len(score)
+        if kind == "variance":
+            want = {"K1": 0, "K2": 0, "K3": var_enc * n_seg, "K3bwd": 0}
+            with open(out_dir / score_path.name, encoding="utf-8") as f:
+                written = json.load(f)
+            values = [np.asarray(seg[k].split(), np.float64) for seg in written
+                      for k in ("ph_dur", "f0_seq", *VARIANCES)]
+            ok = len(written) == n_seg and all(np.isfinite(v).all() and v.size for v in values)
+            what = f"{len(written)} segments with ph_dur, f0_seq and the four curves, finite"
+        else:
+            want = {"K1": n_layers * steps * n_seg, "K2": n_layers * steps * n_seg,
+                    "K3": n_enc * n_seg, "K3bwd": 0}
+            with wave.open(str(out_dir / (score_path.stem + ".wav"))) as f:
+                rate, n_samples = f.getframerate(), f.getnframes()
+                pcm = np.frombuffer(f.readframes(n_samples), np.int16)
+            expected = score_samples(score, sr, hop)
+            # save_wav casts NaN to -32768: a non-finite wav sits at the rail
+            ok = (rate == sr and abs(n_samples - expected) <= hop and np.abs(pcm).max() > 30
+                  and (pcm == -32768).mean() < 0.01)
+            what = (f"a wav of {n_samples} samples at {rate} Hz (the score: {expected}), peak "
+                    f"{np.abs(pcm).max()}, share at the negative rail {(pcm == -32768).mean():.4f}")
+        report["infer"].append({"command": kind, "score": score_path.name, "segments": n_seg,
+                                "seconds_with_load": wall, "launches": c})
+        log(f"{tag} cli.infer {kind} {score_path.name} --exp {exp}: {n_seg} segments in "
+            f"{wall:.2f} s with loading; {what}; launches {c} (expected {want}: per segment "
+            + (f"K2 = {n_layers} x {steps} steps" if kind == "acoustic" else f"K3 {var_enc}")
+            + f") on {card}")
+        if c != want:
+            fail(f"{tag} cli.infer {kind} launched {c}, not {want}")
+        if not ok:
+            fail(f"{tag} cli.infer {kind} wrote {what}")
+    launches["infer acoustic segment"] = {k: v // len(load_score(PIPE_PLAIN_SCORE))
+                                          for k, v in report["infer"][-1]["launches"].items()}
+
+    # 4. export both families (.pt2 on the card), then the programs against eager
+    for family, exp in (("acoustic", "pipe_ac"), ("variance", "pipe_var")):
+        art = tmp / "artifacts" / family
+        reset_counts()
+        t0 = time.perf_counter()
+        quiet(cli_export.main, [family, "--exp", exp, "--out", str(art)])
+        wall = time.perf_counter() - t0
+        c = counts()
+        mb = sum(f.stat().st_size for f in art.iterdir()) / 1e6
+        hp = load_config(exp_name=exp, infer=True, ckpt_root=ckpt_root)
+        if family == "acoustic":
+            model = quiet(DiffSingerAcousticExporter, hp, tmp / "unused").model
+            rt = AcousticArtifactRuntime(art)
+            dev = rt.device
+            tokens, mel2ph, f0 = export_inputs(*DiffSingerAcousticExporter.DEFAULT_BUCKETS[0], 21)
+            noise = torch.randn((1, mel2ph.shape[1], hp["audio_num_mel_bins"]), device=dev,
+                                generator=torch.Generator(device=dev).manual_seed(3))
+            reset_counts()
+            got = {"mel": rt.synthesize_mel(tokens, mel2ph, f0, noise=noise)}
+            run_counts = counts()
+            want_eager = {"mel": eager_dynamic(model, tokens, mel2ph, f0, noise,
+                                               int(rt.manifest["sampling_steps"]),
+                                               float(rt.manifest["max_depth"])).cpu().numpy()}
+            n = hp["backbone_args"]["num_layers"] * int(rt.manifest["sampling_steps"])
+            want = {"K1": n, "K2": n, "K3": hp["enc_layers"], "K3bwd": 0}
+        else:
+            model = quiet(DiffSingerVarianceExporter, hp, tmp / "unused").model
+            rt = VarianceArtifactRuntime(art)
+            bp, bm = DiffSingerVarianceExporter.DEFAULT_BUCKETS[0]
+            req = variance_request(56, seed=31)
+            t_ph, t_mel = req["tokens"].shape[1], req["pitch"].shape[1]
+            views = variance_view_calls(model, rt, req, bp, bm)
+            reset_counts()
+            enc, dur, bucket = views["pt2_encode"]()
+            pitch = views["pt2_pitch"](enc, bucket)
+            curves = views["pt2_variance"](enc, pitch, bucket)
+            run_counts = counts()
+            got = {"encoder_out": enc.cpu().numpy(), "ph_dur": dur, "pitch": pitch,
+                   **{v: curves[v] for v in rt.variance_names()}}
+            enc_e, dur_e = views["eager_encode"]()
+            pitch_e = views["eager_pitch"](enc_e)
+            curves_e = views["eager_variance"](enc_e, torch.from_numpy(
+                np.pad(pitch, [(0, 0), (0, bm - t_mel)])).to(enc_e.device))
+            want_eager = {"encoder_out": enc_e.cpu().numpy(),
+                          "ph_dur": dur_e[:, :t_ph].cpu().numpy(),
+                          "pitch": pitch_e[:, :t_mel].cpu().numpy(),
+                          **{v: ce[:, :t_mel].cpu().numpy()
+                             for v, ce in zip(rt.variance_names(), curves_e)}}
+            want = {"K1": 0, "K2": 0, "K3": hp["enc_layers"], "K3bwd": 0}
+        equal = {k: bool(np.array_equal(got[k], want_eager[k])) for k in got}
+        report[f"export_{family}"] = {"seconds": wall, "artifact_mb": mb, "export_launches": c,
+                                      "request_launches": run_counts, "bit_equal": equal}
+        log(f"{tag} cli.export {family} --exp {exp}: {wall:.1f} s, {mb:.1f} MB of artifacts "
+            f"({', '.join(sorted(p.name for p in art.iterdir()))}); launches while exporting {c}; "
+            f"one segment through {type(rt).__name__}: launches {run_counts} (expected {want}), "
+            f"bit-equal to the eager model: {equal} on {card}")
+        if run_counts != want or not all(equal.values()):
+            fail(f"{tag} the exported {family} program: launches {run_counts}, equal {equal}")
+        del model, rt
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    report["launches"] = launches
+    report["phase_s"] = time.perf_counter() - t_phase
+    log(f"{tag} the phase took {report['phase_s']:.1f} s on {card}")
+    return report, launches
 
 
 LYNX_ACTIVATIONS = ("SiLU", "ReLU")
@@ -3959,6 +4355,76 @@ def vocoder_checks(root, card, reset_counts, read_counts, hp, mel, f0):
     return out
 
 
+def phase_summaries(report: dict, seconds: dict) -> list:
+    """One compact line a phase (its seconds and its main numbers), printed
+    just before the script's last lines, where the tool's tail of the output
+    keeps them."""
+    p = report["phases"]
+
+    def f(x, digits=4):
+        return f"{x:.{digits}g}"
+
+    runs = lambda runs, key: " ".join(f"{f(r[key])}" for r in runs)  # noqa: E731
+    req, prof = p["requests"], p["profile"]
+    lines = {
+        "build": f"{f(report['build']['seconds'], 3)} s for the kernel libraries",
+        "kernels": f"{len(p['kernels'])} checks against the plain versions, worst err/tol "
+                   + f(max(c["max_abs_err"] / c["tol"] for c in p["kernels"] if c["tol"]), 3),
+        "e2e": f"{f(req['frames_per_s'], 6)} mel frames/s, idle share {f(prof['idle_share'], 3)}, "
+               f"launches {req['launches']}",
+        "serve": f"{f(p['serve']['scores']['frames_per_s'], 6)} true mel frames/s, padded "
+                 f"{f(p['serve']['scores']['padded_share'], 3)}, idle share "
+                 f"{f(p['serve']['profile']['idle_share'], 3)}, cli.infer "
+                 f"{f(p['serve']['entry_point']['seconds_with_load'], 3)} s",
+        "variance": f"{f(p['variance']['served']['frames_per_s'], 6)} frames/s, idle share "
+                    f"{f(p['variance']['profile']['idle_share'], 3)}, chain "
+                    f"{f(p['variance']['chain']['frames_per_s'], 5)} mel frames/s",
+        "ddpm": " ".join(f"{acc} {f(v['frames_per_s'], 6)}" for acc, v in p["ddpm"].items())
+                + " mel frames/s",
+        "lynx_act": f"SiLU {f(p['lynx_act']['SiLU_request']['frames_per_s'], 6)}, ReLU "
+                    f"{f(p['lynx_act']['ReLU_request']['frames_per_s'], 6)} mel frames/s, .pt2 "
+                    f"bit-equal {p['lynx_act']['pt2']['bit_equal']}",
+        "vocoders": " ".join(f"{k} {f(p['vocoders'][k]['s_per_audio_s'], 3)}"
+                             for k in ("DDSP", "DDSPNative", "GriffinLim")) + " s a second of audio",
+        "export": f"acoustic {f(p['export']['export_s'], 3)} s, .pt2 / eager "
+                  f"{f(p['export']['request_s']['mean']['pt2'] / p['export']['request_s']['mean']['eager'], 3)}"
+                  f", max err {f(p['export']['max_abs_err_vs_eager'], 3)}; variance "
+                  f"{f(p['export']['variance']['export_s'], 3)} s",
+        "train": f"{f(p['train']['steps_per_s'], 4)} steps/s, {f(p['train']['mel_frames_per_s'], 6)} "
+                 f"mel frames/s, peak {f(p['train']['peak_mem_gib'], 3)} GiB, launches "
+                 f"{p['train']['launches']}",
+        "train_variance": f"{f(p['train_variance']['steps_per_s'], 4)} steps/s, "
+                          f"{f(p['train_variance']['frames_per_s'], 6)} frames/s, peak "
+                          f"{f(p['train_variance']['peak_mem_gib'], 3)} GiB",
+        "train_dist": f"two gloo ranks vs one process {f(p['train_dist']['two_ranks']['err'], 3)}, "
+                      f"DDP / plain {f(p['train_dist']['ddp_one_rank']['ddp_over_plain'], 4)}",
+        "binarize": "s a second of audio " + runs(p["binarize"]["runs"], "s_per_audio_s")
+                    + "; store MB " + runs(p["binarize"]["runs"], "store_mb") + "; write s "
+                    + runs(p["binarize"]["runs"], "write_s"),
+        "binarize_ext": "s a second of audio " + runs(p["binarize_ext"]["runs"], "s_per_audio_s")
+                        + "; store MB " + runs(p["binarize_ext"]["runs"], "store_mb"),
+    }
+    pipe = p["pipeline"]
+    lines["pipeline"] = "; ".join(
+        [f"binarize {fam} {f(pipe[f'binarize_{fam}']['s_per_audio_s'], 3)} s a second of audio, "
+         f"{f(pipe[f'binarize_{fam}']['store_mb'], 4)} MB, read "
+         f"{f(pipe[f'binarize_{fam}']['read_items_per_s'], 4)} items/s"
+         for fam in ("acoustic", "variance")]
+        + [f"train {fam} first step {f(r[0]['time_to_first_step_s'], 3)} s, "
+           f"{f(r[0]['steps_per_s'], 4)} steps/s, fetch share {f(r[0]['fetch_share'], 3)}, save "
+           f"{f(sum(r[0]['save_s']), 3)} s, resume {f(sum(r[1]['resume_s']), 3)} s, launches a "
+           f"step {r[0]['launches_per_step'][0]}"
+           for fam, r in (("acoustic", pipe["train_acoustic"]),
+                          ("variance", pipe["train_variance"]))]
+        + [f"infer {c['command']} {c['score']} {f(c['seconds_with_load'], 3)} s"
+           for c in pipe["infer"]]
+        + [f"export {fam} {f(pipe[f'export_{fam}']['seconds'], 3)} s, "
+           f"{f(pipe[f'export_{fam}']['artifact_mb'], 4)} MB, bit-equal "
+           f"{all(pipe[f'export_{fam}']['bit_equal'].values())}" for fam in ("acoustic", "variance")])
+    return [f"[summary] {name} {f(seconds.get(name, float('nan')), 4)} s: {line}"
+            for name, line in lines.items()]
+
+
 def main() -> None:
     t_script = time.perf_counter()
     import torch
@@ -3989,7 +4455,13 @@ def main() -> None:
     def read_counts():
         return {k: m.launches for k, m in counters.items()}
 
+    marks = []  # (phase, its start on the host clock)
+
+    def mark(phase):
+        marks.append((phase, time.perf_counter()))
+
     # ------------------------------------------------------------ 1. card + build
+    mark("build")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
     card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 and smi.stdout.strip() \
@@ -4009,6 +4481,7 @@ def main() -> None:
         "".join(f"--- {n}: {sec:.1f} s\n{msg}\n" for n, (sec, msg) in built.items()))
 
     # ------------------------------------------------------------ 2. kernels
+    mark("kernels")
     gen = torch.Generator(device=dev).manual_seed(0)
 
     def randn(*shape, dtype=torch.float32, scale=1.0):
@@ -4143,6 +4616,7 @@ def main() -> None:
         fail("a kernel disagrees with its plain version")
 
     # ------------------------------------------------------------ 3. e2e
+    mark("e2e")
     hp = load_config(ROOT / "configs" / "acoustic.yaml", "sampling_steps=50")
     n_mels = hp["audio_num_mel_bins"]
     n_layers = hp["backbone_args"]["num_layers"]
@@ -4295,6 +4769,7 @@ def main() -> None:
     report["phases"]["bf16_vs_f32_mel"] = {"mae": diff.mean().item(), "max": diff.max().item()}
 
     # ------------------------------------------------------------ 4. serve
+    mark("serve")
     report["phases"]["serve"], serve_counts = serve_phase(
         hp, card, reset_counts, read_counts, report["phases"]["profile"])
 
@@ -4327,31 +4802,44 @@ def main() -> None:
         fail("a kernel disagrees with its plain version at a served shape")
 
     # ------------------------------------------------------------ 5. variance, ddpm
+    mark("variance")
     report["phases"]["variance"], var_counts = variance_phase(
         hp, card, reset_counts, read_counts, check, k3_served_case)
     if not all(c["ok"] for c in checks):
         fail("K3 disagrees with its plain version at a variance shape")
+    mark("ddpm")
     report["phases"]["ddpm"], ddpm_counts = ddpm_phase(hp, card, reset_counts, read_counts, request)
+    mark("lynx_act")
     report["phases"]["lynx_act"], act_counts, act_kernels = lynx_act_phase(
         hp, card, reset_counts, read_counts, check, request, run, vocoder)
+    mark("vocoders")
     report["phases"]["vocoders"] = vocoders_phase(card, reset_counts, read_counts, hp,
                                                   bench_mel, bench_f0)
+    mark("export")
     report["phases"]["export"], export_counts = export_phase(card, reset_counts, read_counts)
+    mark("train")
     report["phases"]["train"], train_counts, bwd_cases = train_phase(
         card, reset_counts, read_counts, check)
     if not all(c["ok"] for c in checks):
         fail("K3's backward disagrees with its plain version")
+    mark("train_variance")
     report["phases"]["train_variance"], var_train_counts, var_cases = train_variance_phase(
         card, reset_counts, read_counts, check)
     if not all(c["ok"] for c in checks):
         fail("K3 or its backward disagrees with its plain version at a variance training shape")
+    mark("train_dist")
     report["phases"]["train_dist"], dist_counts = train_dist_phase(hp, card, reset_counts,
                                                                    read_counts)
+    mark("binarize")
     report["phases"]["binarize"], bin_counts = binarize_phase(card, reset_counts, read_counts)
+    mark("binarize_ext")
     report["phases"]["binarize_ext"], ext_counts = binarize_ext_phase(card, reset_counts,
                                                                       read_counts)
+    mark("pipeline")
+    report["phases"]["pipeline"], pipe_counts = pipeline_phase(card, reset_counts, read_counts)
 
     # ------------------------------------------------------------ 6. kernel line
+    mark("times")
     x_t = s.transpose(1, 2).contiguous()
     w_conv = dw_w[:, None, :].contiguous()
     q, k, v, pad = k3_args
@@ -4468,6 +4956,7 @@ def main() -> None:
             "launches_train_steps": train_counts[key],
             "launches_train_variance_steps": var_train_counts[key],
             "launches_train_dist_ddp_steps": dist_counts[key],
+            "launches_pipeline": {cmd: c[key] for cmd, c in pipe_counts.items()},
             "launches_binarize": bin_counts[key],
             "launches_binarize_ext": ext_counts[key],
             "max_abs_err": err,
@@ -4554,6 +5043,7 @@ def main() -> None:
         "launches_export_request": export_counts["K3bwd"],
         "launches_train_variance_steps": var_train_counts["K3bwd"],
         "launches_train_dist_ddp_steps": dist_counts["K3bwd"],
+        "launches_pipeline": {cmd: c["K3bwd"] for cmd, c in pipe_counts.items()},
         "launches_binarize": bin_counts["K3bwd"],
         "launches_binarize_ext": ext_counts["K3bwd"],
         **train_times,
@@ -4607,7 +5097,13 @@ def main() -> None:
 
     report["script_s"] = time.perf_counter() - t_script
     log(f"[time] the whole script: {report['script_s']:.1f} s")
+    mark("end")
+    report["phase_s"] = {name: end - start for (name, start), (_, end) in zip(marks, marks[1:])}
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
+    for line in phase_summaries(report, report["phase_s"]):
+        log(line)
+    log(f"[summary] {report['script_s']:.1f} s in all on {card}")
+    log(card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -30,16 +30,15 @@ def binarizer_class(binarizer_cls: str):
     raise ValueError(f"unknown binarizer {binarizer_cls!r}: AcousticBinarizer or VarianceBinarizer")
 
 
-def binarize(hp: dict, device=None, **process_args):
+def binarize(hp: dict, device=None):
     """Binarize with the config's binarizer on ``device`` (the card unless
-    named); ``process_args`` go to ``process`` (its ``builder``). Prints the
-    seconds of binarization per second of audio and the stages' split, and
-    returns the binarizer."""
+    named). Prints the seconds of binarization per second of audio and the
+    stages' split, and returns the binarizer."""
     cls = binarizer_class(hp["binarizer_cls"])
     print("| Binarizer: ", cls)
     binarizer = cls(hp, device=device)
     t0 = time.perf_counter()
-    binarizer.process(**process_args)
+    binarizer.process()
     seconds = time.perf_counter() - t0
     audio = sum(t["seconds"] for t in binarizer.totals.values())
     items = sum(t["items"] for t in binarizer.totals.values())

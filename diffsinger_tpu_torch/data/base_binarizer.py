@@ -213,10 +213,8 @@ class BaseBinarizer:
             yield name, self.items[name]
 
     # ------------------------------------------------------------------
-    def process(self, builder=IndexedDatasetBuilder):
-        """Binarize every dataset into ``binary_data_dir``. ``builder(dir,
-        prefix=, allowed_attr=)`` makes each split's item store (add_item,
-        finalize)."""
+    def process(self):
+        """Binarize every dataset into ``binary_data_dir``."""
         test_prefixes = []
         for ds_id, dataset in enumerate(self.datasets):
             items = self.load_meta_data(
@@ -243,14 +241,13 @@ class BaseBinarizer:
         self.check_coverage()
 
         try:
-            self.process_dataset("valid", builder=builder)
+            self.process_dataset("valid")
             self.process_dataset(
                 "train",
                 num_workers=int(self.binarization_args["num_workers"]),
                 apply_augmentation=any(
                     args.get("enabled") for args in self.augmentation_args.values()
                 ),
-                builder=builder,
             )
         except KeyboardInterrupt:
             raise SystemExit(-1)
@@ -307,15 +304,15 @@ class BaseBinarizer:
                 f"The following phonemes are not covered in transcriptions: {missing}"
             )
 
-    def process_dataset(self, prefix, num_workers=0, apply_augmentation=False,
-                        builder=IndexedDatasetBuilder):
+    def process_dataset(self, prefix, num_workers=0, apply_augmentation=False):
         """Each item of the split (and its augmented copies) into the store,
         numbered in order, then ``{prefix}.meta``."""
         args = [
             [name, meta, self.binarization_args]
             for name, meta in self.meta_data_iterator(prefix)
         ]
-        store = builder(self.binary_data_dir, prefix=prefix, allowed_attr=self.data_attrs)
+        store = IndexedDatasetBuilder(self.binary_data_dir, prefix=prefix,
+                                      allowed_attr=self.data_attrs)
         total_sec = {k: 0.0 for k in self.spk_map}
         total_raw_sec = {k: 0.0 for k in self.spk_map}
         extra_info = {"names": {}, "ph_texts": {}, "spk_ids": {}, "spk_names": {}, "lengths": {}}
@@ -367,7 +364,8 @@ class BaseBinarizer:
                 )
                 extra_info[k] = [v for _, v in sorted(extra_info[k].items())]
         finally:
-            store.finalize()
+            with self.timer("write"):
+                store.finalize()
         if prefix == "train":
             extra_info.pop("names")
             extra_info.pop("ph_texts")

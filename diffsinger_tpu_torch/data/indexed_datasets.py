@@ -2,14 +2,17 @@
 diffsinger_tpu/data/indexed_datasets.py): its reader and its writer.
 
 ``{prefix}.data`` holds one HDF5 group per item, keyed by the item's index;
-items come back as dicts of numpy arrays. ``h5py`` is imported when a file is
-opened, so the package imports on hosts without it.
+items come back as dicts of numpy arrays (Python scalars for 0-d ones). The
+file is read and written by the port's own codec, ``data/hdf5.py``, in the
+format that h5py and the JAX package read and write.
 """
 
 from __future__ import annotations
 
 import pathlib
 from typing import Dict, Optional, Sequence
+
+from diffsinger_tpu_torch.data import hdf5
 
 
 class IndexedDataset:
@@ -20,19 +23,16 @@ class IndexedDataset:
         self.dset = None
 
     def _ensure_open(self):
+        # opened in the process that reads, so each worker and rank has its own
         if self.dset is None:
-            import h5py
-
-            self.dset = h5py.File(self.path, "r")
+            self.dset = hdf5.Reader(self.path)
 
     def __getitem__(self, i: int) -> Dict:
-        import numpy as np
-
         self._ensure_open()
         if i < 0 or i >= len(self.dset):
             raise IndexError("index out of range")
-        return {k: (v[()].item() if v.shape == () else np.asarray(v[()]))
-                for k, v in self.dset[str(i)].items()}
+        return {k: (v.item() if v.shape == () else v)
+                for k, v in self.dset.read_group(str(i)).items()}
 
     def __len__(self) -> int:
         self._ensure_open()
@@ -50,11 +50,9 @@ class IndexedDatasetBuilder:
     when None) are kept, and None values are left out."""
 
     def __init__(self, path, prefix: str, allowed_attr: Optional[Sequence[str]] = None):
-        import h5py
-
         self.path = pathlib.Path(path) / f"{prefix}.data"
         self.path.parent.mkdir(parents=True, exist_ok=True)
-        self.dset = h5py.File(self.path, "w")
+        self.dset = hdf5.Writer(self.path)
         self.counter = 0
         self.allowed_attr = set(allowed_attr) if allowed_attr is not None else None
 
@@ -63,9 +61,7 @@ class IndexedDatasetBuilder:
             item = {k: item[k] for k in self.allowed_attr if k in item}
         item_no = self.counter
         self.counter += 1
-        for k, v in item.items():
-            if v is not None:
-                self.dset.create_dataset(f"{item_no}/{k}", data=v)
+        self.dset.add_group(str(item_no), {k: v for k, v in item.items() if v is not None})
         return item_no
 
     def finalize(self):
