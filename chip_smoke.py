@@ -216,6 +216,7 @@ number to chiprun_out/chip_smoke.json.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import copy
 import io
@@ -2195,6 +2196,158 @@ def train_variance_phase(card, reset_counts, read_counts, check):
     return report, counts, cases
 
 
+REMAT_POLICIES = (False, "full", "dots", "dots_no_batch")  # recompute_grads
+
+
+def train_remat_phase(card, reset_counts, read_counts):
+    """[train_remat]: ``recompute_grads`` on [train]'s task and batch
+    (configs/acoustic.yaml at full width, '16-mixed', the same seeded batch of
+    48 x 1024): for each policy, the peak memory, steps/s over 10 steps after
+    3 warm-ups and the kernels' launches a step (under recomputation K2, with
+    K1 inside it, runs again in the backward of each LYNXNet layer); one
+    float32 step under each policy against the step without, the loss and
+    every gradient (the same kernels on the same inputs: expected equal);
+    [train_variance]'s model and batch with 'full' against off (peak memory,
+    steps/s); and one step of a batch sent as ``train_wire_dtype: float16``
+    through the trainer's upload stage against the float32 batch (bytes
+    uploaded, the loss). Returns the report and the launches a step by
+    policy."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from diffsinger_tpu_torch.training.acoustic_task import AcousticTask
+    from diffsinger_tpu_torch.training.base_task import to_wire
+    from diffsinger_tpu_torch.training.variance_task import VarianceTask
+
+    tag = "[train_remat]"
+    dev = torch.device("cuda")
+    tmp = Path(tempfile.mkdtemp(prefix="train_remat_", dir=OUT_DIR))
+    report = {"acoustic": {}, "float32": {}, "variance": {}}
+    hp0 = acoustic_train_hp(tmp / "data")
+    rng = np.random.default_rng(35)  # [train]'s batch
+    ds = memory_acoustic_dataset(train_items(rng, TRAIN_B, TRAIN_T_TXT, TRAIN_T_MEL,
+                                             hp0["audio_num_mel_bins"], *TRAIN_LENGTHS), hp0)
+    host = {k: v for k, v in ds.collater([ds[i] for i in range(TRAIN_B)]).items()
+            if isinstance(v, np.ndarray) and k != "indices"}
+    n_layers = hp0["backbone_args"]["num_layers"]
+    gen = torch.Generator(device=dev).manual_seed(36)
+    t_fix = 0.4 + 0.6 * torch.rand(TRAIN_B, generator=gen, device=dev)
+    noise_fix = torch.randn(host["mel"].shape, generator=gen, device=dev)
+
+    def task_of(cls, hp):
+        torch.manual_seed(33)
+        task = quiet(cls, hp)
+        task.configure_optimizer()
+        seeded_weights(task.module, 34)
+        return task
+
+    def release():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # each policy: peak memory, steps/s, launches a step
+    per_step = {}
+    for remat in REMAT_POLICIES:
+        task = task_of(AcousticTask, acoustic_train_hp(tmp / f"exp_{remat}",
+                                                       recompute_grads=remat))
+        batch = task.to_device(host)
+        want = dict(TRAIN_PER_STEP)
+        if remat:
+            want.update(K1=2 * n_layers, K2=2 * n_layers)
+        log(f"{tag} recompute_grads={remat!r}: 10 timed steps")
+        wall, counts, peak, values, _ = timed_train_steps("train_remat", task, batch, want,
+                                                          reset_counts, read_counts)
+        per_step[str(remat)] = {k: v // TRAIN_STEPS for k, v in counts.items()}
+        rec = {"steps_per_s": TRAIN_STEPS / wall, "step_ms": 1e3 * wall / TRAIN_STEPS,
+               "peak_mem_gib": peak, "launches_per_step": per_step[str(remat)],
+               "last_metrics": values}
+        report["acoustic"][str(remat)] = rec
+        log(f"{tag} recompute_grads={remat!r}: {rec['steps_per_s']:.3f} steps/s "
+            f"({rec['step_ms']:.1f} ms a step), peak memory {peak:.2f} GiB, launches a step "
+            f"{per_step[str(remat)]}, last step "
+            + " ".join(f"{k}={v:.4f}" for k, v in values.items()) + f" on {card}")
+        if remat is False:
+            # the wire format: one step of the float16 batch through the
+            # trainer's upload stage and next_batch, against the float32 one
+            wire = to_wire(host)
+            sent = {n: sum(v.nbytes for v in b.values()) for n, b in
+                    (("float32", host), ("float16", wire))}
+            losses = {}
+            for name, arrays in (("float32", host), ("float16", wire)):
+                staged = task.upload_batch((arrays, TRAIN_B, 0, (0, 1)))
+                on, _, _ = task.next_batch(iter([staged]))
+                losses[name] = float(task.train_step(on, t=t_fix, noise=noise_fix)["total_loss"])
+                task.optimizer.zero_grad(set_to_none=True)
+            report["wire"] = {"bytes": sent, "losses": losses,
+                              "loss_delta": abs(losses["float16"] - losses["float32"])}
+            log(f"{tag} train_wire_dtype float16 against float32: {sent['float16']:,} against "
+                f"{sent['float32']:,} bytes uploaded a batch, the step's loss "
+                f"{losses['float16']:.6f} against {losses['float32']:.6f} (|delta| "
+                f"{report['wire']['loss_delta']:.2e}) on {card}")
+            if not (sent["float16"] < sent["float32"] and math.isfinite(losses["float16"])
+                    and report["wire"]["loss_delta"] <= 1e-2 * abs(losses["float32"])):
+                fail(f"{tag} the float16 wire format: {report['wire']}")
+        del task, batch
+        release()
+
+    # one float32 step under each policy against the step without
+    ref = None
+    for remat in REMAT_POLICIES:
+        task = task_of(AcousticTask, acoustic_train_hp(
+            tmp / f"f32_{remat}", recompute_grads=remat, pl_trainer_precision="32-true"))
+        reset_counts()
+        loss = float(task.train_step(task.to_device(host), t=t_fix, noise=noise_fix)["total_loss"])
+        counts = read_counts()
+        grads = {n: p.grad.detach().clone() for n, p in task.module.named_parameters()
+                 if p.grad is not None}
+        del task
+        release()
+        if ref is None:
+            ref = (loss, grads)
+            continue
+        loss_d = abs(loss - ref[0])
+        grad_d = max((grads[n] - g).abs().max().item() for n, g in ref[1].items())
+        grad_rel = max((grads[n] - g).abs().max().item() / max(g.abs().max().item(), 1e-12)
+                       for n, g in ref[1].items())
+        same = grads.keys() == ref[1].keys()
+        report["float32"][str(remat)] = {"loss": loss, "loss_delta": loss_d,
+                                         "grad_max_abs_delta": grad_d,
+                                         "grad_max_rel_delta": grad_rel, "launches": counts}
+        log(f"{tag} float32 step, recompute_grads={remat!r} against off: loss {loss:.6f}, "
+            f"|delta| {loss_d:.3e}; every gradient max |delta| {grad_d:.3e} ({grad_rel:.3e} of "
+            f"its largest entry) over {len(grads)} parameters (expected 0); launches {counts}")
+        if not same or loss_d > 1e-6 * abs(ref[0]) or grad_rel > 1e-5:
+            fail(f"{tag} the float32 step under recompute_grads={remat!r} differs from the "
+                 f"step without")
+    del ref
+    release()
+
+    # the variance model (WaveNet 20 x 256 and 10 x 192) with full against off
+    vrng = np.random.default_rng(40)  # [train_variance]'s batch
+    vhp0 = variance_hp(tmp / "vdata")
+    vds = memory_variance_dataset(variance_train_items(vrng, VAR_TRAIN_B, *VAR_TRAIN_LENGTHS, 170),
+                                  vhp0)
+    vhost = {k: v for k, v in vds.collater([vds[i] for i in range(VAR_TRAIN_B)]).items()
+             if isinstance(v, np.ndarray) and k != "indices"}
+    for remat in (False, "full"):
+        task = task_of(VarianceTask, variance_hp(tmp / f"var_{remat}", recompute_grads=remat))
+        batch = task.to_device(vhost)
+        wall, counts, peak, values, _ = timed_train_steps(
+            "train_remat", task, batch, VAR_TRAIN_PER_STEP, reset_counts, read_counts)
+        rec = {"steps_per_s": TRAIN_STEPS / wall, "step_ms": 1e3 * wall / TRAIN_STEPS,
+               "peak_mem_gib": peak, "launches_per_step": {k: v // TRAIN_STEPS
+                                                           for k, v in counts.items()}}
+        report["variance"][str(remat)] = rec
+        log(f"{tag} variance model, recompute_grads={remat!r}: {rec['steps_per_s']:.3f} "
+            f"steps/s ({rec['step_ms']:.1f} ms a step), peak memory {peak:.2f} GiB on {card}")
+        del task, batch
+        release()
+    shutil.rmtree(tmp, ignore_errors=True)
+    return report, per_step
+
+
 DIST_RANK_ROWS, DIST_STEPS = 4, 3  # (a): rows of a rank's batch, optimizer steps
 DIST_TIMEOUT = 300  # seconds for (a)'s two ranks to start, train and end
 DIST_SERVE_TOL = 1e-3  # wavs and curves, one device against two replicas
@@ -3433,7 +3586,16 @@ def binarize_ext_phase(card, reset_counts, read_counts):
 
 
 PIPE_ITEMS = BIN_ITEMS  # [binarize]'s corpus (same seed)
-PIPE_STEPS = (8, 12)  # optimizer steps of cli.train's first call, then of the resumed one
+PIPE_STEPS = (8, 13)  # optimizer steps of cli.train's first call, then of the resumed one
+PIPE_PROFILE_STEPS = 4  # the resumed call's last steps, under the profiler
+# (family, experiment, DS_PREFETCH_DEPTH or None for the config's, report key,
+# resumed): the acoustic model at the default depth (1) and inline, in turns
+# 1, 0, 0, 1, the first two resumed
+PIPE_TRAINS = (("acoustic", "pipe_ac", None, "train_acoustic", True),
+               ("acoustic", "pipe_ac_inline", 0, "train_acoustic_inline", True),
+               ("acoustic", "pipe_ac_inline_2", 0, "train_acoustic_inline_2", False),
+               ("acoustic", "pipe_ac_2", None, "train_acoustic_2", False),
+               ("variance", "pipe_var", None, "train_variance", True))
 PIPE_SCORE = "09_xing_he.ds"  # cli.infer variance, then acoustic on its output
 PIPE_PLAIN_SCORE = "00_xiao_xing_xing.ds"  # straight through cli.infer acoustic
 # more keys of a family's config: none on the card (the CPU rehearsal narrows the models)
@@ -3462,15 +3624,22 @@ class TrainProbe:
     """Wrappers around ``BaseTask``'s methods while a ``cli.train`` call runs
     (restored on exit): the seconds to the first optimizer step (synchronised),
     each step's host end, the kernels' launches of each step (reset when the
-    step's forward starts, read after its update), the seconds spent in each
-    ``epoch_batches`` fetch (read and collate from disk), and the seconds of
-    each save, resume and validation (each synchronised at its start)."""
+    step's forward starts, read after its update), each step's losses, the
+    training thread's wait for its next batch (``next_batch``: the read and
+    collation too at depth 0, else only what the pipeline's threads have not
+    staged yet), the seconds of each ``epoch_batches`` fetch (read and collate
+    from disk, on the collate thread at depths above 0), and the seconds of
+    each save, resume and validation (each synchronised at its start). With
+    ``profile_last``, the run's last steps under ``torch.profiler``: the share
+    of their wall time in which the card ran nothing."""
 
-    NAMES = ("train_step", "apply_update", "epoch_batches", "save", "init_or_resume",
-             "run_validation")
+    NAMES = ("train_step", "apply_update", "epoch_batches", "next_batch", "save",
+             "init_or_resume", "run_validation")
 
-    def __init__(self, reset_counts, read_counts):
+    def __init__(self, reset_counts, read_counts, profile_last: int = 0, last_step: int = 0):
         self.reset_counts, self.read_counts = reset_counts, read_counts
+        self.profile_from = last_step - profile_last if profile_last else None
+        self.profile_last = profile_last
 
     def __enter__(self):
         import torch
@@ -3482,9 +3651,12 @@ class TrainProbe:
         self.first_step_s = None
         self.first_step_no = None
         self.step_ends, self.step_counts, self.losses, self.fetch_s = [], [], [], []
-        self.save_s, self.resume_s, self.validations = [], [], []
+        self.wait_s, self.save_s, self.resume_s, self.validations = [], [], [], []
+        self.shapes = []
+        self.profile = None
         self.saved = {n: getattr(BaseTask, n) for n in self.NAMES}
         orig, probe = self.saved, self
+        prof = {}
 
         def timed(name, out):
             def wrapper(task, *args, **kwargs):
@@ -3497,6 +3669,12 @@ class TrainProbe:
             return wrapper
 
         def train_step(task, *args, **kwargs):
+            if task.global_step == probe.profile_from and not prof:
+                torch.cuda.synchronize()
+                prof["p"] = torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA])
+                prof["p"].__enter__()
+                prof["t0"] = time.perf_counter()
             probe.reset_counts()
             losses = orig["train_step"](task, *args, **kwargs)
             probe.losses.append(losses)
@@ -3511,10 +3689,20 @@ class TrainProbe:
             probe.step_ends.append(time.perf_counter())
             probe.step_counts.append(dict(probe.read_counts(),
                                           K3bwd=flash_attention.bwd_launches))
+            if prof and probe.profile is None and \
+                    task.global_step == probe.profile_from + probe.profile_last:
+                torch.cuda.synchronize()
+                wall_us = (time.perf_counter() - prof["t0"]) * 1e6
+                prof["p"].__exit__(None, None, None)
+                acts = device_activities(prof["p"].events(), torch.autograd.DeviceType.CUDA)
+                busy = union_us((s, e) for _, s, e in acts)
+                probe.profile = {"steps": probe.profile_last, "wall_ms": wall_us / 1e3,
+                                 "busy_ms": busy / 1e3, "kernel_launches": len(acts),
+                                 "idle_share": 1 - busy / wall_us if busy else None}
             return norm
 
-        def epoch_batches(task, train_ds, epoch):
-            batches = orig["epoch_batches"](task, train_ds, epoch)
+        def epoch_batches(task, *args, **kwargs):
+            batches = orig["epoch_batches"](task, *args, **kwargs)
             while True:
                 t0 = time.perf_counter()
                 try:
@@ -3524,8 +3712,16 @@ class TrainProbe:
                 probe.fetch_s.append(time.perf_counter() - t0)
                 yield batch
 
+        def next_batch(task, batches):
+            t0 = time.perf_counter()
+            out = orig["next_batch"](task, batches)
+            probe.wait_s.append(time.perf_counter() - t0)
+            probe.shapes.append(tuple(out[0]["mel2ph"].shape))
+            return out
+
         for name, fn in (("train_step", train_step), ("apply_update", apply_update),
-                         ("epoch_batches", epoch_batches), ("save", timed("save", self.save_s)),
+                         ("epoch_batches", epoch_batches), ("next_batch", next_batch),
+                         ("save", timed("save", self.save_s)),
                          ("init_or_resume", timed("init_or_resume", self.resume_s)),
                          ("run_validation", timed("run_validation", self.validations))):
             setattr(BaseTask, name, fn)
@@ -3538,20 +3734,30 @@ class TrainProbe:
             setattr(BaseTask, name, fn)
 
     def summary(self) -> dict:
-        """Steps/s and the fetch share over the window from the first step's
-        end to the first validation after the last step (the end of training);
-        the first step's fetch happens before the window and is left out."""
+        """Steps/s, the fetch share and the wait share over the window from
+        the first step's end to the first validation after the last step (the
+        end of training); the first step's fetch and wait happen before the
+        window and are left out. None of them for a run with profiled steps."""
         n = len(self.step_ends)
         end = min(t for t, _ in self.validations if t >= self.step_ends[-1])
         window = end - self.step_ends[0]
+        waits = self.wait_s[1:]
+        rates = n > 1 and self.profile is None  # the profiler's cost is not the run's
         return {"steps": n, "first_global_step": self.first_step_no,
                 "time_to_first_step_s": self.first_step_s,
-                "steps_per_s": (n - 1) / window if n > 1 else None,
-                "fetch_share": sum(self.fetch_s[1:]) / window if n > 1 else None,
+                "steps_per_s": (n - 1) / window if rates else None,
+                "fetch_share": sum(self.fetch_s[1:]) / window if rates else None,
                 "fetch_ms": [1e3 * t for t in self.fetch_s],
+                "wait_ms": [1e3 * t for t in self.wait_s],
+                "wait_mean_ms": 1e3 * sum(waits) / len(waits) if waits else None,
+                "wait_max_ms": 1e3 * max(waits) if waits else None,
+                "wait_share": sum(waits) / window if rates else None,
+                "profile": self.profile,
+                "batch_shapes": self.shapes,
                 "save_s": [d for _, d in self.save_s], "resume_s": [d for _, d in self.resume_s],
                 "validation_s": [d for _, d in self.validations],
                 "launches_per_step": self.step_counts,
+                "losses": [{k: float(v) for k, v in m.items()} for m in self.losses],
                 "last_losses": {k: float(v) for k, v in self.losses[-1].items()}}
 
 
@@ -3674,50 +3880,111 @@ def pipeline_checks(tmp: Path, card, reset_counts, read_counts):
             fail(f"{tag} the {family} store holds {len(items)} items, its .meta {meta}")
         del ds, items
 
-    # 2. train at full width, then resume
+    # 2. train at full width, then resume: the acoustic model at the default
+    # prefetch depth and inline (DS_PREFETCH_DEPTH=0) from the same store, then
+    # the variance model; each resumed run's last steps under the profiler
     per_step = {"acoustic": TRAIN_PER_STEP, "variance": VAR_TRAIN_PER_STEP}
-    for family, exp in (("acoustic", "pipe_ac"), ("variance", "pipe_var")):
+    saved_depth = os.environ.get("DS_PREFETCH_DEPTH")
+    for family, exp, depth, key, resumed in PIPE_TRAINS:
         hp = load_config(configs[family])
         n_layers = hp["backbone_args"]["num_layers"] if family == "acoustic" else 0
         want = {"K1": n_layers, "K2": n_layers, "K3": hp["enc_layers"], "K3bwd": hp["enc_layers"]}
         runs = []
-        for steps in PIPE_STEPS:
-            argv = ["--config", str(configs[family]), "--exp_name", exp, "--ckpt_root",
-                    str(ckpt_root), "--max_steps", str(steps)]
-            with TrainProbe(reset_counts, read_counts) as probe:
-                task = quiet(cli_train.main, argv)
-            run = probe.summary()
-            run["global_step"] = task.global_step
-            run["parameters"] = sum(p.numel() for p in task.module.parameters())
-            run["checkpoint"] = (task.work_dir / f"model_ckpt_steps_{steps}.ckpt").is_file()
-            runs.append(run)
-            del task
-            gc.collect()
-            torch.cuda.empty_cache()
-            per = run["launches_per_step"]
-            log(f"{tag} cli.train {family} ({run['parameters']:,} parameters, "
-                f"{hp['pl_trainer_precision']}, max_batch_frames {hp['max_batch_frames']}) to step "
-                f"{steps} from step {run['first_global_step'] - 1}: first optimizer step "
-                f"{run['time_to_first_step_s']:.2f} s after the call, "
-                f"{run['steps_per_s'] or 0:.3f} steps/s, share of the run in epoch_batches "
-                f"{run['fetch_share'] or 0:.4f} (fetches {np.median(run['fetch_ms']):.1f} ms "
-                f"median), save {sum(run['save_s']):.2f} s, resume "
-                f"{sum(run['resume_s']):.2f} s, validations "
-                f"{[round(v, 2) for v in run['validation_s']]} s, last losses "
-                + " ".join(f"{k}={v:.4f}" for k, v in run["last_losses"].items())
-                + f"; launches a step {per[0]} (every step alike: "
-                f"{all(p == per[0] for p in per)}) on {card}")
-            if any(p != want for p in per):
-                fail(f"{tag} cli.train {family}: a step launched {per}, not {want} "
-                     f"(expected {per_step[family]} at the shipped widths)")
-            if (run["global_step"] != steps or not run["checkpoint"]
-                    or len(run["validation_s"]) < 2 or not all(
-                        math.isfinite(v) for v in run["last_losses"].values())):
-                fail(f"{tag} cli.train {family} to step {steps}: {run}")
-        if runs[1]["first_global_step"] != PIPE_STEPS[0] + 1 or not runs[1]["resume_s"]:
+        if depth is None:
+            os.environ.pop("DS_PREFETCH_DEPTH", None)
+        else:
+            os.environ["DS_PREFETCH_DEPTH"] = str(depth)
+        try:
+            for steps in PIPE_STEPS if resumed else PIPE_STEPS[:1]:
+                argv = ["--config", str(configs[family]), "--exp_name", exp, "--ckpt_root",
+                        str(ckpt_root), "--max_steps", str(steps)]
+                last = PIPE_PROFILE_STEPS if steps == PIPE_STEPS[-1] else 0
+                with TrainProbe(reset_counts, read_counts, last, steps) as probe:
+                    task = quiet(cli_train.main, argv)
+                run = probe.summary()
+                run["global_step"] = task.global_step
+                run["parameters"] = sum(p.numel() for p in task.module.parameters())
+                run["checkpoint"] = (task.work_dir / f"model_ckpt_steps_{steps}.ckpt").is_file()
+                run["prefetch_depth"] = int(os.environ.get(
+                    "DS_PREFETCH_DEPTH", hp.get("train_prefetch_depth", 1)))
+                runs.append(run)
+                del task
+                gc.collect()
+                torch.cuda.empty_cache()
+                per = run["launches_per_step"]
+                prof = run["profile"] or {}
+                log(f"{tag} cli.train {family} ({run['parameters']:,} parameters, "
+                    f"{hp['pl_trainer_precision']}, max_batch_frames {hp['max_batch_frames']}, "
+                    f"prefetch depth {run['prefetch_depth']}) to step {steps} from step "
+                    f"{run['first_global_step'] - 1}: first optimizer step "
+                    f"{run['time_to_first_step_s']:.2f} s after the call, "
+                    + (f"{run['steps_per_s']:.3f} steps/s" if run["steps_per_s"] else
+                       "steps/s not measured (profiled steps)")
+                    + f"; the loop's wait for a batch {run['wait_mean_ms'] or 0:.2f} ms mean, "
+                    f"{run['wait_max_ms'] or 0:.2f} ms largest"
+                    + (f", share of the run {run['wait_share']:.4f}; epoch_batches (read and "
+                       f"collate, {'inline' if run['prefetch_depth'] == 0 else 'on the collate thread'}) "
+                       f"{run['fetch_share']:.4f} of the run" if run["wait_share"] is not None
+                       else "")
+                    + f" (fetches {np.median(run['fetch_ms']):.1f} ms median); batches (rows, "
+                    f"frames) {dict(collections.Counter(run['batch_shapes']))}"
+                    + (f"; idle share of the last {prof['steps']} steps under the profiler "
+                       f"{prof['idle_share']:.3f} (wall {prof['wall_ms']:.1f} ms, device busy "
+                       f"{prof['busy_ms']:.1f} ms)" if prof.get("idle_share") is not None else "")
+                    + f"; save {sum(run['save_s']):.2f} s, resume {sum(run['resume_s']):.2f} s, "
+                    f"validations {[round(v, 2) for v in run['validation_s']]} s, last losses "
+                    + " ".join(f"{k}={v:.4f}" for k, v in run["last_losses"].items())
+                    + f"; launches a step {per[0]} (every step alike: "
+                    f"{all(p == per[0] for p in per)}) on {card}")
+                if any(p != want for p in per):
+                    fail(f"{tag} cli.train {family}: a step launched {per}, not {want} "
+                         f"(expected {per_step[family]} at the shipped widths)")
+                if (run["global_step"] != steps or not run["checkpoint"]
+                        or len(run["validation_s"]) < 2 or not all(
+                            math.isfinite(v) for v in run["last_losses"].values())):
+                    fail(f"{tag} cli.train {family} to step {steps}: {run}")
+                if last and (run["profile"] or {}).get("idle_share") is None:
+                    fail(f"{tag} cli.train {family}: the profiler saw no device time")
+        finally:
+            if saved_depth is None:
+                os.environ.pop("DS_PREFETCH_DEPTH", None)
+            else:
+                os.environ["DS_PREFETCH_DEPTH"] = saved_depth
+        if resumed and (runs[1]["first_global_step"] != PIPE_STEPS[0] + 1
+                        or not runs[1]["resume_s"]):
             fail(f"{tag} cli.train {family} did not resume from step {PIPE_STEPS[0]}: {runs[1]}")
-        report[f"train_{family}"] = runs
-        launches[f"train {family} step"] = runs[0]["launches_per_step"][0]
+        report[key] = runs
+        if depth is None:
+            launches[f"train {family} step"] = runs[0]["launches_per_step"][0]
+
+    # steps/s at each depth, the first runs in turns
+    turns = {depth: [report[k][0]["steps_per_s"] for k in keys] for depth, keys in (
+        (1, ("train_acoustic", "train_acoustic_2")),
+        (0, ("train_acoustic_inline", "train_acoustic_inline_2")))}
+    report["depth_steps_per_s"] = {
+        "depth_1": turns[1], "depth_0": turns[0],
+        "ratio_1_over_0": sum(turns[1]) / sum(turns[0])}
+    log(f"{tag} cli.train acoustic from disk in turns (depth 1, 0, 0, 1): depth 1 "
+        f"{', '.join('%.3f' % v for v in turns[1])} steps/s, depth 0 "
+        f"{', '.join('%.3f' % v for v in turns[0])}; depth 1 / depth 0 "
+        f"{report['depth_steps_per_s']['ratio_1_over_0']:.3f} on {card}")
+
+    # the same steps at every depth: the losses of every step, the first step
+    # bit for bit (the same weights and batch); later steps start from
+    # weights that the card's atomic adds may round apart
+    pairs = [(report["train_acoustic"], report[k]) for k in (
+        "train_acoustic_inline", "train_acoustic_inline_2", "train_acoustic_2")]
+    deltas = [max(abs(a[k] - b[k]) for k in a) for runs_a, runs_b in pairs
+              for run_a, run_b in zip(runs_a, runs_b)
+              for a, b in zip(run_a["losses"], run_b["losses"])]
+    first_equal = all(a[0]["losses"][0] == b[0]["losses"][0] for a, b in pairs)
+    report["depth_loss_delta"] = {"first_step_bit_equal": first_equal, "max_abs": max(deltas),
+                                  "per_step": deltas}
+    log(f"{tag} cli.train acoustic, the losses of the same steps at depths 0 and 1 against the "
+        f"first run's ({len(deltas)} steps): the first step's bit-equal {first_equal}, max |delta| "
+        f"{max(deltas):.3e} over the steps ({', '.join('%.1e' % d for d in deltas)})")
+    if not first_equal or max(deltas) > 1e-2:
+        fail(f"{tag} the acoustic losses differ between the prefetch depths: {deltas}")
 
     # 3. infer: the variance model on a shipped score, the acoustic model on its output,
     # and a shipped score straight through the acoustic model
@@ -4362,7 +4629,7 @@ def phase_summaries(report: dict, seconds: dict) -> list:
     p = report["phases"]
 
     def f(x, digits=4):
-        return f"{x:.{digits}g}"
+        return "not measured" if x is None else f"{x:.{digits}g}"
 
     runs = lambda runs, key: " ".join(f"{f(r[key])}" for r in runs)  # noqa: E731
     req, prof = p["requests"], p["profile"]
@@ -4396,6 +4663,14 @@ def phase_summaries(report: dict, seconds: dict) -> list:
         "train_variance": f"{f(p['train_variance']['steps_per_s'], 4)} steps/s, "
                           f"{f(p['train_variance']['frames_per_s'], 6)} frames/s, peak "
                           f"{f(p['train_variance']['peak_mem_gib'], 3)} GiB",
+        "train_remat": " ".join(
+            f"{k} {f(v['steps_per_s'], 4)} steps/s {f(v['peak_mem_gib'], 4)} GiB K2 "
+            f"{v['launches_per_step']['K2']};" for k, v in p["train_remat"]["acoustic"].items())
+                       + " variance " + " ".join(
+            f"{k} {f(v['steps_per_s'], 4)} steps/s {f(v['peak_mem_gib'], 4)} GiB;"
+            for k, v in p["train_remat"]["variance"].items())
+                       + f" f32 grad delta {max(v['grad_max_abs_delta'] for v in p['train_remat']['float32'].values()):.3g}"
+                       + f"; wire f16 loss delta {p['train_remat']['wire']['loss_delta']:.3g}",
         "train_dist": f"two gloo ranks vs one process {f(p['train_dist']['two_ranks']['err'], 3)}, "
                       f"DDP / plain {f(p['train_dist']['ddp_one_rank']['ddp_over_plain'], 4)}",
         "binarize": "s a second of audio " + runs(p["binarize"]["runs"], "s_per_audio_s")
@@ -4410,12 +4685,17 @@ def phase_summaries(report: dict, seconds: dict) -> list:
          f"{f(pipe[f'binarize_{fam}']['store_mb'], 4)} MB, read "
          f"{f(pipe[f'binarize_{fam}']['read_items_per_s'], 4)} items/s"
          for fam in ("acoustic", "variance")]
-        + [f"train {fam} first step {f(r[0]['time_to_first_step_s'], 3)} s, "
-           f"{f(r[0]['steps_per_s'], 4)} steps/s, fetch share {f(r[0]['fetch_share'], 3)}, save "
-           f"{f(sum(r[0]['save_s']), 3)} s, resume {f(sum(r[1]['resume_s']), 3)} s, launches a "
-           f"step {r[0]['launches_per_step'][0]}"
+        + [f"train {fam} depth {r[0]['prefetch_depth']} first step "
+           f"{f(r[0]['time_to_first_step_s'], 3)} s, {f(r[0]['steps_per_s'], 4)} steps/s, wait "
+           f"{f(r[0]['wait_mean_ms'], 3)} ms mean {f(r[0]['wait_max_ms'], 3)} max share "
+           f"{f(r[0]['wait_share'], 3)}, fetch share {f(r[0]['fetch_share'], 3)}, idle share "
+           f"{f((r[1]['profile'] or {}).get('idle_share'), 3)}, save {f(sum(r[0]['save_s']), 3)} s, resume "
+           f"{f(sum(r[1]['resume_s']), 3)} s, launches a step {r[0]['launches_per_step'][0]}"
            for fam, r in (("acoustic", pipe["train_acoustic"]),
+                          ("acoustic", pipe["train_acoustic_inline"]),
                           ("variance", pipe["train_variance"]))]
+        + [f"depth 1 / depth 0 steps/s {f(pipe['depth_steps_per_s']['ratio_1_over_0'], 4)}, "
+           f"loss max |delta| between depths {f(pipe['depth_loss_delta']['max_abs'], 3)}"]
         + [f"infer {c['command']} {c['score']} {f(c['seconds_with_load'], 3)} s"
            for c in pipe["infer"]]
         + [f"export {fam} {f(pipe[f'export_{fam}']['seconds'], 3)} s, "
@@ -4827,6 +5107,9 @@ def main() -> None:
         card, reset_counts, read_counts, check)
     if not all(c["ok"] for c in checks):
         fail("K3 or its backward disagrees with its plain version at a variance training shape")
+    mark("train_remat")
+    report["phases"]["train_remat"], remat_counts = train_remat_phase(card, reset_counts,
+                                                                      read_counts)
     mark("train_dist")
     report["phases"]["train_dist"], dist_counts = train_dist_phase(hp, card, reset_counts,
                                                                    read_counts)
@@ -4956,6 +5239,7 @@ def main() -> None:
             "launches_train_steps": train_counts[key],
             "launches_train_variance_steps": var_train_counts[key],
             "launches_train_dist_ddp_steps": dist_counts[key],
+            "launches_train_remat_step": {p: c[key] for p, c in remat_counts.items()},
             "launches_pipeline": {cmd: c[key] for cmd, c in pipe_counts.items()},
             "launches_binarize": bin_counts[key],
             "launches_binarize_ext": ext_counts[key],
@@ -5043,6 +5327,7 @@ def main() -> None:
         "launches_export_request": export_counts["K3bwd"],
         "launches_train_variance_steps": var_train_counts["K3bwd"],
         "launches_train_dist_ddp_steps": dist_counts["K3bwd"],
+        "launches_train_remat_step": {p: c["K3bwd"] for p, c in remat_counts.items()},
         "launches_pipeline": {cmd: c["K3bwd"] for cmd, c in pipe_counts.items()},
         "launches_binarize": bin_counts["K3bwd"],
         "launches_binarize_ext": ext_counts["K3bwd"],

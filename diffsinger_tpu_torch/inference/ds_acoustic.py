@@ -31,6 +31,7 @@ from diffsinger_tpu_torch.models.toplevel import DiffSingerAcoustic
 from diffsinger_tpu_torch.utils import pad_to, resolve_device, resolve_precision
 from diffsinger_tpu_torch.utils.ckpt import load_state_dict_for_inference
 from diffsinger_tpu_torch.utils.infer_utils import cross_fade, resample_align_curve, save_wav
+from diffsinger_tpu_torch.utils.prefetch import upload
 from diffsinger_tpu_torch.utils.text import load_phoneme_dictionary
 from diffsinger_tpu_torch.vocoders.nsf_hifigan_model import VocoderNoise
 from diffsinger_tpu_torch.vocoders.registry import get_vocoder_cls
@@ -197,11 +198,7 @@ class DiffSingerAcousticInfer(BaseSVSInfer):
         return out, length
 
     def _to_device(self, x: np.ndarray) -> torch.Tensor:
-        t = torch.from_numpy(np.ascontiguousarray(x))
-        if self.device.type == "cuda":
-            # from pinned memory the copy does not wait for the kernels already queued
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t.to(self.device)
+        return upload(x, self.device)
 
     def _spk_mix_embed(self, spk_mix_id: torch.Tensor, spk_mix_value: torch.Tensor):
         """Mix speaker embeddings: ids [B, 1, N], values [B, T|1, N] -> [B, T|1, H]."""

@@ -37,6 +37,7 @@ from diffsinger_tpu_torch.utils import pad_to, resolve_device, resolve_precision
 from diffsinger_tpu_torch.utils.ckpt import load_state_dict_for_inference
 from diffsinger_tpu_torch.utils.infer_utils import (
     hz_to_midi, midi_to_hz, note_to_midi, resample_align_curve)
+from diffsinger_tpu_torch.utils.prefetch import upload
 from diffsinger_tpu_torch.utils.seq import rhythm_regulator
 from diffsinger_tpu_torch.utils.text import load_phoneme_dictionary
 
@@ -319,11 +320,7 @@ class DiffSingerVarianceInfer(BaseSVSInfer):
         return tokens, midi, ph2word, base_pitch, array_kwargs, spk_mix
 
     def _to_device(self, x: np.ndarray) -> torch.Tensor:
-        t = torch.from_numpy(np.ascontiguousarray(x))
-        if self.device.type == "cuda":
-            # from pinned memory the copy does not wait for the kernels already queued
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t.to(self.device)
+        return upload(x, self.device)
 
     def _spk_mix_embed(self, ids: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
         """Mix speaker embeddings: ids [B, 1, N], values [B, T|1, N] -> [B, T|1, H]."""

@@ -14,9 +14,11 @@ BACKBONES = {"wavenet": WaveNet, "lynxnet": LYNXNet}
 
 
 def build_backbone(out_dims: int, num_feats: int, backbone_type: str, backbone_args: dict, *,
-                   cond_dims: int):
+                   cond_dims: int, remat=False):
+    """``remat`` is ``recompute_grads``: see ``models.commons.resolve_remat_policy``."""
     cls = BACKBONES[backbone_type]
     kwargs = filter_kwargs(dict(backbone_args or {}), cls)
+    kwargs.setdefault("remat", remat)
     return cls(in_dims=out_dims, n_feats=num_feats, cond_dims=cond_dims, **kwargs)
 
 

@@ -9,6 +9,8 @@ its plain version on the CPU; where gradients are wanted, K2's forward under
 its autograd Function, whose backward runs stock ops. While
 ``torch.export`` traces it, the conv module is the custom op
 ``ds::fused_conv_module`` instead, so that the exported program launches K2.
+With ``remat`` (``recompute_grads``) each residual layer is recomputed on the
+backward pass where gradients are wanted (``models.commons.run_layer``).
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from diffsinger_tpu_torch.models.commons import sinusoidal_pos_emb
+from diffsinger_tpu_torch.models.commons import resolve_remat_policy, run_layer, sinusoidal_pos_emb
 from diffsinger_tpu_torch.ops.lynx_fused import (
     PARAM_NAMES, conv_module_params_from_module, fused_conv_module, fused_conv_module_op,
     fused_conv_module_train)
@@ -112,11 +114,12 @@ class LYNXNet(nn.Module):
     def __init__(self, in_dims: int, n_feats: int, cond_dims: int, num_layers: int = 6,
                  num_channels: int = 512, expansion_factor: int = 2, kernel_size: int = 31,
                  activation: str = "PReLU", dropout_rate: float = 0.0,
-                 strong_cond: bool = False):
+                 strong_cond: bool = False, remat=False):
         super().__init__()
         c = num_channels
         self.num_channels = c
         self.strong_cond = strong_cond
+        self.remat = resolve_remat_policy(remat)
         self.input_projection = nn.Conv1d(in_dims * n_feats, c, 1)
         nn.init.kaiming_normal_(self.input_projection.weight)
         # slots 0 and 2 of the reference's Sequential are the sinusoidal
@@ -146,5 +149,6 @@ class LYNXNet(nn.Module):
         emb = self.diffusion_embedding
         step = emb[3](F.gelu(emb[1](step)))
         for i, layer in enumerate(self.residual_layers):
-            x = layer(x, cond, step, None if cond_proj is None else cond_proj[i])
+            x = run_layer(layer, self.remat, x, cond, step,
+                          None if cond_proj is None else cond_proj[i])
         return pointwise_conv(self.output_projection, self.norm(x))

@@ -7,7 +7,9 @@ torch names (``input_projection``, ``mlp.0``/``mlp.2``,
 ``residual_layers.{i}.{dilated_conv,diffusion_projection,
 conditioner_projection,output_projection}``, ``skip_projection``,
 ``output_projection``). The JAX package computes the dilated conv outside any
-Pallas kernel, so it is a stock ``F.conv1d`` here.
+Pallas kernel, so it is a stock ``F.conv1d`` here. With ``remat``
+(``recompute_grads``) each block is recomputed on the backward pass where
+gradients are wanted (``models.commons.run_layer``).
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from diffsinger_tpu_torch.models.backbones.lynxnet import pointwise_conv
-from diffsinger_tpu_torch.models.commons import sinusoidal_pos_emb
+from diffsinger_tpu_torch.models.commons import resolve_remat_policy, run_layer, sinusoidal_pos_emb
 
 
 def mish(x: torch.Tensor) -> torch.Tensor:
@@ -57,10 +59,11 @@ class WaveNet(nn.Module):
     """Denoiser: spec [B, T, F*M] + step [B] + cond [B, T, H] -> [B, T, F*M]."""
 
     def __init__(self, in_dims: int, n_feats: int, cond_dims: int, num_layers: int = 20,
-                 num_channels: int = 256, dilation_cycle_length: int = 4):
+                 num_channels: int = 256, dilation_cycle_length: int = 4, remat=False):
         super().__init__()
         c = num_channels
         self.num_channels = c
+        self.remat = resolve_remat_policy(remat)
         self.input_projection = nn.Conv1d(in_dims * n_feats, c, 1)
         nn.init.kaiming_normal_(self.input_projection.weight)
         # slot 1 of the reference's Sequential is the Mish: a placeholder here
@@ -86,7 +89,8 @@ class WaveNet(nn.Module):
         step = self.mlp[2](mish(self.mlp[0](step)))
         skip_sum = torch.zeros_like(x)
         for i, layer in enumerate(self.residual_layers):
-            x, skip = layer(x, cond, step, None if cond_proj is None else cond_proj[i])
+            x, skip = run_layer(layer, self.remat, x, cond, step,
+                                None if cond_proj is None else cond_proj[i])
             skip_sum = skip_sum + skip
         x = skip_sum / math.sqrt(len(self.residual_layers))
         x = F.relu(pointwise_conv(self.skip_projection, x))

@@ -2,7 +2,9 @@
 
 Embeddings and linears with the reference init, the sinusoidal step
 embedding, rotary and absolute position embeddings, the conv-FFN and the
-FastSpeech2 transformer encoder, with or without RoPE. Activations are
+FastSpeech2 transformer encoder, with or without RoPE, and the
+recomputation of the denoisers' layers on the backward pass
+(``recompute_grads``). Activations are
 channel-last [B, T, C]; attribute names follow the reference torch
 ``state_dict`` (``layers.{i}.op.self_attn.in_proj`` with RoPE,
 ``self_attn.in_proj_weight`` without, ``ffn.ffn_1`` ...). Softmax and the
@@ -11,6 +13,7 @@ rotary phases run in float32.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -313,3 +316,64 @@ class FastSpeech2Encoder(nn.Module):
         for layer in self.layers:
             x = layer(x, padding_mask) * nonpadding
         return self.layer_norm(x) * nonpadding
+
+
+# The products whose outputs a selective recomputation keeps, by policy: the
+# counterparts of jax.checkpoint_policies.dots_saveable (every dot_general)
+# and dots_with_no_batch_dims_saveable (those without batch dimensions).
+# ``F.linear`` and a matmul with a 2-D operand run as ``mm`` or ``addmm``,
+# batched products as ``bmm`` or ``baddbmm``. Convolutions are not products
+# here, as in JAX: WaveNet's dilated conv and K2 (one operator call) are
+# recomputed under both.
+REMAT_SAVED_OPS = {
+    "dots": frozenset({torch.ops.aten.mm, torch.ops.aten.addmm, torch.ops.aten.bmm,
+                       torch.ops.aten.baddbmm}),
+    "dots_no_batch": frozenset({torch.ops.aten.mm, torch.ops.aten.addmm}),
+}
+
+
+def remat_policy(saved: frozenset, ctx, op, *args, **kwargs):
+    """Keep the outputs of the ops in ``saved``, recompute the rest."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    if op.overloadpacket in saved:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def resolve_remat_policy(remat):
+    """The ``recompute_grads`` config value as (enabled, ``context_fn`` of
+    ``torch.utils.checkpoint.checkpoint`` or None):
+
+    - False / None: no recomputation;
+    - True / "full" (any truthy value that is not a string): every layer's
+      activations are recomputed on the backward pass;
+    - "dots" / "dots_no_batch": selective recomputation, which keeps the
+      outputs of the products in ``REMAT_SAVED_OPS`` and recomputes the rest.
+    """
+    if not remat:
+        return False, None
+    if remat == "full" or not isinstance(remat, str):
+        return True, None
+    if remat not in REMAT_SAVED_OPS:
+        raise ValueError(
+            f"recompute_grads={remat!r}: expected bool, 'full', 'dots', or 'dots_no_batch'")
+    from torch.utils.checkpoint import create_selective_checkpoint_contexts
+
+    return True, functools.partial(create_selective_checkpoint_contexts,
+                                   functools.partial(remat_policy, REMAT_SAVED_OPS[remat]))
+
+
+def run_layer(layer: nn.Module, remat: tuple, *args):
+    """``layer(*args)``, recomputed on the backward pass when ``remat`` (from
+    :func:`resolve_remat_policy`) is on and a gradient is wanted: under
+    ``torch.utils.checkpoint.checkpoint``, which replays autocast and the
+    random number generators' states (the same dropout masks). Inference and
+    ``torch.export`` call the layer as it is."""
+    enabled, context_fn = remat
+    if not enabled or not torch.is_grad_enabled() or torch.compiler.is_exporting():
+        return layer(*args)
+    from torch.utils.checkpoint import checkpoint
+
+    extra = {} if context_fn is None else {"context_fn": context_fn}
+    return checkpoint(layer, *args, use_reentrant=False, **extra)

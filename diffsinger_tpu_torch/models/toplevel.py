@@ -150,7 +150,8 @@ class AcousticModule(nn.Module):
         backbone_type = compat.get_backbone_type(hp)
         backbone_args = compat.get_backbone_args(hp, backbone_type)
         self.diffusion = DiffusionCore(build_backbone(
-            out_dims, 1, backbone_type, backbone_args, cond_dims=hp["hidden_size"]),
+            out_dims, 1, backbone_type, backbone_args, cond_dims=hp["hidden_size"],
+            remat=hp.get("recompute_grads", False)),
             hp.get("diffusion_type", "ddpm"))
 
     @property
@@ -350,7 +351,8 @@ class VarianceModule(nn.Module):
             backbone_type = compat.get_backbone_type(hp, nested_config=pitch_hp)
             backbone_args = compat.get_backbone_args(pitch_hp, backbone_type)
             self.pitch_predictor = DiffusionCore(build_backbone(
-                pitch_hp["repeat_bins"], 1, backbone_type, backbone_args, cond_dims=h),
+                pitch_hp["repeat_bins"], 1, backbone_type, backbone_args, cond_dims=h,
+                remat=hp.get("recompute_grads", False)),
                 diffusion_type)
         if self.var_list:
             self.pitch_embed = CurveEmbed(h)
@@ -360,7 +362,8 @@ class VarianceModule(nn.Module):
             backbone_args = compat.get_backbone_args(var_hp, backbone_type)
             self.variance_predictor = DiffusionCore(build_backbone(
                 var_hp["total_repeat_bins"] // len(self.var_list), len(self.var_list),
-                backbone_type, backbone_args, cond_dims=h), diffusion_type)
+                backbone_type, backbone_args, cond_dims=h,
+                remat=hp.get("recompute_grads", False)), diffusion_type)
 
     @property
     def pitch_denoiser(self) -> nn.Module:

@@ -136,18 +136,21 @@ def conv_module_stock(x, ln_scale, ln_bias, w1, b1, dw_w, dw_b, alpha, w2, b2,
 
 
 class FusedConvModuleFn(torch.autograd.Function):
-    """K2 under autograd. Forward: :func:`fused_conv_module` (the kernels on a
-    CUDA tensor), saving only its inputs. Backward: recompute the module with
-    :func:`conv_module_stock` and backpropagate through it. Every input has
-    the dtype the module computes in; :func:`fused_conv_module_train` casts.
-    Without PReLU, ``alpha`` is None and has no gradient."""
+    """K2 under autograd. Forward: the operator ``ds::fused_conv_module``
+    (:func:`fused_conv_module`, the kernels on a CUDA tensor), saving only its
+    inputs. Backward: recompute the module with :func:`conv_module_stock` and
+    backpropagate through it. Every input has the dtype the module computes
+    in; :func:`fused_conv_module_train` casts. Without PReLU, ``alpha`` is
+    None and has no gradient. Through the operator the forward is one op to a
+    selective recomputation's policy (``models.commons.REMAT_SAVED_OPS``),
+    which recomputes it, whatever runs inside."""
 
     @staticmethod
     @torch.amp.custom_fwd(device_type="cuda")
     def forward(ctx, activation, x, *params):
         ctx.activation = activation
         ctx.save_for_backward(x, *params)
-        return fused_conv_module(x, *params, activation=activation)
+        return fused_conv_module_op(x, *params, activation=activation)
 
     @staticmethod
     @torch.amp.custom_bwd(device_type="cuda")

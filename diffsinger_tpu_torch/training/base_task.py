@@ -24,6 +24,18 @@ losses are means over the global batch (``models/losses.py``), so N ranks of
 B rows update as one process on the N * B rows. Checkpoints, logs and
 figures come from rank 0; host metrics are averaged over the ranks first.
 
+Input pipeline. The batches come as one stream that spans epochs
+(:meth:`BaseTask.batch_stream`), read and collated on one daemon thread and
+uploaded on another (on the card: from pinned memory, on a CUDA stream of
+their own, with an event that the training stream waits on),
+``train_prefetch_depth`` batches ahead (``DS_PREFETCH_DEPTH`` overrides it; 0
+runs both stages inline on the training thread). Each batch carries its
+place in the stream, so ``epoch`` and ``epoch_position`` are those of the
+batch the loop consumed, and a resumed run goes on from the next batch at
+any depth. ``train_wire_dtype: float16`` sends the float32 arrays of a
+training batch as float16; the loop casts them back to float32 on the device
+before any arithmetic.
+
 Draws. The diffusion times, the noises and the retake masks of a micro-batch
 are drawn at the global batch's shape from a generator seeded by (seed,
 micro-batch count), and each rank takes its rows, so they do not depend on
@@ -38,6 +50,7 @@ from __future__ import annotations
 import contextlib
 import hashlib
 import json
+import os
 import pathlib
 import sys
 import time
@@ -56,6 +69,7 @@ from diffsinger_tpu_torch.training.train_state import (
 )
 from diffsinger_tpu_torch.utils import no_tf32, resolve_device, resolve_precision
 from diffsinger_tpu_torch.utils import ckpt as ckpt_utils
+from diffsinger_tpu_torch.utils.prefetch import PrefetchIterator, upload
 from diffsinger_tpu_torch.utils.text import load_phoneme_dictionary
 
 
@@ -150,6 +164,24 @@ def bucket_batch_size(n: int) -> int:
     return 1 << (n - 1).bit_length()
 
 
+def prefetch_depth(hp: dict) -> int:
+    """Batches the input pipeline's stages run ahead of the loop: the
+    ``DS_PREFETCH_DEPTH`` environment variable, else ``train_prefetch_depth``
+    (default 1); 0 runs them inline."""
+    return int(os.environ.get("DS_PREFETCH_DEPTH", hp.get("train_prefetch_depth", 1)))
+
+
+def wire_float16(hp: dict) -> bool:
+    """Whether ``train_wire_dtype`` sends a batch's float32 arrays as float16."""
+    return str(hp.get("train_wire_dtype", "float32")).lower() in ("float16", "f16", "fp16")
+
+
+def to_wire(batch: dict) -> dict:
+    """The float32 arrays of a numpy batch as float16, the others as they are."""
+    return {k: v.astype(np.float16) if isinstance(v, np.ndarray) and v.dtype == np.float32
+            else v for k, v in batch.items()}
+
+
 def micro_seed(seed: int, micro: int) -> int:
     """The seed of micro-batch ``micro``'s draws (times, noises, retake masks)."""
     return ((seed & 0xFFFF_FFFF) << 32) | (micro & 0xFFFF_FFFF)
@@ -208,7 +240,11 @@ class BaseTask:
         self.logger = SummaryLogger(self.work_dir / "lightning_logs" / "tb",
                                     active=self.rank == 0)
         self.global_step = 0
+        # the place in the batch stream after the last batch consumed: the
+        # epoch, and how many of its batches were consumed
         self.epoch = 0
+        self.epoch_position = 0
+        self._upload_stream = None
         # streaming validation metrics, {name: state with ``value()``}: reset
         # by each run_validation, updated by validation_extras
         self.metric_states: Dict[str, object] = {}
@@ -237,8 +273,7 @@ class BaseTask:
     # ------------------------------------------------------------------
     def to_device(self, batch: dict) -> Dict[str, torch.Tensor]:
         """A collated numpy batch as tensors on the task's device."""
-        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device, non_blocking=True)
-                for k, v in batch.items() if isinstance(v, np.ndarray)}
+        return {k: upload(v, self.device) for k, v in batch.items() if isinstance(v, np.ndarray)}
 
     def autocast(self):
         if self.amp_dtype is None:
@@ -336,6 +371,7 @@ class BaseTask:
                                         strict=True)
             self.global_step = int(blob["global_step"])
             self.epoch = int(blob.get("epoch", 0))
+            self.epoch_position = int(blob.get("epoch_position", 0))
             try:
                 if path.suffix == ".dsckpt":
                     raise KeyError("the JAX trainer's optax state is not carried over")
@@ -387,6 +423,7 @@ class BaseTask:
             path = ckpt_utils.checkpoint_path(self.work_dir, self.global_step)
             ckpt_utils.save_checkpoint(path, self.module, category=self.category,
                                        global_step=self.global_step, epoch=self.epoch,
+                                       epoch_position=self.epoch_position,
                                        optimizer=self.optimizer, scheduler=self.scheduler)
             deleted = ckpt_utils.keep_checkpoints(
                 self.work_dir, num_ckpt_keep=hp.get("num_ckpt_keep", 5),
@@ -400,11 +437,11 @@ class BaseTask:
     def bucket_steps(self, ds) -> Dict[str, int]:
         return {"t_mel": ds.frame_bucket, "t_txt": ds.token_bucket, "t_note": ds.token_bucket}
 
-    def epoch_batches(self, train_ds, epoch: int) -> Iterator[Tuple[dict, int, int]]:
-        """This rank's batches of ``epoch``, collated and padded: yields
-        (numpy batch, rows of the step's global batch, this rank's first row
-        in it). Over ranks every rank pads to the pad targets and the row
-        count of the global batch and stops at the positions all ranks have."""
+    def epoch_plan(self, train_ds, epoch: int) -> List[Tuple[List[int], Optional[dict], int]]:
+        """This rank's batches of ``epoch`` before any item is read: (item
+        indices, pad targets or None, rows of the batch). Over ranks every
+        rank pads to the pad targets and the row count of the global batch
+        and keeps only the positions all ranks have."""
         hp = self.hp
         sampler = DsBatchSampler(
             train_ds.sizes, max_batch_frames=hp.get("max_batch_frames", 50000),
@@ -415,18 +452,78 @@ class BaseTask:
             shuffle_batch=True, seed=hp.get("seed") or 0)
         sampler.epoch = epoch
         peers = sampler.all_rank_batches()
+        plan = []
         for pos in range(rank_positions(peers)):
             pad_to = None
-            target_b = bucket_batch_size(max(len(b[pos]) for b in peers))
             if self.world_size > 1:
                 pad_to = train_ds.pad_targets([i for b in peers for i in b[pos]],
                                               train_ds.PAD_AXES, self.bucket_steps(train_ds))
-            indices = peers[self.rank][pos]
+            plan.append((peers[self.rank][pos], pad_to,
+                         bucket_batch_size(max(len(b[pos]) for b in peers))))
+        return plan
+
+    def epoch_batches(self, train_ds, epoch: int, skip: int = 0) -> Iterator[Tuple[dict, int, int]]:
+        """This rank's batches of ``epoch`` from position ``skip`` on, read,
+        collated and padded (:meth:`epoch_plan`): yields (numpy batch, rows of
+        the step's global batch, this rank's first row in it)."""
+        for indices, pad_to, target_b in self.epoch_plan(train_ds, epoch)[skip:]:
             batch = train_ds.collater([train_ds[i] for i in indices], pad_to=pad_to)
             size = batch.pop("size")
             batch.pop("indices")
             yield (pad_batch_rows(batch, size, target_b), target_b * self.world_size,
                    target_b * self.rank)
+
+    def batch_stream(self, train_ds, epoch: int, skip: int = 0):
+        """The training batches for ever, from position ``skip`` of ``epoch``
+        on, across epochs: yields (numpy batch in the wire format, rows of the
+        global batch, this rank's first row, the (epoch, position) after the
+        batch). The first stage of the input pipeline; it draws no random
+        numbers, so the loop sees the same batches at every depth. Only this
+        stage reads ``train_ds``, and validation reads its own store on the
+        training thread, so no store reader is shared between threads."""
+        wire_f16 = wire_float16(self.hp)
+        while True:
+            n = len(self.epoch_plan(train_ds, epoch))
+            if n == 0:
+                raise RuntimeError(
+                    "the training epoch formed no batches: an empty dataset, or every batch "
+                    "position dropped by the ranks' minimum; check max_batch_frames against the "
+                    "item lengths")
+            for pos, (batch, n_rows, row0) in enumerate(
+                    self.epoch_batches(train_ds, epoch, skip), skip):
+                yield ((to_wire(batch) if wire_f16 else batch), n_rows, row0,
+                       (epoch, pos + 1) if pos + 1 < n else (epoch + 1, 0))
+            epoch, skip = epoch + 1, 0
+
+    def upload_batch(self, item):
+        """The second stage of the input pipeline: the batch's arrays to the
+        device. On the card the copy runs on the upload stream, and an event
+        recorded after it goes with the batch."""
+        batch, n_rows, row0, after = item
+        if self.device.type != "cuda":
+            return self.to_device(batch), None, n_rows, row0, after
+        with torch.cuda.device(self.device):  # a new thread does not inherit the current device
+            if self._upload_stream is None:
+                self._upload_stream = torch.cuda.Stream()
+            with torch.cuda.stream(self._upload_stream):
+                tensors = self.to_device(batch)
+                ready = torch.cuda.Event()
+                ready.record(self._upload_stream)
+        return tensors, ready, n_rows, row0, after
+
+    def next_batch(self, batches) -> Tuple[Dict[str, torch.Tensor], int, int]:
+        """The loop's next batch from the pipeline: the training stream waits
+        on the device for its upload, the caching allocator learns that the
+        training stream uses its tensors, float16 wire arrays become float32,
+        and ``epoch`` / ``epoch_position`` move past it."""
+        tensors, ready, n_rows, row0, (self.epoch, self.epoch_position) = next(batches)
+        if ready is not None:
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(ready)
+            for t in tensors.values():
+                t.record_stream(stream)
+        batch = {k: v.float() if v.dtype == torch.float16 else v for k, v in tensors.items()}
+        return batch, n_rows, row0
 
     def start(self, max_steps: Optional[int] = None) -> int:
         """Train to ``max_steps`` (default ``max_updates``) optimizer updates;
@@ -450,11 +547,22 @@ class BaseTask:
         last_val = last_log = self.global_step
         t_last = time.time()
         metrics = {}
-        while self.global_step < max_updates:
-            for batch, n_rows, row0 in self.epoch_batches(train_ds, self.epoch):
-                if self.global_step >= max_updates:
-                    break
-                batch = self.to_device(batch)
+        # the input pipeline: read and collate, then upload, each on a daemon
+        # thread ``depth`` batches ahead (at most 2 * depth + 1 batches staged),
+        # or both inline at depth 0
+        depth = prefetch_depth(hp)
+        stream = self.batch_stream(train_ds, self.epoch, self.epoch_position)
+        stages = []
+        if depth > 0:
+            stages.append(PrefetchIterator(stream, depth, name="ds-collate"))
+            stages.append(PrefetchIterator(map(self.upload_batch, stages[0]), depth,
+                                           name="ds-upload"))
+            batches = stages[-1]
+        else:
+            batches = map(self.upload_batch, stream)
+        try:
+            while self.global_step < max_updates:
+                batch, n_rows, row0 = self.next_batch(batches)
                 if profile_steps and profiler is None and self.global_step >= profile_start:
                     profiler = torch.profiler.profile()
                     profiler.__enter__()
@@ -488,8 +596,9 @@ class BaseTask:
                     last_val = step
                     self.run_validation(valid_ds)
                     self.save()
-            else:
-                self.epoch += 1
+        finally:
+            for stage in stages:  # stop the threads, upstream first; release the staged batches
+                stage.close()
         if self.global_step != last_val:
             self.run_validation(valid_ds)
             self.save()

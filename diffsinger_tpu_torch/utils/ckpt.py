@@ -4,7 +4,8 @@ for training (counterpart of diffsinger_tpu/utils/ckpt.py).
 The port's native format is the reference's: ``model_ckpt_steps_<N>.ckpt``
 under the experiment folder, a ``torch.save``d dict with ``state_dict`` (keys
 with or without Lightning's ``model.`` prefix) and ``category`` ('acoustic' or
-'variance'); the trainer adds ``global_step``, ``epoch``, and the optimizer and
+'variance'); the trainer adds ``global_step``, ``epoch``, ``epoch_position`` (the epoch's
+batches already trained on), and the optimizer and
 scheduler states as Lightning stores them (``optimizer_states`` and
 ``lr_schedulers``, lists of one) and the optimizer's class name. The port's modules carry the reference's
 parameter names, so the state dict loads strictly, without conversion.
@@ -113,9 +114,11 @@ def load_state_dict_for_inference(module: torch.nn.Module, work_dir, *, category
 
 
 def save_checkpoint(path, module: torch.nn.Module, *, category: str, global_step: int,
-                    epoch: int = 0, optimizer=None, scheduler=None) -> None:
+                    epoch: int = 0, epoch_position: int = 0, optimizer=None,
+                    scheduler=None) -> None:
     """Write a training checkpoint in the reference layout; the file appears
-    whole (written beside it, then renamed)."""
+    whole (written beside it, then renamed). ``epoch_position`` is the count
+    of ``epoch``'s batches already trained on."""
     path = pathlib.Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
     blob = {
@@ -123,6 +126,7 @@ def save_checkpoint(path, module: torch.nn.Module, *, category: str, global_step
         "category": category,
         "global_step": int(global_step),
         "epoch": int(epoch),
+        "epoch_position": int(epoch_position),
     }
     if optimizer is not None:
         blob["optimizer_states"] = [optimizer.state_dict()]

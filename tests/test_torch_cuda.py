@@ -549,8 +549,9 @@ def test_k2_function_gradients(dev, dtype):
         assert (a - w).abs().mean() <= 1.5 * (p16 - w).abs().mean()
 
 
-def _small_task(device, work_dir):
-    """An AcousticTask at narrow widths in float32, dropout off."""
+def _small_task(device, work_dir, **over):
+    """An AcousticTask at narrow widths in float32, dropout off (``over``:
+    more config keys)."""
     from pathlib import Path
 
     from diffsinger_tpu_torch.config import load_config
@@ -564,6 +565,7 @@ def _small_task(device, work_dir):
                                  dropout_rate=0.0, strong_cond=True))
     hp["shallow_diffusion_args"] = dict(hp["shallow_diffusion_args"], aux_decoder_args=dict(
         num_channels=64, num_layers=2, kernel_size=7, dropout_rate=0.0))
+    hp.update(over)
     torch.manual_seed(0)
     task = AcousticTask(hp, device=device)
     task.configure_optimizer()
@@ -607,6 +609,53 @@ def test_train_step_on_the_card_matches_the_cpu(dev, tmp_path):
     for (name, a), w in zip(card.module.state_dict().items(), cpu.module.state_dict().values()):
         d = (a.cpu() - w).abs()
         assert d.max().item() <= 2 * lr and (d > 1e-6).float().mean().item() <= 0.01, name
+
+
+@pytest.mark.parametrize("remat", ["full", "dots"])
+def test_recompute_and_the_upload_stage_on_the_card(dev, tmp_path, remat):
+    """A narrow float32 step with recompute_grads (dropout 0.1 in LYNXNet's
+    conv modules) against the step without, on a batch that went through the
+    trainer's upload stage as float16 wire arrays: the same loss and
+    gradients (the masks replayed from the card's generator; 1e-6 of each
+    gradient's largest entry), K2 and K1 twice a layer, and the staged batch
+    equal to ``to_device`` of the float16 arrays made float32."""
+    import numpy as np
+
+    from diffsinger_tpu_torch.training.base_task import to_wire
+
+    backbone = dict(num_channels=128, num_layers=2, kernel_size=31, dropout_rate=0.1,
+                    strong_cond=True)
+    rng = np.random.default_rng(1)
+    b, t_txt, t_mel = 4, 32, 256
+    batch = dict(tokens=rng.integers(1, 50, (b, t_txt)).astype(np.int32),
+                 mel2ph=np.repeat(np.arange(1, t_txt + 1), t_mel // t_txt)[None].repeat(b, 0)
+                 .astype(np.int32),
+                 f0=rng.uniform(150, 400, (b, t_mel)).astype(np.float32),
+                 mel=rng.uniform(-11, -1, (b, t_mel, 128)).astype(np.float32))
+    wire = to_wire(batch)
+    t = torch.from_numpy(rng.uniform(0.4, 1, b).astype(np.float32)).to(dev)
+    noise = torch.from_numpy(rng.standard_normal((b, t_mel, 128)).astype(np.float32)).to(dev)
+    out = []
+    for value in (False, remat):
+        task = _small_task(dev, tmp_path / str(value), recompute_grads=value,
+                           backbone_args=backbone)
+        staged, _, _ = task.next_batch(iter([task.upload_batch((wire, b, 0, (0, 1)))]))
+        direct = {k: v.float() for k, v in task.to_device(wire).items()}
+        assert staged.keys() == direct.keys()
+        assert all(torch.equal(staged[k], direct[k]) for k in staged)
+        assert staged["mel"].dtype == torch.float32 and staged["tokens"].dtype == torch.int32
+        k1, k2 = depthwise_conv.launches, lynx_fused.launches
+        torch.manual_seed(7)
+        total = task.train_step(staged, t=t, noise=noise)["total_loss"]
+        torch.cuda.synchronize()
+        out.append((float(total), {k: p.grad.detach().clone()
+                                   for k, p in task.module.named_parameters()},
+                    depthwise_conv.launches - k1, lynx_fused.launches - k2))
+    (loss0, grads0, k1_0, k2_0), (loss1, grads1, k1_1, k2_1) = out
+    assert (k1_0, k2_0, k1_1, k2_1) == (2, 2, 4, 4)
+    assert loss1 == loss0
+    for name, w in grads0.items():
+        assert _max_err(grads1[name], w) <= 1e-6 * max(w.abs().max().item(), 1e-8), name
 
 
 # ------------------------------------------------------------------ variance training
