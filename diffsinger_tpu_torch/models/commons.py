@@ -21,6 +21,8 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import (
+    CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts, noop_context_fn)
 
 from diffsinger_tpu_torch.ops.flash_attention import flash_attention, flash_attention_op
 
@@ -334,8 +336,6 @@ REMAT_SAVED_OPS = {
 
 def remat_policy(saved: frozenset, ctx, op, *args, **kwargs):
     """Keep the outputs of the ops in ``saved``, recompute the rest."""
-    from torch.utils.checkpoint import CheckpointPolicy
-
     if op.overloadpacket in saved:
         return CheckpointPolicy.MUST_SAVE
     return CheckpointPolicy.PREFER_RECOMPUTE
@@ -343,7 +343,7 @@ def remat_policy(saved: frozenset, ctx, op, *args, **kwargs):
 
 def resolve_remat_policy(remat):
     """The ``recompute_grads`` config value as (enabled, ``context_fn`` of
-    ``torch.utils.checkpoint.checkpoint`` or None):
+    ``torch.utils.checkpoint.checkpoint``, None for its default):
 
     - False / None: no recomputation;
     - True / "full" (any truthy value that is not a string): every layer's
@@ -358,8 +358,6 @@ def resolve_remat_policy(remat):
     if remat not in REMAT_SAVED_OPS:
         raise ValueError(
             f"recompute_grads={remat!r}: expected bool, 'full', 'dots', or 'dots_no_batch'")
-    from torch.utils.checkpoint import create_selective_checkpoint_contexts
-
     return True, functools.partial(create_selective_checkpoint_contexts,
                                    functools.partial(remat_policy, REMAT_SAVED_OPS[remat]))
 
@@ -373,7 +371,5 @@ def run_layer(layer: nn.Module, remat: tuple, *args):
     enabled, context_fn = remat
     if not enabled or not torch.is_grad_enabled() or torch.compiler.is_exporting():
         return layer(*args)
-    from torch.utils.checkpoint import checkpoint
-
-    extra = {} if context_fn is None else {"context_fn": context_fn}
-    return checkpoint(layer, *args, use_reentrant=False, **extra)
+    return checkpoint(layer, *args, use_reentrant=False,
+                      context_fn=context_fn or noop_context_fn)
