@@ -82,6 +82,16 @@ def test_close_ends_an_endless_chained_producer():
 
 # ------------------------------------------------------------------ the trainer
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The tiny models train on one intra-op thread: beside other test
+    processes, more threads only wait on each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def store(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("prefetch")
@@ -91,10 +101,11 @@ def store(tmp_path_factory):
 
 def train(store, name, max_steps, **over):
     """``cli.train`` on the CPU with the tiny config (no permanent
-    checkpoints, validation only at the end); returns the task."""
+    checkpoints, validation only at the end, no figures); returns the task."""
     cfg = dict(TINY, base_config=[str(REPO / "configs" / "acoustic.yaml")],
                binary_data_dir=str(store / "binary"), dictionary=str(DICT),
-               val_check_interval=1000, permanent_ckpt_interval=-1, **over)
+               val_check_interval=1000, permanent_ckpt_interval=-1, num_valid_plots=0)
+    cfg.update(over)
     path = store / f"{name}.yaml"
     path.write_text(yaml.safe_dump(cfg))
     return cli_train.main(["--config", str(path), "--exp_name", name, "--ckpt_root",
