@@ -133,6 +133,13 @@ Phases, each printed as it ends; any failure exits non-zero:
    per step: K3 4, K3's backward 4, K1 and K2 0); one step under the profiler
    (idle share, top device operations); a validation batch (losses and
    metrics); a save and resume round trip (``[train_variance]`` lines);
+9b. train_remat: ``recompute_grads`` on [train]'s task and batch: for off,
+   full, dots and dots_no_batch the peak memory, steps/s over 10 steps and
+   the launches a step (K1 = K2 twice a LYNXNet layer under recomputation);
+   a float32 step under each policy against off (loss and every gradient);
+   [train_variance]'s model with full against off; one batch as
+   ``train_wire_dtype: float16`` through the trainer's upload stage against
+   float32 (bytes, loss) (``[train_remat]`` lines);
 10. train_dist: training over ranks and serving over replicas on the one
    card. (a) two gloo ranks, each its own process on the card, train a
    narrow float32 variance model with the melody encoder through
@@ -188,10 +195,13 @@ Phases, each printed as it ends; any failure exits non-zero:
    curves) on [binarize]'s seeded corpus, into HDF5 stores on disk (seconds
    a second of audio with the write, MB, items/s read back through the
    datasets); ``cli.train`` of each at full width in '16-mixed' at its frame
-   budget for 8 steps, then resumed to 12 (each step's launches: K1 = K2 = 6
-   acoustic, K3 = K3-bwd = 4; time to the first optimizer step, steps/s,
-   the share of the run in ``epoch_batches``, validation, save and resume
-   seconds); ``cli.infer variance`` on samples/09 and ``cli.infer
+   budget for 8 steps, then resumed to 13, the last 4 under the profiler
+   (each step's launches: K1 = K2 = 6 acoustic, K3 = K3-bwd = 4; time to the
+   first optimizer step, steps/s, the loop's wait for a batch, the share of
+   the run in ``epoch_batches``, the idle share, validation, save and resume
+   seconds), the acoustic model at the default prefetch depth and at
+   ``DS_PREFETCH_DEPTH=0`` in turns (1, 0, 0, 1; steps/s of each, the same
+   losses); ``cli.infer variance`` on samples/09 and ``cli.infer
    acoustic`` on its output (a wav of the score's length; K2 = 6 x the
    sampler's steps a segment) and on samples/00; ``cli.export`` of both
    (``.pt2``) with one segment through the artifact runtimes bit-equal to
@@ -3913,6 +3923,7 @@ def pipeline_checks(tmp: Path, card, reset_counts, read_counts):
                 torch.cuda.empty_cache()
                 per = run["launches_per_step"]
                 prof = run["profile"] or {}
+                where = "inline" if run["prefetch_depth"] == 0 else "on the collate thread"
                 log(f"{tag} cli.train {family} ({run['parameters']:,} parameters, "
                     f"{hp['pl_trainer_precision']}, max_batch_frames {hp['max_batch_frames']}, "
                     f"prefetch depth {run['prefetch_depth']}) to step {steps} from step "
@@ -3923,9 +3934,8 @@ def pipeline_checks(tmp: Path, card, reset_counts, read_counts):
                     + f"; the loop's wait for a batch {run['wait_mean_ms'] or 0:.2f} ms mean, "
                     f"{run['wait_max_ms'] or 0:.2f} ms largest"
                     + (f", share of the run {run['wait_share']:.4f}; epoch_batches (read and "
-                       f"collate, {'inline' if run['prefetch_depth'] == 0 else 'on the collate thread'}) "
-                       f"{run['fetch_share']:.4f} of the run" if run["wait_share"] is not None
-                       else "")
+                       f"collate, {where}) {run['fetch_share']:.4f} of the run"
+                       if run["wait_share"] is not None else "")
                     + f" (fetches {np.median(run['fetch_ms']):.1f} ms median); batches (rows, "
                     f"frames) {dict(collections.Counter(run['batch_shapes']))}"
                     + (f"; idle share of the last {prof['steps']} steps under the profiler "
@@ -4669,7 +4679,8 @@ def phase_summaries(report: dict, seconds: dict) -> list:
                        + " variance " + " ".join(
             f"{k} {f(v['steps_per_s'], 4)} steps/s {f(v['peak_mem_gib'], 4)} GiB;"
             for k, v in p["train_remat"]["variance"].items())
-                       + f" f32 grad delta {max(v['grad_max_abs_delta'] for v in p['train_remat']['float32'].values()):.3g}"
+                       + " f32 grad delta " + f(max(v["grad_max_abs_delta"] for v in
+                                                    p["train_remat"]["float32"].values()), 3)
                        + f"; wire f16 loss delta {p['train_remat']['wire']['loss_delta']:.3g}",
         "train_dist": f"two gloo ranks vs one process {f(p['train_dist']['two_ranks']['err'], 3)}, "
                       f"DDP / plain {f(p['train_dist']['ddp_one_rank']['ddp_over_plain'], 4)}",
@@ -4689,7 +4700,8 @@ def phase_summaries(report: dict, seconds: dict) -> list:
            f"{f(r[0]['time_to_first_step_s'], 3)} s, {f(r[0]['steps_per_s'], 4)} steps/s, wait "
            f"{f(r[0]['wait_mean_ms'], 3)} ms mean {f(r[0]['wait_max_ms'], 3)} max share "
            f"{f(r[0]['wait_share'], 3)}, fetch share {f(r[0]['fetch_share'], 3)}, idle share "
-           f"{f((r[1]['profile'] or {}).get('idle_share'), 3)}, save {f(sum(r[0]['save_s']), 3)} s, resume "
+           f"{f((r[1]['profile'] or {}).get('idle_share'), 3)}, save "
+           f"{f(sum(r[0]['save_s']), 3)} s, resume "
            f"{f(sum(r[1]['resume_s']), 3)} s, launches a step {r[0]['launches_per_step'][0]}"
            for fam, r in (("acoustic", pipe["train_acoustic"]),
                           ("acoustic", pipe["train_acoustic_inline"]),

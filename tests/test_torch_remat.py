@@ -80,6 +80,16 @@ def _assert_jax_grads(got, want):
         assert np.abs(got[name].numpy() - w).max() <= 1e-4 * max(np.abs(w).max(), 1e-6), name
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The narrow models run on one intra-op thread: beside other test
+    processes, more threads only wait on each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # ------------------------------------------------------------------ the policies
 
 def test_policies_save_the_products_that_jax_saves():
