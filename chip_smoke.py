@@ -538,7 +538,6 @@ def serve_phase(hp, card, reset_counts, read_counts, request_profile):
 
     root = Path(tempfile.mkdtemp(prefix="ds_smoke_"))
     saved_root = os.environ.get("DS_CKPT_ROOT")
-    os.environ.pop("DS_SERVING_PROFILE", None)
     try:
         exp, acoustic_state, vocoder_state = write_experiment(root, hp)
         os.environ["DS_CKPT_ROOT"] = str(root / "checkpoints")
@@ -556,9 +555,6 @@ def serve_phase(hp, card, reset_counts, read_counts, request_profile):
 
         # ---- the two scores together: once to warm up, once timed
         quiet(server.synthesize_batch, segments, seed=1)
-        if any(st["compute_s"] is not None for st in server.last_stats):
-            fail("compute_s was read without DS_SERVING_PROFILE")
-        os.environ["DS_SERVING_PROFILE"] = "1"
         reset_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -566,7 +562,6 @@ def serve_phase(hp, card, reset_counts, read_counts, request_profile):
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         serve_counts = read_counts()
-        del os.environ["DS_SERVING_PROFILE"]
         stats = server.last_stats
         expect(serve_counts, len(stats), f"{len(segments)} segments in {len(stats)} chunks")
         lengths = [quiet(server.preprocess_input, seg)["mel2ph"].shape[1] for seg in segments]
@@ -582,7 +577,7 @@ def serve_phase(hp, card, reset_counts, read_counts, request_profile):
         shapes = {(st["batch"], st["t_txt"], st["t_mel"]) for st in stats}
         for st in stats:
             log("[serve]   chunk B=%(batch)d buckets %(t_txt)d x %(t_mel)d: dispatch_s "
-                "%(dispatch_s).4f compute_s %(compute_s).4f fetch_s %(fetch_s).4f "
+                "%(dispatch_s).4f fetch_s %(fetch_s).4f "
                 "(%(wire_mb).1f MB)" % st)
         true_frames = sum(lengths)
         padded_frames = sum(st["batch"] * st["t_mel"] for st in stats)
@@ -702,7 +697,6 @@ def serve_phase(hp, card, reset_counts, read_counts, request_profile):
             fail("forward_wav in float32 disagrees with its plain-version run")
     finally:
         shutil.rmtree(root, ignore_errors=True)
-        os.environ.pop("DS_SERVING_PROFILE", None)
         if saved_root is None:
             os.environ.pop("DS_CKPT_ROOT", None)
         else:

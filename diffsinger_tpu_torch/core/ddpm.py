@@ -19,7 +19,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from diffsinger_tpu_torch.utils import while_loop
+from diffsinger_tpu_torch.utils import tracing, while_loop
 
 from .schedule import DiffusionSchedule
 
@@ -71,16 +71,17 @@ def sample_ddpm(denoise_fn: DenoiseFn, sched: DiffusionSchedule, x: torch.Tensor
     c1, c2 = sched.posterior_mean_coef1, sched.posterior_mean_coef2
     log_var = sched.posterior_log_variance_clipped
     for i, t in enumerate(range(t_max - 1, -1, -1)):
-        tb = _steps(b, t, x)
-        eps = denoise_fn(x, tb).to(x.dtype)
-        x0 = predict_start_from_noise(sched, x, tb, eps)
-        mean = float(c1[t]) * x0 + float(c2[t]) * x
-        if noise_fn is not None:
-            noise = noise_fn(i).to(device=x.device, dtype=x.dtype)
-        else:
-            noise = torch.randn(x.shape, generator=generator, dtype=x.dtype, device=x.device)
-        scale = np.float32(t > 0) * np.exp(np.float32(0.5) * log_var[t])
-        x = mean + float(scale) * noise
+        with tracing.span("ds.sampler.step"):
+            tb = _steps(b, t, x)
+            eps = denoise_fn(x, tb).to(x.dtype)
+            x0 = predict_start_from_noise(sched, x, tb, eps)
+            mean = float(c1[t]) * x0 + float(c2[t]) * x
+            if noise_fn is not None:
+                noise = noise_fn(i).to(device=x.device, dtype=x.dtype)
+            else:
+                noise = torch.randn(x.shape, generator=generator, dtype=x.dtype, device=x.device)
+            scale = np.float32(t > 0) * np.exp(np.float32(0.5) * log_var[t])
+            x = mean + float(scale) * noise
     return x
 
 
@@ -100,9 +101,10 @@ def sample_ddim(denoise_fn: DenoiseFn, sched: DiffusionSchedule, x: torch.Tensor
     b = x.shape[0]
     acp = sched.alphas_cumprod
     for t in range((t_max - 1) // interval * interval, -1, -interval):
-        sq_prev, sq_t, eps_c = _ddim_coefs(acp, t, interval)
-        eps = denoise_fn(x, _steps(b, t, x)).to(x.dtype)
-        x = sq_prev * (x / sq_t + eps_c * eps)
+        with tracing.span("ds.sampler.step"):
+            sq_prev, sq_t, eps_c = _ddim_coefs(acp, t, interval)
+            eps = denoise_fn(x, _steps(b, t, x)).to(x.dtype)
+            x = sq_prev * (x / sq_t + eps_c * eps)
     return x
 
 
@@ -128,20 +130,21 @@ def sample_plms(denoise_fn: DenoiseFn, sched: DiffusionSchedule, x: torch.Tensor
     n_steps = (t_max + interval - 1) // interval
     history = []  # newest first
     for t in range((n_steps - 1) * interval, -1, -interval):
-        noise_pred = denoise_fn(x, _steps(b, t, x)).to(x.dtype)
-        if not history:
-            x_pred = get_x_pred(x, noise_pred, t)
-            noise_prev = denoise_fn(x_pred, _steps(b, max(t - interval, 0), x)).to(x.dtype)
-            noise_prime = (noise_pred + noise_prev) / 2
-        elif len(history) == 1:
-            noise_prime = (3 * noise_pred - history[0]) / 2
-        elif len(history) == 2:
-            noise_prime = (23 * noise_pred - 16 * history[0] + 5 * history[1]) / 12
-        else:
-            noise_prime = (55 * noise_pred - 59 * history[0] + 37 * history[1]
-                           - 9 * history[2]) / 24
-        x = get_x_pred(x, noise_prime, t)
-        history = [noise_pred] + history[:2]
+        with tracing.span("ds.sampler.step"):
+            noise_pred = denoise_fn(x, _steps(b, t, x)).to(x.dtype)
+            if not history:
+                x_pred = get_x_pred(x, noise_pred, t)
+                noise_prev = denoise_fn(x_pred, _steps(b, max(t - interval, 0), x)).to(x.dtype)
+                noise_prime = (noise_pred + noise_prev) / 2
+            elif len(history) == 1:
+                noise_prime = (3 * noise_pred - history[0]) / 2
+            elif len(history) == 2:
+                noise_prime = (23 * noise_pred - 16 * history[0] + 5 * history[1]) / 12
+            else:
+                noise_prime = (55 * noise_pred - 59 * history[0] + 37 * history[1]
+                               - 9 * history[2]) / 24
+            x = get_x_pred(x, noise_prime, t)
+            history = [noise_pred] + history[:2]
     return x
 
 

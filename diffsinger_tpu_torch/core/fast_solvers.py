@@ -14,6 +14,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from diffsinger_tpu_torch.utils import tracing
+
 from .ddpm import DenoiseFn
 from .schedule import DiffusionSchedule
 
@@ -58,9 +60,10 @@ def _times(x: torch.Tensor, t_in) -> torch.Tensor:
 
 
 def _data_pred(denoise_fn: DenoiseFn, x: torch.Tensor, t_in, alpha, sigma) -> torch.Tensor:
-    """x0-prediction from a noise-prediction model."""
-    eps = denoise_fn(x, _times(x, t_in)).to(x.dtype)
-    return (x - float(sigma) * eps) / float(alpha)
+    """x0-prediction from a noise-prediction model: a step of its own."""
+    with tracing.span("ds.sampler.step"):
+        eps = denoise_fn(x, _times(x, t_in)).to(x.dtype)
+        return (x - float(sigma) * eps) / float(alpha)
 
 
 def sample_dpmpp_2m(denoise_fn: DenoiseFn, sched: DiffusionSchedule, x: torch.Tensor,
@@ -82,15 +85,16 @@ def sample_dpmpp_2m(denoise_fn: DenoiseFn, sched: DiffusionSchedule, x: torch.Te
     # middle steps 2..steps-1: second-order update + model eval, with the
     # per-step scalars in float32
     for i in range(2, steps):
-        h0 = g.lam[i - 1] - g.lam[i - 2]
-        h = g.lam[i] - g.lam[i - 1]
-        ratio, aphi, r0 = (float(v) for v in np.array(
-            [g.sigma[i] / g.sigma[i - 1], g.alpha[i] * np.expm1(-h), h0 / h], np.float32))
-        d1 = (m_prev0 - m_prev1) / r0
-        x = ratio * x - aphi * m_prev0 - 0.5 * aphi * d1
-        eps = denoise_fn(x, _times(x, g.t_input[i])).to(x.dtype)
-        m_new = (x - float(np.float32(g.sigma[i])) * eps) / float(np.float32(g.alpha[i]))
-        m_prev1, m_prev0 = m_prev0, m_new
+        with tracing.span("ds.sampler.step"):
+            h0 = g.lam[i - 1] - g.lam[i - 2]
+            h = g.lam[i] - g.lam[i - 1]
+            ratio, aphi, r0 = (float(v) for v in np.array(
+                [g.sigma[i] / g.sigma[i - 1], g.alpha[i] * np.expm1(-h), h0 / h], np.float32))
+            d1 = (m_prev0 - m_prev1) / r0
+            x = ratio * x - aphi * m_prev0 - 0.5 * aphi * d1
+            eps = denoise_fn(x, _times(x, g.t_input[i])).to(x.dtype)
+            m_new = (x - float(np.float32(g.sigma[i])) * eps) / float(np.float32(g.alpha[i]))
+            m_prev1, m_prev0 = m_prev0, m_new
 
     # final step: first order when steps < 10
     i = steps
@@ -155,23 +159,25 @@ def sample_unipc_2(denoise_fn: DenoiseFn, sched: DiffusionSchedule, x: torch.Ten
 
     # middle steps 2..steps-1: order-2 predictor + corrector, float32 scalars
     for i in range(2, steps):
-        h = g.lam[i] - g.lam[i - 1]
-        rk0 = (g.lam[i - 2] - g.lam[i - 1]) / h
-        h_phi_1 = np.expm1(-h)
-        b_h = np.expm1(-h)
-        c1, c2 = _unipc_rhos_c2(h, rk0)
-        ratio, aphi, rk0_f, a_bh, c1, c2, t_in, alpha_i, sigma_i = (float(v) for v in np.array(
-            [g.sigma[i] / g.sigma[i - 1], g.alpha[i] * h_phi_1, rk0, g.alpha[i] * b_h, c1, c2,
-             g.t_input[i], g.alpha[i], g.sigma[i]], np.float32))
-        d1_0 = (m_prev1 - m_prev0) / rk0_f
-        x_t_ = ratio * x - aphi * m_prev0
-        # predictor (rhos_p = [0.5] for order 2)
-        x_t = x_t_ - a_bh * 0.5 * d1_0
-        # corrector
-        eps = denoise_fn(x_t, _times(x_t, t_in)).to(x.dtype)
-        m_t = (x_t - sigma_i * eps) / alpha_i
-        x = x_t_ - a_bh * (c1 * d1_0 + c2 * (m_t - m_prev0))
-        m_prev1, m_prev0 = m_prev0, m_t
+        with tracing.span("ds.sampler.step"):
+            h = g.lam[i] - g.lam[i - 1]
+            rk0 = (g.lam[i - 2] - g.lam[i - 1]) / h
+            h_phi_1 = np.expm1(-h)
+            b_h = np.expm1(-h)
+            c1, c2 = _unipc_rhos_c2(h, rk0)
+            ratio, aphi, rk0_f, a_bh, c1, c2, t_in, alpha_i, sigma_i = (
+                float(v) for v in np.array(
+                    [g.sigma[i] / g.sigma[i - 1], g.alpha[i] * h_phi_1, rk0, g.alpha[i] * b_h,
+                     c1, c2, g.t_input[i], g.alpha[i], g.sigma[i]], np.float32))
+            d1_0 = (m_prev1 - m_prev0) / rk0_f
+            x_t_ = ratio * x - aphi * m_prev0
+            # predictor (rhos_p = [0.5] for order 2)
+            x_t = x_t_ - a_bh * 0.5 * d1_0
+            # corrector
+            eps = denoise_fn(x_t, _times(x_t, t_in)).to(x.dtype)
+            m_t = (x_t - sigma_i * eps) / alpha_i
+            x = x_t_ - a_bh * (c1 * d1_0 + c2 * (m_t - m_prev0))
+            m_prev1, m_prev0 = m_prev0, m_t
 
     # final step: order 1 (lower_order_final), no corrector
     if lower_order_final:

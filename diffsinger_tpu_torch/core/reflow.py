@@ -15,7 +15,7 @@ from typing import Callable, Optional
 
 import torch
 
-from diffsinger_tpu_torch.utils import while_loop
+from diffsinger_tpu_torch.utils import tracing, while_loop
 
 VelocityFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 
@@ -77,8 +77,9 @@ def sample_ode(velocity_fn: VelocityFn, x: torch.Tensor, *, t_start: float, step
     b = x.shape[0]
     dt = (1.0 - t_start) / max(1, steps)
     for i in range(steps):
-        t = torch.full((b,), float(i), dtype=torch.float32, device=x.device) * dt + t_start
-        x = step_fn(velocity_fn, x, t, dt, time_scale_factor)
+        with tracing.span("ds.sampler.step"):
+            t = torch.full((b,), float(i), dtype=torch.float32, device=x.device) * dt + t_start
+            x = step_fn(velocity_fn, x, t, dt, time_scale_factor)
     return x
 
 

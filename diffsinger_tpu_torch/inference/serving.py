@@ -21,7 +21,6 @@ draws as they are.)
 from __future__ import annotations
 
 import contextlib
-import os
 import pathlib
 import time
 import warnings
@@ -36,7 +35,7 @@ from diffsinger_tpu_torch.inference.ds_acoustic import (
     DiffSingerAcousticInfer, NoiseFn, VocoderNoiseFn)
 from diffsinger_tpu_torch.inference import ds_variance
 from diffsinger_tpu_torch.inference.ds_variance import DiffSingerVarianceInfer
-from diffsinger_tpu_torch.utils import pad_to, resolve_precision
+from diffsinger_tpu_torch.utils import pad_to, resolve_precision, tracing
 from diffsinger_tpu_torch.utils.infer_utils import save_wav
 
 
@@ -68,9 +67,9 @@ class AcousticServer(_Replicas, DiffSingerAcousticInfer):
     ``synthesize_batch(segments)`` preprocesses all segments, packs them into
     chunks, runs sampler + vocoder per chunk and returns per-segment waveforms
     in input order. ``last_stats`` holds one dict per chunk of the last call
-    (the JAX server's keys), ``last_chunk_devices`` the index of the device
-    each chunk ran on. ``devices`` (the first one the runtime's ``device``)
-    runs the chunks in turn on replicas on those devices.
+    (the JAX server's keys but ``compute_s``), ``last_chunk_devices`` the
+    index of the device each chunk ran on. ``devices`` (the first one the
+    runtime's ``device``) runs the chunks in turn on replicas on those devices.
     """
 
     def __init__(self, hparams: dict, max_batch_size: int = 8,
@@ -107,17 +106,11 @@ class AcousticServer(_Replicas, DiffSingerAcousticInfer):
 
     @staticmethod
     def _enqueue_wav(replica, stacked, seed, steps, noise, vocoder_noise, depth):
-        """Enqueue a chunk on ``replica``: (wav int16 on its device, its done
-        event | None)."""
+        """Enqueue a chunk on ``replica``: its wav, int16 on the replica's device."""
         wav = replica._run_wav(stacked, replica._generator(max(seed, 0)), steps, noise,
                                vocoder_noise, depth)
         # the deliverable is a 16-bit wav: ship int16, half the bytes of float32
-        wav_dev = (torch.clamp(wav.float(), -1.0, 1.0) * 32767.0).to(torch.int16)
-        done = None
-        if replica.device.type == "cuda":
-            done = torch.cuda.Event()
-            done.record()
-        return wav_dev, done
+        return (torch.clamp(wav.float(), -1.0, 1.0) * 32767.0).to(torch.int16)
 
     def _group_key(self, batch: Dict[str, np.ndarray]):
         t_txt = bucket_length(batch["tokens"].shape[1], step=16, minimum=16)
@@ -177,11 +170,11 @@ class AcousticServer(_Replicas, DiffSingerAcousticInfer):
         ``seed`` (0 if negative); ``noise_fn`` and ``vocoder_noise_fn`` are
         called with the chunk's index and supply the noise instead.
         """
-        batches = [self.preprocess_input(p, idx=i) for i, p in enumerate(segments)]
+        with tracing.span("ds.server.preprocess"):
+            batches = [self.preprocess_input(p, idx=i) for i, p in enumerate(segments)]
         keys = [self._group_key(b) for b in batches]
         hop = self.hparams["hop_size"]
         n_mels = self.hparams["audio_num_mel_bins"]
-        profile = bool(os.environ.get("DS_SERVING_PROFILE"))
 
         # Phase 1: enqueue every chunk without waiting for the device, so that
         # chunk k+1's host work overlaps chunk k's kernels. Phase 2: copy the
@@ -191,36 +184,29 @@ class AcousticServer(_Replicas, DiffSingerAcousticInfer):
             t_txt = max(keys[i][0] for i in chunk)
             t_mel = max(keys[i][1] for i in chunk)
             t0 = time.perf_counter()
-            stacked = self._stack(batches, chunk, t_txt, t_mel)
-            noise = noise_fn(n, (len(chunk), t_mel, n_mels)) if noise_fn is not None else None
-            vocoder_noise = (vocoder_noise_fn(n, len(chunk), t_mel)
-                             if vocoder_noise_fn is not None else None)
-            wav_dev, done = self._on_replica(n, lambda r: self._enqueue_wav(
-                r, stacked, seed, steps, noise, vocoder_noise, depth))
-            pending.append((chunk, t_txt, t_mel, wav_dev, done, time.perf_counter() - t0))
+            with tracing.span("ds.server.stack"):
+                stacked = self._stack(batches, chunk, t_txt, t_mel)
+                noise = (noise_fn(n, (len(chunk), t_mel, n_mels)) if noise_fn is not None
+                         else None)
+                vocoder_noise = (vocoder_noise_fn(n, len(chunk), t_mel)
+                                 if vocoder_noise_fn is not None else None)
+            with tracing.span("ds.server.enqueue"):
+                wav_dev = self._on_replica(n, lambda r: self._enqueue_wav(
+                    r, stacked, seed, steps, noise, vocoder_noise, depth))
+            pending.append((chunk, t_txt, t_mel, wav_dev, time.perf_counter() - t0))
 
         results: List[Optional[np.ndarray]] = [None] * len(segments)
         stats = []
-        for chunk, t_txt, t_mel, wav_dev, done, dispatch_s in pending:
+        for chunk, t_txt, t_mel, wav_dev, dispatch_s in pending:
             t1 = time.perf_counter()
-            if profile and done is not None:
-                done.synchronize()  # the wait for this chunk's kernels, apart from the copy
-            t2 = time.perf_counter()
-            wavs = wav_dev.cpu().numpy().astype(np.float32) / 32767.0
-            t3 = time.perf_counter()
+            with tracing.span("ds.server.fetch"):
+                wavs = wav_dev.cpu().numpy().astype(np.float32) / 32767.0
             stats.append({
                 "batch": len(chunk), "t_txt": t_txt, "t_mel": t_mel,
                 "dispatch_s": dispatch_s,
-                # separable only under DS_SERVING_PROFILE; else the wait for
-                # the device is part of fetch_s
-                "compute_s": (t2 - t1) if profile else None,
-                "fetch_s": t3 - t2,
+                "fetch_s": time.perf_counter() - t1,  # the wait for the device included
                 "wire_mb": wav_dev.numel() * wav_dev.element_size() / 1e6,
             })
-            if profile:
-                print(f"| serve chunk B={len(chunk)} [{t_txt}x{t_mel}]: "
-                      f"stack+dispatch {dispatch_s:.3f}s compute-wait {t2 - t1:.3f}s "
-                      f"fetch {t3 - t2:.3f}s ({stats[-1]['wire_mb']:.1f} MB)")
             for j, seg_idx in enumerate(chunk):
                 length = batches[seg_idx]["mel2ph"].shape[1]
                 results[seg_idx] = wavs[j, : length * hop]
@@ -357,13 +343,16 @@ class VarianceServer(_Replicas, DiffSingerVarianceInfer):
                 noise_fn: Optional[ds_variance.NoiseFn] = None):
         """Preprocess and enqueue every chunk without waiting for the device.
         Returns (batches, [(flags, chunk, device outputs)]) for :meth:`collect`."""
-        flags_list, batches = self._preprocess_all(params_list)
+        with tracing.span("ds.server.preprocess"):
+            flags_list, batches = self._preprocess_all(params_list)
         pending = []
         for n, (flags, chunk, buckets) in enumerate(self.chunks(batches, flags_list)):
-            noise = self.injected_noise(noise_fn, n, len(chunk), buckets[3])
-            pending.append((flags, chunk, self._on_replica(n, lambda r: r._run_padded(
-                *self.stack_chunk(batches, chunk, buckets), flags,
-                r._generator(max(seed, 0)), steps, **noise))))
+            with tracing.span("ds.server.stack"):
+                stacked = self.stack_chunk(batches, chunk, buckets)
+                noise = self.injected_noise(noise_fn, n, len(chunk), buckets[3])
+            with tracing.span("ds.server.enqueue"):
+                pending.append((flags, chunk, self._on_replica(n, lambda r: r._run_padded(
+                    *stacked, flags, r._generator(max(seed, 0)), steps, **noise))))
         return batches, pending
 
     @staticmethod
@@ -372,9 +361,10 @@ class VarianceServer(_Replicas, DiffSingerVarianceInfer):
         each segment's length."""
         preds: List[Optional[tuple]] = [None] * n_segments
         for flags, chunk, (dur_b, pitch_b, vars_b) in pending:
-            dur_np = dur_b.cpu().numpy() if dur_b is not None and flags[0] else None
-            pitch_np = pitch_b.float().cpu().numpy() if pitch_b is not None else None
-            vars_np = {k: v.float().cpu().numpy() for k, v in vars_b.items()}
+            with tracing.span("ds.server.fetch"):
+                dur_np = dur_b.cpu().numpy() if dur_b is not None and flags[0] else None
+                pitch_np = pitch_b.float().cpu().numpy() if pitch_b is not None else None
+                vars_np = {k: v.float().cpu().numpy() for k, v in vars_b.items()}
             for j, seg_idx in enumerate(chunk):
                 t_ph = batches[seg_idx]["tokens"].shape[1]
                 t_s = batches[seg_idx]["base_pitch"].shape[1]

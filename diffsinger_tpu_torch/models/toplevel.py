@@ -42,7 +42,7 @@ from diffsinger_tpu_torch.models.aux_decoder import AuxDecoderAdaptor
 from diffsinger_tpu_torch.models.backbones import build_backbone, precompute_cond_projections
 from diffsinger_tpu_torch.models.commons import CurveEmbed, Embedding
 from diffsinger_tpu_torch.models.variance_encoder import FastSpeech2Variance, MelodyEncoder
-from diffsinger_tpu_torch.utils import no_tf32, resolve_device
+from diffsinger_tpu_torch.utils import no_tf32, resolve_device, tracing
 from diffsinger_tpu_torch.utils.frames import runs_with_room
 from diffsinger_tpu_torch.utils.seq import gather_frames, length_regulator, rhythm_regulator
 
@@ -254,28 +254,30 @@ class DiffSingerAcoustic:
         """
         hp = self.hp
         m = self.module
-        cond = m.encode(txt_tokens, mel2ph, f0, **kwargs)
-        frame_mask = (mel2ph > 0).float()[:, :, None]
+        with tracing.span("ds.model.condition"):
+            cond = m.encode(txt_tokens, mel2ph, f0, **kwargs)
+            frame_mask = (mel2ph > 0).float()[:, :, None]
 
-        aux_mel = None
-        src_spec = None
-        if self.use_shallow_diffusion:
-            aux_mel = m.aux(cond, infer=True) * frame_mask
-            src_spec = self.spec_transform.norm(aux_mel)
+            aux_mel = None
+            src_spec = None
+            if self.use_shallow_diffusion:
+                aux_mel = m.aux(cond, infer=True) * frame_mask
+                src_spec = self.spec_transform.norm(aux_mel)
 
-        # the condition is the same at every step: project it once per layer
-        cond_projs = precompute_cond_projections(m.denoiser, cond)
+            # the condition is the same at every step: project it once per layer
+            cond_projs = precompute_cond_projections(m.denoiser, cond)
 
         def denoise(x, t):
             return m.denoise(x, t, cond, cond_proj=cond_projs)
 
         shape = tuple(cond.shape[:2]) + (self.out_dims,)
-        x = sample(hp, self.schedule, denoise, shape, k_step=self.k_step, device=cond.device,
-                   generator=generator, noise=noise, noise_fn=noise_fn, x_start=src_spec,
-                   use_shallow_diffusion=self.use_shallow_diffusion, depth=depth, steps=steps,
-                   t_start=(t_start_infer if t_start_infer is not None
-                            else hp.get("T_start_infer", self.t_start)))
-        mel = self.spec_transform.denorm(x) * frame_mask
+        with tracing.span("ds.model.sample"):
+            x = sample(hp, self.schedule, denoise, shape, k_step=self.k_step, device=cond.device,
+                       generator=generator, noise=noise, noise_fn=noise_fn, x_start=src_spec,
+                       use_shallow_diffusion=self.use_shallow_diffusion, depth=depth,
+                       steps=steps, t_start=(t_start_infer if t_start_infer is not None
+                                             else hp.get("T_start_infer", self.t_start)))
+            mel = self.spec_transform.denorm(x) * frame_mask
         return ShallowDiffusionOutput(aux_out=aux_mel, diff_out=mel)
 
     @torch.no_grad()
@@ -294,29 +296,32 @@ class DiffSingerAcoustic:
         ``max(1 - depth, T_start)``.
         """
         m = self.module
-        cond = m.encode(txt_tokens, mel2ph, f0, **kwargs)
-        frame_mask = (mel2ph > 0).float()[:, :, None]
+        with tracing.span("ds.model.condition"):
+            cond = m.encode(txt_tokens, mel2ph, f0, **kwargs)
+            frame_mask = (mel2ph > 0).float()[:, :, None]
 
-        aux_mel = None
-        src_spec = None
-        if self.use_shallow_diffusion:
-            aux_mel = m.aux(cond, infer=True) * frame_mask
-            src_spec = self.spec_transform.norm(aux_mel)
+            aux_mel = None
+            src_spec = None
+            if self.use_shallow_diffusion:
+                aux_mel = m.aux(cond, infer=True) * frame_mask
+                src_spec = self.spec_transform.norm(aux_mel)
 
-        cond_projs = precompute_cond_projections(m.denoiser, cond)
+            cond_projs = precompute_cond_projections(m.denoiser, cond)
 
         def denoise(x, t):
             return m.denoise(x, t, cond, cond_proj=cond_projs)
 
-        if self.schedule is not None:
-            x = ddpm_core.inference_dynamic(denoise, self.schedule, noise, depth=depth,
-                                            steps=steps, k_step=self.k_step, x_start=src_spec)
-        else:
-            x = reflow_core.inference_dynamic(denoise, noise, depth=depth, steps=steps,
-                                              t_start_min=self.t_start,
-                                              time_scale_factor=self.time_scale_factor,
-                                              x_end=src_spec)
-        mel = self.spec_transform.denorm(x) * frame_mask
+        with tracing.span("ds.model.sample"):
+            if self.schedule is not None:
+                x = ddpm_core.inference_dynamic(denoise, self.schedule, noise, depth=depth,
+                                                steps=steps, k_step=self.k_step,
+                                                x_start=src_spec)
+            else:
+                x = reflow_core.inference_dynamic(denoise, noise, depth=depth, steps=steps,
+                                                  t_start_min=self.t_start,
+                                                  time_scale_factor=self.time_scale_factor,
+                                                  x_end=src_spec)
+            mel = self.spec_transform.denorm(x) * frame_mask
         return ShallowDiffusionOutput(aux_out=aux_mel, diff_out=mel)
 
 
@@ -578,17 +583,18 @@ class DiffSingerVariance:
         m = self.module
         do_pitch = self.predict_pitch and (predict_pitch is not False)
         do_vars = bool(self.var_list) and (predict_variances is not False)
-        encoder_out, dur_pred = m.encode(
-            txt_tokens, midi, ph2word, ph_dur=ph_dur, word_dur=word_dur, spk_id=spk_id,
-            ph_spk_mix_embed=ph_spk_mix_embed, languages=languages)
-        if not do_pitch and not do_vars:
-            return dur_pred, None, {}
+        with tracing.span("ds.model.condition"):
+            encoder_out, dur_pred = m.encode(
+                txt_tokens, midi, ph2word, ph_dur=ph_dur, word_dur=word_dur, spk_id=spk_id,
+                ph_spk_mix_embed=ph_spk_mix_embed, languages=languages)
+            if not do_pitch and not do_vars:
+                return dur_pred, None, {}
 
-        if mel2ph is None and word_dur is not None:
-            dur_align = rhythm_regulator(dur_pred, ph2word, word_dur)
-            mel2ph = length_regulator(dur_align, base_pitch.shape[1])
-        condition = m.frame_condition(encoder_out, mel2ph, spk_id=spk_id,
-                                      spk_mix_embed=spk_mix_embed)
+            if mel2ph is None and word_dur is not None:
+                dur_align = rhythm_regulator(dur_pred, ph2word, word_dur)
+                mel2ph = length_regulator(dur_align, base_pitch.shape[1])
+            condition = m.frame_condition(encoder_out, mel2ph, spk_id=spk_id,
+                                          spk_mix_embed=spk_mix_embed)
 
         pitch_pred = None
         if do_pitch:
@@ -700,23 +706,25 @@ class DiffSingerVariance:
         ``steps`` as a 0-d tensor selects the deployment samplers (rectified
         flow's euler, DDPM's DDIM) from pure noise, with the step count an
         input of an exported program; an int or None the configured ones."""
-        proj = precompute_cond_projections(denoiser, cond)
+        with tracing.span("ds.model.sample"):
+            proj = precompute_cond_projections(denoiser, cond)
 
-        def denoise(x, t):
-            return denoiser(x, t, cond, cond_proj=proj)
+            def denoise(x, t):
+                return denoiser(x, t, cond, cond_proj=proj)
 
-        shape = tuple(cond.shape[:2]) + (width,)
-        if isinstance(steps, torch.Tensor):
-            if noise is None:
-                noise = torch.randn(shape, generator=generator, dtype=torch.float32,
-                                    device=cond.device)
-            depth = torch.ones((), dtype=torch.float32)
-            if self.schedule is not None:
-                return ddpm_core.inference_dynamic(denoise, self.schedule, noise, depth=depth,
-                                                   steps=steps, k_step=self.k_step)
-            return reflow_core.inference_dynamic(denoise, noise, depth=depth, steps=steps,
-                                                 t_start_min=0.0,
-                                                 time_scale_factor=self.time_scale_factor)
-        return sample(self.hp, self.schedule, denoise, shape,
-                      k_step=self.k_step, device=cond.device, generator=generator,
-                      noise=noise, noise_fn=noise_fn, steps=steps)
+            shape = tuple(cond.shape[:2]) + (width,)
+            if isinstance(steps, torch.Tensor):
+                if noise is None:
+                    noise = torch.randn(shape, generator=generator, dtype=torch.float32,
+                                        device=cond.device)
+                depth = torch.ones((), dtype=torch.float32)
+                if self.schedule is not None:
+                    return ddpm_core.inference_dynamic(denoise, self.schedule, noise,
+                                                       depth=depth, steps=steps,
+                                                       k_step=self.k_step)
+                return reflow_core.inference_dynamic(denoise, noise, depth=depth, steps=steps,
+                                                     t_start_min=0.0,
+                                                     time_scale_factor=self.time_scale_factor)
+            return sample(self.hp, self.schedule, denoise, shape,
+                          k_step=self.k_step, device=cond.device, generator=generator,
+                          noise=noise, noise_fn=noise_fn, steps=steps)

@@ -33,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from diffsinger_tpu_torch.ops import native
+from diffsinger_tpu_torch.utils import tracing
 from diffsinger_tpu_torch.ops.depthwise_conv import (
     depthwise_conv1d_prelu, depthwise_conv1d_prelu_plain,
 )
@@ -156,12 +157,14 @@ class FusedConvModuleFn(torch.autograd.Function):
     @torch.amp.custom_bwd(device_type="cuda")
     def backward(ctx, dy):
         x, *params = ctx.saved_tensors
-        with torch.enable_grad():
-            inputs = [None if t is None else t.detach().requires_grad_() for t in (x, *params)]
-            y = conv_module_stock(*inputs, activation=ctx.activation)
-        wanted = [t for t in inputs if t is not None]
-        grads = iter(torch.autograd.grad(y, wanted, dy))
-        return (None, *(None if t is None else next(grads) for t in inputs))
+        with tracing.span("ds.lynx.bwd"):
+            with torch.enable_grad():
+                inputs = [None if t is None else t.detach().requires_grad_()
+                          for t in (x, *params)]
+                y = conv_module_stock(*inputs, activation=ctx.activation)
+            wanted = [t for t in inputs if t is not None]
+            grads = iter(torch.autograd.grad(y, wanted, dy))
+            return (None, *(None if t is None else next(grads) for t in inputs))
 
 
 def fused_conv_module_train(x, activation="PReLU", **params):

@@ -67,7 +67,7 @@ from diffsinger_tpu_torch.training.schedules import build_lr_scheduler
 from diffsinger_tpu_torch.training.train_state import (
     build_optimizer, clip_grad_norm, filter_finetune_params, freeze_params,
 )
-from diffsinger_tpu_torch.utils import no_tf32, resolve_device, resolve_precision
+from diffsinger_tpu_torch.utils import no_tf32, resolve_device, resolve_precision, tracing
 from diffsinger_tpu_torch.utils import ckpt as ckpt_utils
 from diffsinger_tpu_torch.utils.prefetch import PrefetchIterator, upload
 from diffsinger_tpu_torch.utils.text import load_phoneme_dictionary
@@ -337,22 +337,25 @@ class BaseTask:
         sync_ctx = (self.ddp.no_sync() if self.ddp is not None and not sync
                     else contextlib.nullcontext())
         with sync_ctx, no_tf32():
-            with self.autocast():
+            with tracing.span("ds.train.forward"), self.autocast():
                 if self.ddp is not None:
                     total, losses = self.ddp(batch, draws)
                 else:
                     total, losses = self.loss_fn(batch, **draws)
-            (total / self.accum).backward()
+            with tracing.span("ds.train.backward"):
+                (total / self.accum).backward()
         return {"total_loss": total.detach(), **{k: v.detach() for k, v in losses.items()}}
 
     def apply_update(self) -> torch.Tensor:
         """Clip, step the optimizer and the scheduler, clear the gradients;
         returns the gradient norm before clipping (over ranks, of the
         all-reduced gradients: the same on every rank)."""
-        norm = clip_grad_norm(self.params, float(self.hp.get("clip_grad_norm", 0) or 0))
-        self.optimizer.step()
-        self.scheduler.step()
-        self.optimizer.zero_grad(set_to_none=True)
+        with tracing.span("ds.train.clip"):
+            norm = clip_grad_norm(self.params, float(self.hp.get("clip_grad_norm", 0) or 0))
+        with tracing.span("ds.train.optimizer"):
+            self.optimizer.step()
+            self.scheduler.step()
+            self.optimizer.zero_grad(set_to_none=True)
         self.global_step += 1
         return norm
 
@@ -543,6 +546,7 @@ class BaseTask:
         profile_steps = int(hp.get("profile_steps", 0) or 0)
         profile_start = self.global_step + 3  # after the first steps' allocations
         profiler = None
+        traced = tracing.enabled()  # the profiler's window turns the program's spans on
         micro = self.global_step * self.accum
         last_val = last_log = self.global_step
         t_last = time.time()
@@ -566,6 +570,7 @@ class BaseTask:
                 if profile_steps and profiler is None and self.global_step >= profile_start:
                     profiler = torch.profiler.profile()
                     profiler.__enter__()
+                    tracing.enable(True)
                 closes = (micro + 1) % self.accum == 0
                 metrics = self.train_step(batch, sync=closes,
                                           **self.micro_draws(batch, micro, n_rows, row0))
@@ -575,6 +580,7 @@ class BaseTask:
                 metrics["grad_norm"] = self.apply_update()
                 step = self.global_step
                 if profiler is not None and step >= profile_start + profile_steps:
+                    tracing.enable(traced)
                     profiler.__exit__(None, None, None)
                     if self.rank == 0:
                         (self.work_dir / "profile").mkdir(parents=True, exist_ok=True)
@@ -597,6 +603,7 @@ class BaseTask:
                     self.run_validation(valid_ds)
                     self.save()
         finally:
+            tracing.enable(traced)
             for stage in stages:  # stop the threads, upstream first; release the staged batches
                 stage.close()
         if self.global_step != last_val:

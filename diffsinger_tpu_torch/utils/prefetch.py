@@ -11,10 +11,13 @@ from __future__ import annotations
 
 import queue
 import threading
+import time
 from typing import Iterable, Iterator
 
 import numpy as np
 import torch
+
+from diffsinger_tpu_torch.utils import tracing
 
 
 class PrefetchIterator(Iterator):
@@ -24,6 +27,9 @@ class PrefetchIterator(Iterator):
     - Exceptions raised by the producer re-raise at the consumer.
     - ``close()`` stops the producer and unblocks chained stages; iterating a
       closed prefetcher ends (StopIteration).
+    - While tracing is on (``utils.tracing``), the CPU seconds the thread
+      spends making items, its waits left out, add up in the counter
+      ``pipeline.<name>.cpu_s``.
     """
 
     _END = object()
@@ -43,10 +49,19 @@ class PrefetchIterator(Iterator):
                     continue
             return False
 
+        counter = f"pipeline.{name}.cpu_s"
+
         def _work():
             try:
-                for item in it:
-                    if not _put(item):
+                items = iter(it)
+                while True:
+                    if tracing.enabled():  # this thread's CPU time: a blocked wait adds none
+                        t0 = time.thread_time()
+                        item = next(items, self._END)
+                        tracing.add(counter, time.thread_time() - t0)
+                    else:
+                        item = next(items, self._END)
+                    if item is self._END or not _put(item):
                         return
             except BaseException as e:  # noqa: BLE001 - re-raised at the consumer
                 self._err = e

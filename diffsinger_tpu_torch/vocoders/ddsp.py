@@ -19,7 +19,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from diffsinger_tpu_torch.utils import no_tf32, resolve_device
+from diffsinger_tpu_torch.utils import no_tf32, resolve_device, tracing
 from diffsinger_tpu_torch.utils.frames import runs_with_room
 from diffsinger_tpu_torch.vocoders.ddsp_combsub import CombSub
 from diffsinger_tpu_torch.vocoders.registry import register_vocoder
@@ -81,9 +81,10 @@ class DDSP:
         The noise comes from a ``torch.Generator`` seeded 0 at every call (the
         JAX package draws from ``PRNGKey(0)``), unless ``noise`` [B, T * hop]
         injects it."""
-        generator = torch.Generator(device=mel.device).manual_seed(0)
-        return self.model(self.mel_to_log10(mel.float()), f0.float(), noise=noise,
-                          generator=generator)
+        with tracing.span("ds.vocoder"):
+            generator = torch.Generator(device=mel.device).manual_seed(0)
+            return self.model(self.mel_to_log10(mel.float()), f0.float(), noise=noise,
+                              generator=generator)
 
     def spec2wav(self, mel: np.ndarray, *, f0: np.ndarray, **kwargs) -> np.ndarray:
         """Single-item host API: mel [T, M], f0 [T] -> wav [T * hop] numpy."""

@@ -27,7 +27,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from diffsinger_tpu_torch.dsp.stft import istft, stft_complex
-from diffsinger_tpu_torch.utils import no_tf32, resolve_device
+from diffsinger_tpu_torch.utils import no_tf32, resolve_device, tracing
 from diffsinger_tpu_torch.utils.frames import runs_with_room
 from diffsinger_tpu_torch.vocoders.ddsp_combsub import hanning, to_bins
 from diffsinger_tpu_torch.vocoders.registry import register_vocoder
@@ -193,11 +193,12 @@ class DDSPNative:
         A log10 mel becomes a natural-log one (the JAX entry's rule). The
         noise comes from a ``torch.Generator`` seeded 0 at every call, unless
         ``noise`` [B, T * hop] injects it."""
-        mel = mel.float()
-        if self.hparams.get("mel_base", 10) != "e":
-            mel = 2.30259 * mel
-        generator = torch.Generator(device=mel.device).manual_seed(0)
-        return self.model(mel, f0.float(), noise=noise, generator=generator)
+        with tracing.span("ds.vocoder"):
+            mel = mel.float()
+            if self.hparams.get("mel_base", 10) != "e":
+                mel = 2.30259 * mel
+            generator = torch.Generator(device=mel.device).manual_seed(0)
+            return self.model(mel, f0.float(), noise=noise, generator=generator)
 
     def spec2wav(self, mel: np.ndarray, *, f0: np.ndarray, **kwargs) -> np.ndarray:
         """Single-item host API: mel [T, M], f0 [T] -> wav [T * hop] numpy."""

@@ -17,7 +17,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from diffsinger_tpu_torch.utils import resolve_device, resolve_precision
+from diffsinger_tpu_torch.utils import resolve_device, resolve_precision, tracing
 from diffsinger_tpu_torch.utils.frames import runs_with_room
 from diffsinger_tpu_torch.vocoders.nsf_hifigan_model import (
     Generator, NsfHifiGanConfig, VocoderNoise)
@@ -94,12 +94,13 @@ class NsfHifiGAN:
         call (the vocoder's noise does not depend on the request's seed, as in
         the JAX package), unless ``noise`` injects them.
         """
-        mel_base = self.hparams.get("mel_base", 10)
-        if mel_base != "e":
-            assert mel_base in (10, "10"), "mel_base must be 'e', '10' or 10."
-            mel = 2.30259 * mel  # log10 -> ln
-        generator = torch.Generator(device=mel.device).manual_seed(0)
-        return self.model(mel, f0, generator=generator, noise=noise)
+        with tracing.span("ds.vocoder"):
+            mel_base = self.hparams.get("mel_base", 10)
+            if mel_base != "e":
+                assert mel_base in (10, "10"), "mel_base must be 'e', '10' or 10."
+                mel = 2.30259 * mel  # log10 -> ln
+            generator = torch.Generator(device=mel.device).manual_seed(0)
+            return self.model(mel, f0, generator=generator, noise=noise)
 
     def spec2wav(self, mel: np.ndarray, *, f0: np.ndarray, **kwargs) -> np.ndarray:
         """Single-item host API: mel [T, M], f0 [T] -> wav [T * hop] numpy."""

@@ -151,8 +151,8 @@ def test_synthesize_batch_matches_segment_by_segment(servers):
         assert np.abs(w).max() > 0.05
         assert np.abs(g - w).max() <= SERVED_TOL
     for g, w in zip(ps.last_stats, js.last_stats):
-        assert g.keys() == w.keys()
-        for k in ("batch", "t_txt", "t_mel", "wire_mb", "compute_s"):
+        assert g.keys() == w.keys() - {"compute_s"}
+        for k in ("batch", "t_txt", "t_mel", "wire_mb"):
             assert g[k] == w[k], k
         assert g["dispatch_s"] > 0 and g["fetch_s"] >= 0
     assert [s["batch"] for s in ps.last_stats] == [2, 1]
@@ -164,14 +164,6 @@ def test_served_wavs_are_what_int16_holds(servers):
     steps16 = wavs[0] * 32767.0
     np.testing.assert_allclose(steps16, np.round(steps16), atol=2e-3)
     assert np.abs(wavs[0]).max() <= 1.0
-
-
-def test_compute_s_is_read_under_the_profile_switch(servers, monkeypatch, capsys):
-    _, ps = servers
-    monkeypatch.setenv("DS_SERVING_PROFILE", "1")
-    ps.synthesize_batch(_score(indices=(6,)), seed=1, steps=2)
-    assert ps.last_stats[0]["compute_s"] is not None and ps.last_stats[0]["compute_s"] >= 0
-    assert "| serve chunk B=1 [32x512]" in capsys.readouterr().out
 
 
 def test_same_seed_same_wavs_and_the_seed_matters(servers):
