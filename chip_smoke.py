@@ -6,16 +6,18 @@
 Phases, each printed as it ends; any failure exits non-zero:
 
 1. card and build: the card's name and power limit (nvidia-smi), then the
-   three CUDA kernels built from ``diffsinger_tpu_torch/ops/csrc`` at once;
+   kernel libraries built from ``diffsinger_tpu_torch/ops/csrc`` at once;
 2. kernels: each kernel against its plain PyTorch version at main-path
-   shapes in the working dtype (bf16; K3 float32), with the max abs error
+   shapes in the working dtype (bf16; K3 and K4 float32), with the max abs error
    beside its tolerance; K1 also at the shapes that break its tiles (ragged
    lengths, a length under the halo, an even and a one-tap kernel, a width
    that only the generic kernel takes), each with a large value in the last
    row of sequence 0 that must not reach sequence 1; K2 also in float32 at a
    small shape and in bf16 at ragged shapes (rows not a multiple of the tile,
    widths that are multiples of 32 and of nothing larger), K3 also at a
-   ragged length without a mask;
+   ragged length without a mask; K4 (the WaveNet's residual blocks) as a
+   stack of 20 blocks of 256 at a served chunk's [16, 861] and of 10 of 192,
+   with a large value in the last frame of row 0 that must not reach row 1;
 3. e2e: the acoustic model (configs/acoustic.yaml at full width, seeded
    random weights, 50 euler steps, bf16) and the mini-NSF vocoder, driven
    through ``DiffSingerAcoustic.forward_infer`` and ``Generator``: timed
@@ -403,15 +405,29 @@ def plain_kernels():
     """Route the model's kernel calls to the plain versions (for comparison only)."""
     from diffsinger_tpu_torch.models import commons
     from diffsinger_tpu_torch.models.backbones import lynxnet
-    from diffsinger_tpu_torch.ops import flash_attention, lynx_fused
+    from diffsinger_tpu_torch.ops import flash_attention, lynx_fused, wavenet_block
 
-    saved = lynxnet.fused_conv_module, commons.flash_attention
+    saved = lynxnet.fused_conv_module, commons.flash_attention, wavenet_block.residual_stack
     lynxnet.fused_conv_module = lynx_fused.fused_conv_module_plain
     commons.flash_attention = flash_attention.flash_attention_plain
+    wavenet_block.residual_stack = wavenet_block.residual_stack_plain
     try:
         yield
     finally:
-        lynxnet.fused_conv_module, commons.flash_attention = saved
+        lynxnet.fused_conv_module, commons.flash_attention, wavenet_block.residual_stack = saved
+
+
+def k4_launches(hp, flags=(True, True, True), calls=None) -> int:
+    """K4's launches in one forward of the variance model of ``hp`` with the
+    predictor ``flags`` (durations, pitch, variances): two a block of each
+    WaveNet the flags run, at each of the sampler's ``calls`` (its euler
+    steps unless given)."""
+    blocks = 0
+    if flags[1] and hp["predict_pitch"]:
+        blocks += hp["pitch_prediction_args"]["backbone_args"]["num_layers"]
+    if flags[2] and any(hp.get(f"predict_{v}") for v in VARIANCES):
+        blocks += hp["variances_prediction_args"]["backbone_args"]["num_layers"]
+    return 2 * (hp["sampling_steps"] if calls is None else calls) * blocks
 
 
 def load_score(name):
@@ -518,7 +534,7 @@ def serve_phase(hp, card, reset_counts, read_counts, request_profile):
 
     def expect(counts, chunks, what):
         want = {"K1": n_layers * STEPS * chunks, "K2": n_layers * STEPS * chunks,
-                "K3": n_enc * chunks}
+                "K3": n_enc * chunks, "K4": 0}
         log(f"[serve] {what}: launches {counts} (expected {want})")
         if counts != want:
             fail(f"{what}: launch counts {counts} != {want}")
@@ -647,8 +663,8 @@ def serve_phase(hp, card, reset_counts, read_counts, request_profile):
         hp32 = dict(shp, infer_precision="32")
         server32 = loaded("float32 server", AcousticServer, hp32, max_batch_size=SERVE_BATCH)
         three = load_score("08_qiu_yu.ds")[:3]
-        want = {"K1": n_layers * 8, "K2": n_layers * 8, "K3": n_enc}
-        none = {"K1": 0, "K2": 0, "K3": 0}
+        want = {"K1": n_layers * 8, "K2": n_layers * 8, "K3": n_enc, "K4": 0}
+        none = {"K1": 0, "K2": 0, "K3": 0, "K4": 0}
         reset_counts()
         wav_k = quiet(server32.synthesize_batch, three, seed=2, steps=8)
         counts = read_counts()
@@ -800,7 +816,8 @@ def variance_phase(acoustic_hp, card, reset_counts, read_counts, check, k3_case)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         counts = read_counts()
-        want = {"K1": 0, "K2": 0, "K3": n_enc * len(chunks)}
+        want = {"K1": 0, "K2": 0, "K3": n_enc * len(chunks),
+                "K4": sum(k4_launches(cfg, flags) for flags, _, _ in chunks)}
         log(f"[variance] launches {counts} (expected {want})")
         if counts != want:
             fail(f"variance serving: launch counts {counts} != {want}")
@@ -874,7 +891,7 @@ def variance_phase(acoustic_hp, card, reset_counts, read_counts, check, k3_case)
             raw_p = raw_durations(kw)
             dur_p = run(kw, (True, False, False))[0]
             _, pitch_p, var_p = run(kw_aligned, (False, True, True))
-        if read_counts()["K3"] != 0:
+        if any(read_counts().values()):
             fail("the plain variance runs launched a kernel")
         errs = {"durations": max_err(raw_k, raw_p), "pitch": max_err(pitch_k, pitch_p),
                 **{v: max_err(var_k[v], var_p[v]) for v in VARIANCES}}
@@ -923,7 +940,8 @@ def variance_phase(acoustic_hp, card, reset_counts, read_counts, check, k3_case)
                                          "--seed", "1", "--out", str(out_dir)])
         cli_s = time.perf_counter() - t0
         counts = read_counts()
-        if counts != {"K1": 0, "K2": 0, "K3": n_enc * len(load_score(score))}:
+        if counts != {"K1": 0, "K2": 0, "K3": n_enc * len(load_score(score)), "K4": sum(
+                k4_launches(cfg, server.segment_flags(p)) for p in load_score(score))}:
             fail(f"variance entry point: launch counts {counts}")
         with open(out_dir / "01_score_only.ds", encoding="utf-8") as f:
             written = json.load(f)
@@ -966,7 +984,7 @@ def ddpm_phase(hp, card, reset_counts, read_counts, request):
     out, launches = {}, {}
     for acc, extra in DDPM_ACCELERATORS:
         calls = steps + extra
-        want = {"K1": n_layers * calls, "K2": n_layers * calls, "K3": n_enc}
+        want = {"K1": n_layers * calls, "K2": n_layers * calls, "K3": n_enc, "K4": 0}
         for m in (model, model32):
             m.hp["diff_accelerator"] = acc
         times = []
@@ -992,7 +1010,7 @@ def ddpm_phase(hp, card, reset_counts, read_counts, request):
         reset_counts()
         with plain_kernels():
             mel_p = model32.forward_infer(*small, noise=noise).diff_out
-        if read_counts() != {"K1": 0, "K2": 0, "K3": 0}:
+        if read_counts() != {"K1": 0, "K2": 0, "K3": 0, "K4": 0}:
             fail(f"ddpm {acc}: the plain run launched a kernel")
         err = max_err(mel_k, mel_p)
         out[acc] = {"denoiser_calls": calls, "times_s": times, "frames_per_s": fps,
@@ -1117,7 +1135,7 @@ def ddpm_export_check(root, hp0, card, request, noise, reset_counts, read_counts
     depth, steps = float(runtime.manifest["max_depth"]), int(runtime.manifest["sampling_steps"])
     calls = ddim_dynamic_calls(hp["timesteps"], hp["K_step"], depth, steps, shallow=True)
     n_layers = hp["backbone_args"]["num_layers"]
-    want = {"K1": n_layers * calls, "K2": n_layers * calls, "K3": hp["enc_layers"]}
+    want = {"K1": n_layers * calls, "K2": n_layers * calls, "K3": hp["enc_layers"], "K4": 0}
     tokens, mel2ph, f0 = request
     reset_counts()
     mel_pt2 = runtime.synthesize_mel(tokens, mel2ph, f0, noise=noise)
@@ -1251,10 +1269,10 @@ def variance_export_check(root, card, reset_counts, read_counts, acoustic_runtim
     four variances (seeded weights) exported on the card in both formats at
     (64, 512) and (16, 64); each ``.pt2`` view through VarianceArtifactRuntime
     against the eager view on the same padded inputs and noise (within 1e-6),
-    with its launches; each view's request timed in turns with eager; the
-    chain variance -> acoustic -> vocoder through the three runtimes; the
-    small bucket's ONNX pitch and variance graphs through the interpreter
-    against the card (1e-3)."""
+    with its launches (K4 in the pitch and variance views); each view's
+    request timed in turns with eager; the chain variance -> acoustic ->
+    vocoder through the three runtimes; the small bucket's ONNX pitch and
+    variance graphs through the interpreter against the card (1e-3)."""
     import numpy as np
     import torch
 
@@ -1320,15 +1338,18 @@ def variance_export_check(root, card, reset_counts, read_counts, acoustic_runtim
         "pitch": max_err(torch.from_numpy(pitch), pitch_e[:, :t_mel].cpu()),
         **{v: max_err(torch.from_numpy(curves[v]), c[:, :t_mel].cpu())
            for v, c in zip(names, curves_e)}}
-    zero = {"K1": 0, "K2": 0, "K3": 0}
-    want = {"linguistic": dict(zero, K3=n_enc), "pitch": zero, "variance": zero}
+    zero = {"K1": 0, "K2": 0, "K3": 0, "K4": 0}
+    want = {"linguistic": dict(zero, K3=n_enc),
+            "pitch": dict(zero, K4=k4_launches(hp, (False, True, False), steps)),
+            "variance": dict(zero, K4=k4_launches(hp, (False, False, True), steps))}
     out.update(launches=launches, eager_launches=eager_launches, max_abs_err_vs_eager=errs,
                request=[t_ph, t_mel])
     log(f"[export] variance .pt2 request [1,{t_ph}] x [1,{t_mel}] in bucket ({bp}, {bm}), "
         f"{steps} steps: launches {launches} (expected {want}; K3-bwd {bwd}), eager "
         f"{eager_launches}; max|.pt2 - eager| "
         + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()) + " (tolerance 1e-6, float32)")
-    if launches != want or bwd or eager_launches != dict(zero, K3=n_enc):
+    if launches != want or bwd or eager_launches != dict(zero, K3=n_enc,
+                                                         K4=k4_launches(hp, calls=steps)):
         fail(f"export: the variance .pt2 views launched {launches} (K3-bwd {bwd}), eager "
              f"{eager_launches}, not {want}")
     if not (all(v <= 1e-6 for v in errs.values()) and np.isfinite(pitch).all()
@@ -1495,7 +1516,7 @@ def export_checks(root, card, reset_counts, read_counts):
     mel_eager = eager(tokens, mel2ph, f0, noise, steps, depth).cpu().numpy()
     eager_counts = read_counts()
     err = float(np.abs(mel_pt2 - mel_eager).max())
-    want = {"K1": n_layers * steps, "K2": n_layers * steps, "K3": n_enc}
+    want = {"K1": n_layers * steps, "K2": n_layers * steps, "K3": n_enc, "K4": 0}
     log(f"[export] .pt2 request [1,{t_txt}] x [1,{t_mel}], {steps} steps: launches {counts} "
         f"(eager {eager_counts}, expected {want}); max|mel .pt2 - eager| {err:.3e} "
         f"(tolerance 1e-4, float32)")
@@ -1709,7 +1730,7 @@ def check_resume(tag, task, task_cls, hp):
 TRAIN_B, TRAIN_T_TXT, TRAIN_T_MEL = 48, 128, 1024
 TRAIN_LENGTHS = (600, 1024)  # segment lengths in frames
 TRAIN_STEPS, TRAIN_WARMUP = 10, 3  # timed steps, after the warm-ups
-TRAIN_PER_STEP = {"K1": 6, "K2": 6, "K3": 4, "K3bwd": 4}
+TRAIN_PER_STEP = {"K1": 6, "K2": 6, "K3": 4, "K4": 0, "K3bwd": 4}
 
 
 def train_items(rng, n, t_txt, t_mel, n_mels, lo, hi):
@@ -1895,7 +1916,7 @@ def train_phase(card, reset_counts, read_counts, check):
 
 VAR_TRAIN_B = 48
 VAR_TRAIN_LENGTHS = (1000, 1664)  # segment lengths in frames
-VAR_TRAIN_PER_STEP = {"K1": 0, "K2": 0, "K3": 4, "K3bwd": 4}
+VAR_TRAIN_PER_STEP = {"K1": 0, "K2": 0, "K3": 4, "K4": 0, "K3bwd": 4}
 
 
 def variance_train_items(rng, n, lo, hi, n_ph_first):
@@ -2113,7 +2134,7 @@ def train_variance_phase(card, reset_counts, read_counts, check):
     n_layers = len(melody.encoder.layers)
     log(f"[train_variance] the full-width melody encoder, forward and backward at B={b_}, "
         f"T_note={t_note}: launches {melody_counts}")
-    if melody_counts != {"K1": 0, "K2": 0, "K3": n_layers, "K3bwd": n_layers} or \
+    if melody_counts != {"K1": 0, "K2": 0, "K3": n_layers, "K4": 0, "K3bwd": n_layers} or \
             not torch.isfinite(mel_out).all():
         fail(f"[train_variance] the melody encoder's launches {melody_counts} are not "
              f"{n_layers} K3 and {n_layers} K3-bwd, or its output is not finite")
@@ -3016,7 +3037,7 @@ def binarize_phase(card, reset_counts, read_counts):
     runs += [("acoustic", what, names) for what, names in BIN_AUGMENTATION.items()]
     runs += [("variance", "no augmentation (the family has none)", ())]
     stores = {}
-    counts = {"K1": 0, "K2": 0, "K3": 0, "K3bwd": 0}
+    counts = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K3bwd": 0}
     report["runs"] = []
     for i, (family, what, aug) in enumerate(runs):
         out = tmp / f"{family}_{i}"
@@ -3399,7 +3420,7 @@ def binarize_ext_phase(card, reset_counts, read_counts):
         with wave.open(str(wav_fn)) as f:
             lengths[wav_fn.stem] = f.getnframes()
     buckets = sorted({(n // vr_hop + 1) // 32 for n in lengths.values()})
-    stores, counts, report["runs"] = {}, {"K1": 0, "K2": 0, "K3": 0, "K3bwd": 0}, []
+    stores, counts, report["runs"] = {}, {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K3bwd": 0}, []
     shortest = min(raw_w.glob("wavs/*.wav"), key=lambda p: p.stat().st_size).stem
     runs = [(*EXT_RUNS[0], raw, "first pass"), (*EXT_RUNS[0], raw, "again"),
             (*EXT_RUNS[1], raw, ""), (*EXT_RUNS[2], raw_w, "")]
@@ -3892,7 +3913,8 @@ def pipeline_checks(tmp: Path, card, reset_counts, read_counts):
     for family, exp, depth, key, resumed in PIPE_TRAINS:
         hp = load_config(configs[family])
         n_layers = hp["backbone_args"]["num_layers"] if family == "acoustic" else 0
-        want = {"K1": n_layers, "K2": n_layers, "K3": hp["enc_layers"], "K3bwd": hp["enc_layers"]}
+        want = {"K1": n_layers, "K2": n_layers, "K3": hp["enc_layers"], "K4": 0,
+                "K3bwd": hp["enc_layers"]}
         runs = []
         if depth is None:
             os.environ.pop("DS_PREFETCH_DEPTH", None)
@@ -3996,7 +4018,8 @@ def pipeline_checks(tmp: Path, card, reset_counts, read_counts):
     sr, hop = ac_hp["audio_sample_rate"], ac_hp["hop_size"]
     steps = ac_hp["sampling_steps"]
     n_layers, n_enc = ac_hp["backbone_args"]["num_layers"], ac_hp["enc_layers"]
-    var_enc = load_config(exp_name="pipe_var", infer=True, ckpt_root=ckpt_root)["enc_layers"]
+    var_hp = load_config(exp_name="pipe_var", infer=True, ckpt_root=ckpt_root)
+    var_enc = var_hp["enc_layers"]
     chain = tmp / "chain"
     calls = [("variance", ROOT / "samples" / PIPE_SCORE, "pipe_var", chain / "ds"),
              ("acoustic", chain / "ds" / PIPE_SCORE, "pipe_ac", chain / "wav"),
@@ -4013,7 +4036,11 @@ def pipeline_checks(tmp: Path, card, reset_counts, read_counts):
             score = json.load(f)
         n_seg = len(score)
         if kind == "variance":
-            want = {"K1": 0, "K2": 0, "K3": var_enc * n_seg, "K3bwd": 0}
+            # without --predict, cli.infer completes what each segment lacks
+            k4 = sum(k4_launches(var_hp, (seg.get("ph_dur") is None, seg.get("f0_seq") is None,
+                                          any(seg.get(v) is None for v in VARIANCES)))
+                     for seg in score)
+            want = {"K1": 0, "K2": 0, "K3": var_enc * n_seg, "K4": k4, "K3bwd": 0}
             with open(out_dir / score_path.name, encoding="utf-8") as f:
                 written = json.load(f)
             values = [np.asarray(seg[k].split(), np.float64) for seg in written
@@ -4022,7 +4049,7 @@ def pipeline_checks(tmp: Path, card, reset_counts, read_counts):
             what = f"{len(written)} segments with ph_dur, f0_seq and the four curves, finite"
         else:
             want = {"K1": n_layers * steps * n_seg, "K2": n_layers * steps * n_seg,
-                    "K3": n_enc * n_seg, "K3bwd": 0}
+                    "K3": n_enc * n_seg, "K4": 0, "K3bwd": 0}
             with wave.open(str(out_dir / (score_path.stem + ".wav"))) as f:
                 rate, n_samples = f.getframerate(), f.getnframes()
                 pcm = np.frombuffer(f.readframes(n_samples), np.int16)
@@ -4069,7 +4096,7 @@ def pipeline_checks(tmp: Path, card, reset_counts, read_counts):
                                                int(rt.manifest["sampling_steps"]),
                                                float(rt.manifest["max_depth"])).cpu().numpy()}
             n = hp["backbone_args"]["num_layers"] * int(rt.manifest["sampling_steps"])
-            want = {"K1": n, "K2": n, "K3": hp["enc_layers"], "K3bwd": 0}
+            want = {"K1": n, "K2": n, "K3": hp["enc_layers"], "K4": 0, "K3bwd": 0}
         else:
             model = quiet(DiffSingerVarianceExporter, hp, tmp / "unused").model
             rt = VarianceArtifactRuntime(art)
@@ -4093,7 +4120,8 @@ def pipeline_checks(tmp: Path, card, reset_counts, read_counts):
                           "pitch": pitch_e[:, :t_mel].cpu().numpy(),
                           **{v: ce[:, :t_mel].cpu().numpy()
                              for v, ce in zip(rt.variance_names(), curves_e)}}
-            want = {"K1": 0, "K2": 0, "K3": hp["enc_layers"], "K3bwd": 0}
+            want = {"K1": 0, "K2": 0, "K3": hp["enc_layers"],
+                    "K4": k4_launches(hp, calls=int(rt.manifest["sampling_steps"])), "K3bwd": 0}
         equal = {k: bool(np.array_equal(got[k], want_eager[k])) for k in got}
         report[f"export_{family}"] = {"seconds": wall, "artifact_mb": mb, "export_launches": c,
                                       "request_launches": run_counts, "bit_equal": equal}
@@ -4216,7 +4244,7 @@ def lynx_act_phase(hp, card, reset_counts, read_counts, check, request, run, voc
     if not isinstance(model32.module.denoiser.residual_layers[0].convmodule.net[5], torch.nn.SiLU):
         fail("[lynx_act] the SiLU config did not build nn.SiLU into the conv module")
     inputs = request(B, T_TXT, T_MEL)
-    per_request = {"K1": n_layers * STEPS, "K2": n_layers * STEPS, "K3": n_enc}
+    per_request = {"K1": n_layers * STEPS, "K2": n_layers * STEPS, "K3": n_enc, "K4": 0}
     launches = {}
     for act in LYNX_ACTIVATIONS:
         model = DiffSingerAcoustic(hp_act[act], vocab_size=VOCAB, out_dims=n_mels, dtype=bf)
@@ -4258,7 +4286,7 @@ def lynx_act_phase(hp, card, reset_counts, read_counts, check, request, run, voc
     card_counts = read_counts()
     mel_cpu = cpu32.forward_infer(*(t.cpu() for t in small), steps=a["steps"], noise=noise).diff_out
     err = max_err(mel_card.cpu(), mel_cpu)
-    want = {"K1": n_layers * a["steps"], "K2": n_layers * a["steps"], "K3": n_enc}
+    want = {"K1": n_layers * a["steps"], "K2": n_layers * a["steps"], "K3": n_enc, "K4": 0}
     log(f"[lynx_act] SiLU f32 request B={a['b']} T_mel={a['t_mel']} {a['steps']} steps, card vs "
         f"CPU: max|mel err| {err:.3e} (tolerance 1e-3); card launches {card_counts} "
         f"(expected {want})")
@@ -4324,7 +4352,7 @@ def lynx_act_phase(hp, card, reset_counts, read_counts, check, request, run, voc
         mel_eager = eager_dynamic(exporter.model, tokens, mel2ph, f0, noise, steps,
                                   depth).cpu().numpy()
         eager_counts = read_counts()
-        want = {"K1": n_layers * steps, "K2": n_layers * steps, "K3": n_enc}
+        want = {"K1": n_layers * steps, "K2": n_layers * steps, "K3": n_enc, "K4": 0}
         equal = bool(np.array_equal(mel_pt2, mel_eager))
         log(f"[lynx_act] SiLU .pt2 at {LYNX_ACT_BUCKET} exported on the card in {export_s:.1f} s; "
             f"a request ({steps} steps, float32): launches {pt2_counts} (eager {eager_counts}, "
@@ -4565,7 +4593,7 @@ def vocoder_checks(root, card, reset_counts, read_counts, hp, mel, f0):
             log(f"[vocoders] {name}: max|err| / peak against float64: card {errs['vs_float64'] * max(cpu_err, 1e-7):.3e}, "
                 f"CPU {cpu_err:.3e}; card vs CPU log-mel mean |err| {mel_mae:.3e}")
         ok = all(v <= VOCODER_TOL[k] for k, v in errs.items()) and counts == {"K1": 0, "K2": 0,
-                                                                             "K3": 0}
+                                                                             "K3": 0, "K4": 0}
         mean_s = sum(times) / len(times)
         out[name] = {"times_s": times, "s_per_audio_s": mean_s / audio_s, "errors": errs,
                      "log_mel_mae": mel_mae, "kernel_counters": counts, "profile": prof,
@@ -4726,12 +4754,15 @@ def main() -> None:
     from diffsinger_tpu_torch.config import load_config
     from diffsinger_tpu_torch.models.backbones.lynxnet import LYNXConvModule
     from diffsinger_tpu_torch.models.toplevel import DiffSingerAcoustic
-    from diffsinger_tpu_torch.ops import depthwise_conv, flash_attention, lynx_fused, native
+    from diffsinger_tpu_torch.ops import (
+        depthwise_conv, flash_attention, lynx_fused, native, wavenet_block)
+    from diffsinger_tpu_torch.utils import no_tf32
     from diffsinger_tpu_torch.vocoders.nsf_hifigan_model import Generator, NsfHifiGanConfig
 
     dev = torch.device("cuda")
     report = {"phases": {}}
-    counters = {"K1": depthwise_conv, "K2": lynx_fused, "K3": flash_attention}
+    counters = {"K1": depthwise_conv, "K2": lynx_fused, "K3": flash_attention,
+                "K4": wavenet_block}
 
     def reset_counts():
         for m in counters.values():
@@ -4896,6 +4927,36 @@ def main() -> None:
         served_args = k3_served_case(b_s, 48)
         check(f"K3 f32 [{b_s},2,48,128] padded", flash_attention.flash_attention(*served_args),
               flash_attention.flash_attention_plain(*served_args), 1e-4)
+
+    # K4 in float32 at the pitch WaveNet's served chunk (20 blocks of 256,
+    # dilations 1-16) and at the variance WaveNet's width (10 of 192, 1-8),
+    # against the plain stack with TF32 off. A large value in the last frame
+    # of row 0 must not reach row 1, whose rows are held to a tolerance of
+    # their own.
+    def k4_case(b, t, c, layers, cycle):
+        dilations = [2 ** (i % cycle) for i in range(layers)]
+        xw = randn(b, t, c)
+        xw[0, -1] = 100.0
+        args = (xw, randn(b, c), randn(layers, b, t, 2 * c),
+                [randn(c, c, scale=c ** -0.5) for _ in dilations],
+                [randn(c, scale=0.1) for _ in dilations],
+                [randn(2 * c, c, 3, scale=(3 * c) ** -0.5) for _ in dilations],
+                [randn(2 * c, scale=0.1) for _ in dilations],
+                [randn(2 * c, c, 1, scale=c ** -0.5) for _ in dilations],
+                [randn(2 * c, scale=0.1) for _ in dilations], dilations)
+        before = wavenet_block.launches
+        got = wavenet_block.residual_stack(*args)
+        if wavenet_block.launches != before + 2 * layers:
+            fail("K4's launch counter did not move by two a block")
+        with no_tf32():
+            want_k = wavenet_block.residual_stack_plain(*args)
+        name = f"K4 f32 [{b},{t},{c}] x {layers} blocks"
+        err = check(name, got, want_k, 1e-4)
+        check(name + ", rows after the first", got[1:], want_k[1:], 1e-4)
+        return args, err
+
+    k4_args, k4_err = k4_case(B, 861, 256, 20, 5)
+    k4_case(B, 861, 192, 10, 4)
     torch.cuda.synchronize()
     report["phases"]["kernels"] = checks
     if not all(c["ok"] for c in checks):
@@ -4953,7 +5014,7 @@ def main() -> None:
 
     def expect_counts(counts, n_req, phase):
         want = {"K1": n_layers * STEPS * n_req, "K2": n_layers * STEPS * n_req,
-                "K3": n_enc * n_req}
+                "K3": n_enc * n_req, "K4": 0}
         log(f"[e2e] {phase}: launches {counts} (expected {want})")
         if counts != want:
             fail(f"{phase}: launch counts {counts} != {want}")
@@ -5036,7 +5097,7 @@ def main() -> None:
     with plain_kernels():
         mel_p, wav_p, _, _ = run(model32, vocoder32, *small_req, noise_seed=13)
     torch.cuda.synchronize()
-    if read_counts() != {"K1": 0, "K2": 0, "K3": 0}:
+    if read_counts() != {"K1": 0, "K2": 0, "K3": 0, "K4": 0}:
         fail("the plain run launched a kernel")
     mel_err, wav_err = max_err(mel_k, mel_p), max_err(wav_k, wav_p)
     # float32 throughout, sums in another order over 50 steps: the fidelity
@@ -5080,7 +5141,7 @@ def main() -> None:
               flash_attention.flash_attention_plain(*served_args), 1e-4)
         # K2's wrapper launches K1 as its middle stage
         if read_counts() != {"K1": before["K1"] + 2, "K2": before["K2"] + 1,
-                             "K3": before["K3"] + 1}:
+                             "K3": before["K3"] + 1, "K4": before["K4"]}:
             fail(f"a launch counter did not move at the served shape {(b_s, t_txt_s, t_mel_s)}")
     if len(checks) == n_before:
         fail("the serve phase reported no chunk shape")
@@ -5150,6 +5211,18 @@ def main() -> None:
         return 4 * pairs * q.shape[-1], 4 * 4 * q.numel() + pad.numel()
 
     k3_ops, k3_bytes = k3_bound(q, pad)
+    # K4, a block: the dilated conv (K = 3C, N = 2C) and the output projection
+    # (K = C, N = 2C) on the CUDA cores; bytes: x + d, the conditioner's 2C,
+    # z written and read, x, x', the next x + d, the skip sum read and
+    # written, and the weights
+    k4_x, _, _, _, _, _, _, _, _, k4_dil = k4_args
+    k4_m, k4_c = k4_x.shape[0] * k4_x.shape[1], k4_x.shape[2]
+    k4_ops = 2 * k4_m * 3 * k4_c * 2 * k4_c + 2 * k4_m * k4_c * 2 * k4_c
+    k4_bytes = 4 * (10 * k4_m * k4_c + 8 * k4_c * k4_c + 4 * k4_c)
+
+    def k4_plain():  # the float32 the configuration states: TF32 off
+        with no_tf32():
+            return wavenet_block.residual_stack_plain(*k4_args)
 
     # K1 at the long phrase's shape (B=1, T_mel=4096), where the grid is thinnest
     s_l = randn(1, 4096, I, dtype=bf)
@@ -5230,6 +5303,12 @@ def main() -> None:
          lambda: flash_attention.flash_attention_plain(*k3_args),
          lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=visible),
          max(k3_bytes / PEAK_BYTES, k3_ops / PEAK_F32), k3_bytes / PEAK_BYTES >= k3_ops / PEAK_F32),
+        # the whole stack of 20 blocks; a block's share is logged below
+        ("K4", "residual_stack", "diffsinger_tpu_torch/ops/csrc/wavenet_block.cu",
+         None, k4_err, lambda: wavenet_block.residual_stack(*k4_args),
+         k4_plain, None,
+         len(k4_dil) * max(k4_bytes / PEAK_BYTES, k4_ops / PEAK_F32),
+         k4_bytes / PEAK_BYTES >= k4_ops / PEAK_F32),
     ]
     kernels = []
     for key, name, src, replaces, err, fn, plain, lib, bound_s, by_bytes in lines:
@@ -5261,6 +5340,11 @@ def main() -> None:
             f"{entry['bound_by']}; plain {entry['plain_ms']:.4f} ms; library "
             f"{entry['library_ms'] if entry['library_ms'] is None else '%.4f ms' % entry['library_ms']}) "
             f"on {card}")
+    k4_blocks = len(k4_dil)
+    log(f"[time] K4 a block at [{B},861,256] (the stack's {k4_blocks} blocks, float32): "
+        f"{kernels[-1]['ms'] / k4_blocks:.4f} ms (bound {kernels[-1]['bound_ms'] / k4_blocks:.4f} "
+        f"ms by {kernels[-1]['bound_by']}; plain {kernels[-1]['plain_ms'] / k4_blocks:.4f} ms; "
+        f"library null) on {card}")
     kernels += act_kernels  # K1 and K2 with SiLU and ReLU, timed in [lynx_act]
     # K3's backward at the training batch's shape and the long shape: the
     # wrapper (dK/dV with delta and dS, then dQ), each kernel alone, the plain

@@ -17,8 +17,8 @@ files (acoustic, variance), ``vocoder.yaml`` (vocoder).
 
 A ``.pt2`` is exported on the device it will run on (the card unless
 ``device='cpu'``), which the manifest records: in it LYNXNet's conv module is
-K2 and the encoders' attention K3 (``ds::`` custom ops), launched on the
-card. The ONNX graphs hold the kernels' plain versions, as the JAX package's
+K2, the encoders' attention K3 and the WaveNets' residual blocks K4 (``ds::``
+custom ops), launched on the card. The ONNX graphs hold the kernels' plain versions, as the JAX package's
 hold no Pallas. Artifacts are float32 whatever ``infer_precision`` says.
 """
 

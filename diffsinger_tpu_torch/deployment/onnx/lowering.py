@@ -4,7 +4,7 @@ The JAX package lowers a jaxpr (``diffsinger_tpu/deployment/onnx/lowering.py``);
 the port lowers the FX graph of a ``torch.export`` ``ExportedProgram``:
 
 1. the kernels' custom ops (``ds::fused_conv_module``, ``ds::flash_attention``,
-   ``ds::depthwise_conv1d_prelu``) are replaced by their plain PyTorch
+   ``ds::depthwise_conv1d_prelu``, ``ds::wavenet_stack``) are replaced by their plain PyTorch
    versions through ``run_decompositions``: ONNX cannot hold a CUDA kernel,
    as the JAX package's graphs hold no Pallas;
 2. everything else is decomposed to core ATen;
@@ -748,7 +748,7 @@ def plain_decompositions() -> dict:
     its plain PyTorch version, which takes the op's arguments as they are
     (K1's and K2's ``activation`` included: SiLU decomposes to a product
     with a sigmoid, ReLU to a maximum)."""
-    from diffsinger_tpu_torch.ops import depthwise_conv, flash_attention, lynx_fused
+    from diffsinger_tpu_torch.ops import depthwise_conv, flash_attention, lynx_fused, wavenet_block
 
     table = torch.export.default_decompositions()
     table[torch.ops.ds.fused_conv_module.default] = lynx_fused.fused_conv_module_plain
@@ -756,6 +756,7 @@ def plain_decompositions() -> dict:
     table[torch.ops.ds.flash_attention.default] = (
         lambda q, k, v, mask, sm_scale: flash_attention.flash_attention_plain(
             q, k, v, mask, sm_scale=sm_scale))
+    table[torch.ops.ds.wavenet_stack.default] = wavenet_block.residual_stack_plain
     return table
 
 

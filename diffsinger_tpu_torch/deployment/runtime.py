@@ -6,7 +6,7 @@ A runtime reads the manifest the exporter wrote (``dsconfig.yaml`` or
 ``vocoder.yaml``), picks the smallest bucket that fits the input, pads,
 runs the loaded program (``torch.export.load(...).module()``) and trims the
 output. The programs call the kernels' custom ops (``ds::``), which the
-imports below register: on the card they launch K2 and K3. Programs are
+imports below register: on the card they launch K2, K3 and K4. Programs are
 called from a roomy frame (``utils.frames.with_room``). A runtime serves
 only a bundle exported for its own device type: it does not move a program
 between devices. Float32 programs run with TF32 off (``utils.no_tf32``), as
@@ -24,7 +24,8 @@ import yaml
 
 from diffsinger_tpu_torch.models.acoustic_encoder import VARIANCE_CHECKLIST
 # registers the ds:: custom ops that the programs call
-from diffsinger_tpu_torch.ops import depthwise_conv, flash_attention, lynx_fused  # noqa: F401
+from diffsinger_tpu_torch.ops import (  # noqa: F401
+    depthwise_conv, flash_attention, lynx_fused, wavenet_block)
 from diffsinger_tpu_torch.utils import no_tf32, resolve_device
 from diffsinger_tpu_torch.utils.frames import with_room
 

@@ -7,7 +7,15 @@ torch names (``input_projection``, ``mlp.0``/``mlp.2``,
 ``residual_layers.{i}.{dilated_conv,diffusion_projection,
 conditioner_projection,output_projection}``, ``skip_projection``,
 ``output_projection``). The JAX package computes the dilated conv outside any
-Pallas kernel, so it is a stock ``F.conv1d`` here. With ``remat``
+Pallas kernel, so it is a stock ``F.conv1d`` here, except on the card
+without autograd: there the residual blocks run on K4
+(``ops/wavenet_block.py``), two kernels a block and the blocks' step
+projections one product a step, and ``torch.export`` records them as the
+operator ``ds::wavenet_stack``, so an exported program launches K4 too.
+Training (a gradient wanted), ``torch.compile``, the CPU and other devices
+take the stock ops. The counters ``wavenet.fused_blocks`` and
+``wavenet.stock_blocks`` count the blocks each way takes
+(``utils/tracing.py``). With ``remat``
 (``recompute_grads``) each block is recomputed on the backward pass where
 gradients are wanted (``models.commons.run_layer``).
 """
@@ -23,6 +31,8 @@ import torch.nn.functional as F
 
 from diffsinger_tpu_torch.models.backbones.lynxnet import pointwise_conv
 from diffsinger_tpu_torch.models.commons import resolve_remat_policy, run_layer, sinusoidal_pos_emb
+from diffsinger_tpu_torch.ops import wavenet_block
+from diffsinger_tpu_torch.utils import tracing
 
 
 def mish(x: torch.Tensor) -> torch.Tensor:
@@ -44,15 +54,12 @@ class ResidualBlock(nn.Module):
         """x [B, T, C]; conditioner [B, T, H]; diffusion_step [B, C]; cond_proj,
         the hoisted conditioner projection [B, T, 2C], replaces the projection.
         Returns (residual output [B, T, C], skip [B, T, C])."""
-        y = x + self.diffusion_projection(diffusion_step)[:, None, :]
-        y = F.conv1d(y.transpose(1, 2), self.dilated_conv.weight, self.dilated_conv.bias,
-                     padding=self.dilation, dilation=self.dilation).transpose(1, 2)
         if cond_proj is None:
             cond_proj = pointwise_conv(self.conditioner_projection, conditioner)
-        gate, filt = (y + cond_proj).chunk(2, dim=-1)
-        y = pointwise_conv(self.output_projection, torch.sigmoid(gate) * torch.tanh(filt))
-        residual, skip = y.chunk(2, dim=-1)
-        return (x + residual) / math.sqrt(2.0), skip
+        return wavenet_block.wavenet_block_plain(
+            x, self.diffusion_projection(diffusion_step), cond_proj, self.dilated_conv.weight,
+            self.dilated_conv.bias, self.output_projection.weight, self.output_projection.bias,
+            self.dilation)
 
 
 class WaveNet(nn.Module):
@@ -77,6 +84,17 @@ class WaveNet(nn.Module):
         self.output_projection = nn.Conv1d(c, in_dims * n_feats, 1)
         nn.init.zeros_(self.output_projection.weight)
 
+    def on_k4(self, x: torch.Tensor) -> bool:
+        """Whether the residual blocks run on K4 for input x: while
+        ``torch.export`` traces, or on the card where no gradient is wanted
+        and ``torch.compile`` is not tracing. K4's wrapper raises on what its
+        kernels do not take."""
+        if torch.compiler.is_exporting():
+            return True
+        grad = torch.is_grad_enabled() and (x.requires_grad
+                                            or any(p.requires_grad for p in self.parameters()))
+        return x.is_cuda and not grad and not torch.compiler.is_compiling()
+
     def forward(self, spec: torch.Tensor, diffusion_step: torch.Tensor, cond: torch.Tensor,
                 cond_proj: Optional[torch.Tensor] = None) -> torch.Tensor:
         """``diffusion_step`` [B], int (DDPM) or float (reflow, fast solvers);
@@ -87,11 +105,29 @@ class WaveNet(nn.Module):
         x = F.relu(pointwise_conv(self.input_projection, spec.to(dtype)))
         step = sinusoidal_pos_emb(diffusion_step, self.num_channels).to(dtype)
         step = self.mlp[2](mish(self.mlp[0](step)))
-        skip_sum = torch.zeros_like(x)
-        for i, layer in enumerate(self.residual_layers):
-            x, skip = run_layer(layer, self.remat, x, cond, step,
-                                None if cond_proj is None else cond_proj[i])
-            skip_sum = skip_sum + skip
+        layers = self.residual_layers
+        if self.on_k4(x):
+            tracing.add("wavenet.fused_blocks", len(layers))
+            if cond_proj is None:
+                cond_proj = torch.stack([pointwise_conv(layer.conditioner_projection, cond)
+                                         for layer in layers])
+            stack = (wavenet_block.residual_stack_op if torch.compiler.is_exporting()
+                     else wavenet_block.residual_stack)
+            skip_sum = stack(
+                x, step, cond_proj, [layer.diffusion_projection.weight for layer in layers],
+                [layer.diffusion_projection.bias for layer in layers],
+                [layer.dilated_conv.weight for layer in layers],
+                [layer.dilated_conv.bias for layer in layers],
+                [layer.output_projection.weight for layer in layers],
+                [layer.output_projection.bias for layer in layers],
+                [layer.dilation for layer in layers])
+        else:
+            tracing.add("wavenet.stock_blocks", len(layers))
+            skip_sum = torch.zeros_like(x)
+            for i, layer in enumerate(layers):
+                x, skip = run_layer(layer, self.remat, x, cond, step,
+                                    None if cond_proj is None else cond_proj[i])
+                skip_sum = skip_sum + skip
         x = skip_sum / math.sqrt(len(self.residual_layers))
         x = F.relu(pointwise_conv(self.skip_projection, x))
         return pointwise_conv(self.output_projection, x)

@@ -34,7 +34,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-KERNEL_SOURCES = ("depthwise_conv", "lynx_fused", "flash_attention")
+KERNEL_SOURCES = ("depthwise_conv", "lynx_fused", "flash_attention", "wavenet_block")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -49,6 +49,8 @@ SIGNATURES = {
     ("lynx_fused", "ds_lynx_pw2"): (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     ("flash_attention", "ds_flash_attn_fwd"): (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P),
     ("flash_attention", "ds_flash_attn_bwd"): (_P,) * 11 + (_I, _I, _I, _I, _F, _I, _P),
+    ("wavenet_block", "ds_wavenet_conv_gate"): (_P,) * 5 + (_I,) * 4 + (_P,),
+    ("wavenet_block", "ds_wavenet_out_skip"): (_P,) * 6 + (_I, _F, _P, _P) + (_I,) * 4 + (_P,),
 }
 
 

@@ -11,7 +11,7 @@ bf16 ulps of the largest output.
 import pytest
 import torch
 
-from diffsinger_tpu_torch.ops import depthwise_conv, flash_attention, lynx_fused
+from diffsinger_tpu_torch.ops import depthwise_conv, flash_attention, lynx_fused, wavenet_block
 
 pytestmark = pytest.mark.cuda
 
@@ -893,7 +893,8 @@ def test_exported_variance_views_launch_k3_on_the_card(dev, tmp_path, core):
     card, saved and loaded: the linguistic program launches K3 once an
     encoder layer, the pitch program once a melody-encoder layer, the
     variance program none, no view K1, K2 or K3's backward, and each equals
-    the eager view on the same inputs and noise (float32, 1e-6)."""
+    the eager view on the same inputs and noise (float32, 1e-6); the pitch
+    and variance programs launch K4 for their WaveNets, as eager does."""
     from pathlib import Path
 
     from diffsinger_tpu_torch.config import load_config
@@ -959,13 +960,16 @@ def test_exported_variance_views_launch_k3_on_the_card(dev, tmp_path, core):
     assert n == (0, 0, hp["enc_layers"], 0)
     want, _ = launches(lambda: eager(*ling.values()))
     assert _max_err(enc, want[0]) <= 1e-6 and _max_err(dur, want[1]) <= 1e-6
-    for view, inputs, k3 in (("pitch", pitch_in, 2), ("variance", var_in, 0)):
+    # denoiser calls: 3 euler steps; DDIM at a speedup of 25 visits 75, 50, 25, 0
+    calls = 3 if core == "reflow" else 4
+    for view, inputs, k3, blocks in (("pitch", pitch_in, 2, 4), ("variance", var_in, 0, 2)):
         inputs["encoder_out"] = enc
         eager, program = loaded(view, inputs)
+        k4 = wavenet_block.launches
         got, n = launches(lambda: program(*inputs.values()))
-        assert n == (0, 0, k3, 0), view
+        assert n == (0, 0, k3, 0) and wavenet_block.launches == k4 + 2 * calls * blocks, view
         want, n_eager = launches(lambda: eager(*inputs.values()))
-        assert n_eager == n, view
+        assert n_eager == n and wavenet_block.launches == k4 + 4 * calls * blocks, view
         for a, b in zip(got if view == "variance" else [got], want if view == "variance"
                         else [want]):
             assert _max_err(a, b) <= 1e-6, view

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Kernel sweeps for the PyTorch/CUDA port on one NVIDIA GPU (H100).
 
-    python3 tools/perf_torch_kernels.py [k1] [k3] [k3bwd] [k2] [k1probe] [k3bwdprobe] [mmarate]
+    python3 tools/perf_torch_kernels.py [k1] [k3] [k3bwd] [k2] [wavenet] [k1probe] [k3bwdprobe]
+                                        [mmarate]
 
 k1: the depthwise conv + PReLU kernel at the main path's shape, the long
     phrase's and the ConvNeXt-like k = 7 shape in bf16: the generic kernel and
@@ -24,6 +25,15 @@ k3bwd: K3's backward (3xTF32 on the tensor cores) over L in 32, 128, 512,
 k2: the conv module's two bf16 GEMMs alone at the main shape, with
     ``torch.matmul`` on the same operands as a yardstick (it computes no LN,
     SwiGLU or bias, and the port never calls it).
+
+wavenet: K4, the WaveNet's residual blocks in float32, as the pitch WaveNet
+    (20 blocks of 256, dilations 1-16) and the variance WaveNet (10 of 192,
+    1-8) run them, at [16, 1024] and a served chunk's [16, 861]: a block on
+    the kernels and on the stock ops (the plain version), each averaged over
+    the stack; kernel A (conv + gate) at each dilation and kernel B (output
+    projection, residual, skip, next input) alone, with their float32
+    bounds; checked against the plain version (1e-4). Then the opcodes of
+    the library's SASS, which must hold no HMMA or HGMMA (``cuobjdump``).
 
 k1probe (only when named): where K1's time goes. Builds ``depthwise_conv.cu``
     again with its probe macros (without the copies from device memory;
@@ -386,6 +396,72 @@ def sweep_k2(dev, gen) -> int:
     return int(not err <= tol)
 
 
+def sweep_wavenet(dev, gen) -> int:
+    from diffsinger_tpu_torch.ops import wavenet_block as wb
+    from diffsinger_tpu_torch.utils import no_tf32
+
+    lib = native.load("wavenet_block")
+    bad = 0
+    # (B, T, C, blocks, dilation cycle): the pitch WaveNet's and the variance WaveNet's widths
+    for b, t, c, layers, cycle in ((16, 1024, 256, 20, 5), (16, 861, 256, 20, 5),
+                                   (16, 1024, 192, 10, 4), (16, 861, 192, 10, 4)):
+        dilations = [2 ** (i % cycle) for i in range(layers)]
+
+        def rnd(*shape, scale=1.0):
+            return scale * torch.randn(shape, generator=gen, device=dev)
+
+        x, step = rnd(b, t, c), rnd(b, c)
+        cond_proj = rnd(layers, b, t, 2 * c)
+        weights = ([rnd(c, c, scale=0.05) for _ in dilations],
+                   [rnd(c, scale=0.1) for _ in dilations],
+                   [rnd(2 * c, c, 3, scale=0.05) for _ in dilations],
+                   [rnd(2 * c, scale=0.1) for _ in dilations],
+                   [rnd(2 * c, c, 1, scale=0.05) for _ in dilations],
+                   [rnd(2 * c, scale=0.1) for _ in dilations], dilations)
+        with torch.no_grad(), no_tf32():
+            want = wb.residual_stack_plain(x, step, cond_proj, *weights)
+            got = wb.residual_stack(x, step, cond_proj, *weights)
+            err = (got - want).abs().max().item()
+            bad += not err <= 1e-4
+            ms = time_ms(lambda: wb.residual_stack(x, step, cond_proj, *weights)) / layers
+            ms_plain = time_ms(lambda: wb.residual_stack_plain(x, step, cond_proj, *weights)
+                               ) / layers
+        m = b * t
+        flops_a, flops_b = 2 * m * 3 * c * 2 * c, 2 * m * c * 2 * c
+        # the k-major weights and the step projections the stack's calls made and kept
+        w_conv, w_out, b_conv, b_out = wb.kept(weights[2][0],
+                                               [w for ws in weights[2:6] for w in ws], None)
+        d = wb.step_projections(step, weights[0], weights[1])
+        xd, z, out, skip, xd_next = (torch.empty_like(x) for _ in range(5))
+        stream = native.stream_ptr(x)
+        times_a = {}
+        for i in range(cycle):
+            times_a[dilations[i]] = time_ms(lambda: native.check(lib.ds_wavenet_conv_gate(
+                xd.data_ptr(), w_conv[i].data_ptr(), b_conv[i].data_ptr(),
+                cond_proj[i].data_ptr(), z.data_ptr(), b, t, c, dilations[i], stream), "A"))
+        ms_b = time_ms(lambda: native.check(lib.ds_wavenet_out_skip(
+            z.data_ptr(), w_out[0].data_ptr(), b_out[0].data_ptr(), x.data_ptr(),
+            out.data_ptr(), skip.data_ptr(), 0, wb.INV_SQRT2, d[:, 1].data_ptr(),
+            xd_next.data_ptr(), layers * c, b, t, c, stream), "B"))
+        ms_a = sum(times_a.values()) / len(times_a)
+        print(f"K4 [{b},{t},{c}] x {layers} blocks: {ms:.4f} ms a block on the kernels, "
+              f"{ms_plain:.4f} ms on the stock ops; A {ms_a:.4f} ms "
+              f"({flops_a / ms_a / 1e9:.1f} TFLOP/s, bound {flops_a / PEAK_F32 * 1e3:.4f}; by "
+              f"dilation {', '.join(f'{k}: {v:.4f}' for k, v in times_a.items())}), "
+              f"B {ms_b:.4f} ms ({flops_b / ms_b / 1e9:.1f} TFLOP/s, bound "
+              f"{flops_b / PEAK_F32 * 1e3:.4f}); max|err| {err:.2e} (tolerance 1e-4)")
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([cuobjdump, "-sass", str(native.library_path("wavenet_block"))],
+                          capture_output=True, text=True).stdout
+    ops = collections.Counter(
+        m.group(1) for m in (re.match(r"\s+/\*[0-9a-f]+\*/\s+(?:@!?U?P\d+\s+)?([A-Z0-9_]+)", line)
+                             for line in sass.splitlines()) if m)
+    tensor = {op: n for op, n in ops.items() if "MMA" in op}
+    print(f"   SASS: {sum(ops.values())} instructions, FFMA {ops.get('FFMA', 0)}, "
+          f"tensor-core ops {tensor or 'none'}")
+    return bad + (not ops) + bool(tensor)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA card")
@@ -406,6 +482,8 @@ def main() -> None:
         bad += sweep_k3bwd(dev, gen)
     if "k2" in which:
         bad += sweep_k2(dev, gen)
+    if "wavenet" in which:
+        bad += sweep_wavenet(dev, gen)
     if "k3bwdprobe" in which:
         bad += probe_k3bwd(dev, gen)
     if "mmarate" in which:
