@@ -14,7 +14,9 @@ projections one product a step, and ``torch.export`` records them as the
 operator ``ds::wavenet_stack``, so an exported program launches K4 too.
 Training (a gradient wanted), ``torch.compile``, the CPU and other devices
 take the stock ops. The counters ``wavenet.fused_blocks`` and
-``wavenet.stock_blocks`` count the blocks each way takes
+``wavenet.stock_blocks`` count the blocks each way takes, and
+``wavenet.stack_frames`` the frames (B x T) of every call on either; the span
+``ds.wavenet.stack`` holds the residual blocks on either route
 (``utils/tracing.py``). With ``remat``
 (``recompute_grads``) each block is recomputed on the backward pass where
 gradients are wanted (``models.commons.run_layer``).
@@ -106,28 +108,32 @@ class WaveNet(nn.Module):
         step = sinusoidal_pos_emb(diffusion_step, self.num_channels).to(dtype)
         step = self.mlp[2](mish(self.mlp[0](step)))
         layers = self.residual_layers
-        if self.on_k4(x):
-            tracing.add("wavenet.fused_blocks", len(layers))
-            if cond_proj is None:
-                cond_proj = torch.stack([pointwise_conv(layer.conditioner_projection, cond)
-                                         for layer in layers])
-            stack = (wavenet_block.residual_stack_op if torch.compiler.is_exporting()
-                     else wavenet_block.residual_stack)
-            skip_sum = stack(
-                x, step, cond_proj, [layer.diffusion_projection.weight for layer in layers],
-                [layer.diffusion_projection.bias for layer in layers],
-                [layer.dilated_conv.weight for layer in layers],
-                [layer.dilated_conv.bias for layer in layers],
-                [layer.output_projection.weight for layer in layers],
-                [layer.output_projection.bias for layer in layers],
-                [layer.dilation for layer in layers])
-        else:
-            tracing.add("wavenet.stock_blocks", len(layers))
-            skip_sum = torch.zeros_like(x)
-            for i, layer in enumerate(layers):
-                x, skip = run_layer(layer, self.remat, x, cond, step,
-                                    None if cond_proj is None else cond_proj[i])
-                skip_sum = skip_sum + skip
+        if tracing.enabled() and not (torch.compiler.is_compiling()
+                                      or torch.compiler.is_exporting()):
+            tracing.add("wavenet.stack_frames", x.shape[0] * x.shape[1])
+        with tracing.span("ds.wavenet.stack"):
+            if self.on_k4(x):
+                tracing.add("wavenet.fused_blocks", len(layers))
+                if cond_proj is None:
+                    cond_proj = torch.stack([pointwise_conv(layer.conditioner_projection, cond)
+                                             for layer in layers])
+                stack = (wavenet_block.residual_stack_op if torch.compiler.is_exporting()
+                         else wavenet_block.residual_stack)
+                skip_sum = stack(
+                    x, step, cond_proj, [layer.diffusion_projection.weight for layer in layers],
+                    [layer.diffusion_projection.bias for layer in layers],
+                    [layer.dilated_conv.weight for layer in layers],
+                    [layer.dilated_conv.bias for layer in layers],
+                    [layer.output_projection.weight for layer in layers],
+                    [layer.output_projection.bias for layer in layers],
+                    [layer.dilation for layer in layers])
+            else:
+                tracing.add("wavenet.stock_blocks", len(layers))
+                skip_sum = torch.zeros_like(x)
+                for i, layer in enumerate(layers):
+                    x, skip = run_layer(layer, self.remat, x, cond, step,
+                                        None if cond_proj is None else cond_proj[i])
+                    skip_sum = skip_sum + skip
         x = skip_sum / math.sqrt(len(self.residual_layers))
         x = F.relu(pointwise_conv(self.skip_projection, x))
         return pointwise_conv(self.output_projection, x)

@@ -24,6 +24,7 @@ from typing import Dict
 import torch
 
 NAMES = (
+    "ds.wavenet.stack",  # a WaveNet's residual blocks, on K4 or on stock ops
     "ds.lynx.bwd",  # FusedConvModuleFn.backward: the recompute and its gradient (autograd's thread)
     "ds.sampler.step",  # one step of a sampler's loop (one denoiser call of the fast solvers)
     "ds.model.condition",  # encoder, aux draft, durations and regulator

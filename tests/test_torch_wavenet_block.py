@@ -152,14 +152,14 @@ def test_counters_count_the_block_calls(route, counting, monkeypatch):
     with torch.no_grad():
         proj = precompute_cond_projections(net, cond)
         want = net(spec, t, cond, cond_proj=proj)
-        assert counting == {"wavenet.stock_blocks": 4}
+        assert counting == {"wavenet.stock_blocks": 4, "wavenet.stack_frames": 2 * 50}
         counting.clear()
         if route == "fused":
             monkeypatch.setattr(WaveNet, "on_k4", lambda self, x: True)
         got = net(spec, t, cond, cond_proj=proj)
         unhoisted = net(spec, t, cond)  # without the hoisting: the route projects the condition
     blocks = "wavenet.stock_blocks" if route == "stock" else "wavenet.fused_blocks"
-    assert counting == {blocks: 8}
+    assert counting == {blocks: 8, "wavenet.stack_frames": 2 * 2 * 50}
     assert torch.equal(got, want) and torch.equal(unhoisted, want)
 
 
@@ -169,7 +169,7 @@ def test_remat_counts_a_training_call_once(counting):
     net, spec, t, cond = _small_wavenet()
     net.remat = resolve_remat_policy(True)
     net(spec, t, cond).square().sum().backward()
-    assert counting == {"wavenet.stock_blocks": 4}
+    assert counting == {"wavenet.stock_blocks": 4, "wavenet.stack_frames": 2 * 50}
 
 
 def test_counters_stay_off_while_tracing_is_off():
@@ -248,6 +248,35 @@ def test_fused_blocks_against_the_stock_blocks(dev, b, t, c):
         assert wavenet_block.launches == n + 2 * len(dilations)
         err = (got - want).abs().max().item()
         assert err <= 1e-4, (dilations, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dilations", [(1, 2, 4, 8), (1, 2, 4, 8) * 5],
+                         ids=["cycle", "published_stack"])
+def test_the_acoustic_wavenet_width_from_bfloat16_values(dev, dilations):
+    """The WaveNet acoustic model's blocks (512 channels, dilation cycle 4) at
+    [16, 861, 512], one cycle and the whole published stack of 20: inputs and
+    weights rounded to bfloat16, as a bf16 model holds them. The bfloat16
+    call is the float32 call on the same values, rounded (K4 computes a bf16
+    stack in float32), and the float32 call is within 1e-4 of the stock ops
+    (float32 sums in another order)."""
+    x, step, cond_proj, weights = _stack(512, 861, 16, dilations, dev)
+    bf = torch.bfloat16
+    x, step, cond_proj = x.to(bf), step.to(bf), cond_proj.to(bf)
+    weights = [[w.to(bf) for w in ws] for ws in weights[:6]] + weights[6:]
+    as_f32 = [[w.float() for w in ws] for ws in weights[:6]] + weights[6:]
+    with torch.no_grad(), no_tf32():
+        want = wavenet_block.residual_stack_plain(x.float(), step.float(), cond_proj.float(),
+                                                  *as_f32)
+        n = wavenet_block.launches
+        got32 = wavenet_block.residual_stack(x.float(), step.float(), cond_proj.float(),
+                                             *as_f32)
+        got = wavenet_block.residual_stack(x, step, cond_proj, *weights)
+        torch.cuda.synchronize()
+    assert wavenet_block.launches == n + 2 * 2 * len(dilations)
+    assert got.dtype == bf and torch.equal(got, got32.to(bf))
+    err = (got32 - want).abs().max().item()
+    assert err <= 1e-4, err
 
 
 @pytest.mark.cuda
