@@ -16,8 +16,11 @@ Phases, each printed as it ends; any failure exits non-zero:
    small shape and in bf16 at ragged shapes (rows not a multiple of the tile,
    widths that are multiples of 32 and of nothing larger), K3 also at a
    ragged length without a mask; K4 (the WaveNet's residual blocks) as a
-   stack of 20 blocks of 256 at a served chunk's [16, 861] and of 10 of 192,
-   with a large value in the last frame of row 0 that must not reach row 1;
+   stack of 20 blocks of 256 at a served chunk's [16, 861] and of 10 of 192
+   in float32, and in bf16 on the tensor cores as a stack of 20 blocks of
+   512 at [16, 861] and [16, 544] against the route's plain counterpart,
+   each with a large value in the last frame of row 0 that must not reach
+   row 1;
 3. e2e: the acoustic model (configs/acoustic.yaml at full width, seeded
    random weights, 50 euler steps, bf16) and the mini-NSF vocoder, driven
    through ``DiffSingerAcoustic.forward_infer`` and ``Generator``: timed
@@ -211,7 +214,9 @@ Phases, each printed as it ends; any failure exits non-zero:
 13. times: K1 at the long phrase's shape [1, 4096, 2048], K3 at the long
    shape [16, 2, 512, 128], K2's two GEMMs alone and K3's backward at
    [48, 2, 128, 128] and [16, 2, 512, 128] with each of its kernels alone
-   and its bound on the CUDA cores and in 3xTF32, then K3 and its backward
+   and its bound on the CUDA cores and in 3xTF32, K4's bf16 route at
+   [16, 861, 512] (its bound: kernel A's products on the bf16 tensor cores,
+   kernel B's bytes), then K3 and its backward
    at the variance training shapes (``[time]`` lines), the whole script's
    seconds, one ``[summary]`` line a phase (its seconds and main numbers,
    where the tail of the output keeps them), the card's name and power
@@ -4957,6 +4962,44 @@ def main() -> None:
 
     k4_args, k4_err = k4_case(B, 861, 256, 20, 5)
     k4_case(B, 861, 192, 10, 4)
+
+    # K4 in bf16, on the tensor cores, at the WaveNet acoustic model's width
+    # (20 blocks of 512, dilations 1-8) at a served chunk's [16, 861] and at
+    # the render cell's mean chunk [16, 544]: inputs and weights in bf16, as
+    # a bf16 model holds them, against the plain counterpart of the route's
+    # arithmetic (x + d and z rounded to bf16, x and the skip sum in float32;
+    # TF32 off). The two round the same values from float32 sums taken in
+    # another order, so a value near a rounding boundary may round a step
+    # apart and carry the step on: 2^-6 of the largest entry, two bf16 steps.
+    # A large value in the last frame of row 0 must not reach row 1, whose
+    # rows are held to a tolerance of their own.
+    def k4_bf16_case(b, t, c, layers, cycle):
+        dilations = [2 ** (i % cycle) for i in range(layers)]
+        xw = randn(b, t, c, dtype=bf)
+        xw[0, -1] = 100.0
+        args = (xw, randn(b, c, dtype=bf), randn(layers, b, t, 2 * c, dtype=bf),
+                [randn(c, c, dtype=bf, scale=c ** -0.5) for _ in dilations],
+                [randn(c, dtype=bf, scale=0.1) for _ in dilations],
+                [randn(2 * c, c, 3, dtype=bf, scale=(3 * c) ** -0.5) for _ in dilations],
+                [randn(2 * c, dtype=bf, scale=0.1) for _ in dilations],
+                [randn(2 * c, c, 1, dtype=bf, scale=c ** -0.5) for _ in dilations],
+                [randn(2 * c, dtype=bf, scale=0.1) for _ in dilations], dilations)
+        if not wavenet_block.on_tensor_cores(xw):
+            fail("a bf16 stack does not take K4's tensor-core route")
+        before = wavenet_block.launches
+        got = wavenet_block.residual_stack(*args)
+        if wavenet_block.launches != before + 2 * layers:
+            fail("K4's launch counter did not move by two a block on the tensor cores")
+        with no_tf32():
+            want_k = wavenet_block.residual_stack_bf16_plain(*args).float()
+        name = f"K4 bf16 [{b},{t},{c}] x {layers} blocks (tensor cores)"
+        err = check(name, got, want_k, 2 ** -6 * want_k.abs().max().item())
+        check(name + ", rows after the first", got[1:], want_k[1:],
+              2 ** -6 * want_k[1:].abs().max().item())
+        return args, err
+
+    k4_tc_args, k4_tc_err = k4_bf16_case(B, 861, 512, 20, 4)
+    k4_bf16_case(B, 544, 512, 20, 4)
     torch.cuda.synchronize()
     report["phases"]["kernels"] = checks
     if not all(c["ok"] for c in checks):
@@ -5345,6 +5388,46 @@ def main() -> None:
         f"{kernels[-1]['ms'] / k4_blocks:.4f} ms (bound {kernels[-1]['bound_ms'] / k4_blocks:.4f} "
         f"ms by {kernels[-1]['bound_by']}; plain {kernels[-1]['plain_ms'] / k4_blocks:.4f} ms; "
         f"library null) on {card}")
+    # K4's bf16 route a block at [16, 861, 512]: kernel A's products on the
+    # bf16 tensor cores (its 8 bytes a frame-channel, x + d in and z out, and
+    # W take less time), then kernel B's bytes (z, x' + d_next, x read and
+    # written and the skip sum read and written in float32: 20 bytes a
+    # frame-channel; W_out); plain: its plain counterpart; library: the stock
+    # bf16 ops (cuDNN's conv, the library's linear)
+    tc_x, tc_dil = k4_tc_args[0], k4_tc_args[-1]
+    tc_m, tc_c, tc_blocks = tc_x.shape[0] * tc_x.shape[1], tc_x.shape[2], len(tc_dil)
+    tc_a = (2 * tc_m * 3 * tc_c * 2 * tc_c / PEAK_BF16_TC,
+            (8 * tc_m * tc_c + 6 * tc_c * 2 * tc_c) / PEAK_BYTES)
+    tc_b = (2 * tc_m * tc_c * 2 * tc_c / PEAK_BF16_TC,
+            (20 * tc_m * tc_c + 2 * tc_c * 2 * tc_c) / PEAK_BYTES)
+    tc_a_s, tc_b_s = max(tc_a), max(tc_b)
+    tc_by = [("operations" if ops >= moved else "bytes") for ops, moved in (tc_a, tc_b)]
+
+    def k4_tc_plain():
+        with no_tf32():
+            return wavenet_block.residual_stack_bf16_plain(*k4_tc_args)
+
+    k4_tc = {
+        "name": "residual_stack (bf16, tensor cores)", "route": "cuda",
+        "source": "diffsinger_tpu_torch/ops/csrc/wavenet_block.cu", "replaces": None,
+        "launches": 2 * tc_blocks,
+        "launches_from": f"one stack of {tc_blocks} blocks at [{B},861,{tc_c}] in [kernels]",
+        "max_abs_err": k4_tc_err,
+        "ms": time_ms(lambda: wavenet_block.residual_stack(*k4_tc_args)),
+        "plain_ms": time_ms(k4_tc_plain, iters=5, warmup=1),
+        "bound_ms": tc_blocks * (tc_a_s + tc_b_s) * 1e3,
+        "bound_by": f"{tc_by[0]} (kernel A), {tc_by[1]} (kernel B)",
+        "library_ms": time_ms(lambda: wavenet_block.residual_stack_plain(*k4_tc_args)),
+    }
+    kernels.append(k4_tc)
+    log(f"[time] K4 residual_stack bf16 (tensor cores) at [{B},861,{tc_c}] x {tc_blocks} blocks: "
+        f"{k4_tc['ms']:.4f} ms (bound {k4_tc['bound_ms']:.4f} ms; plain "
+        f"{k4_tc['plain_ms']:.4f} ms; library {k4_tc['library_ms']:.4f} ms) on {card}")
+    log(f"[time] K4 a block at [{B},861,{tc_c}] (the stack's {tc_blocks} blocks, bf16 on the "
+        f"tensor cores): {k4_tc['ms'] / tc_blocks:.4f} ms (bound "
+        f"{k4_tc['bound_ms'] / tc_blocks:.4f} ms: A {tc_a_s * 1e3:.4f} by {tc_by[0]}, B "
+        f"{tc_b_s * 1e3:.4f} by {tc_by[1]}; plain {k4_tc['plain_ms'] / tc_blocks:.4f} ms; library "
+        f"{k4_tc['library_ms'] / tc_blocks:.4f} ms) on {card}")
     kernels += act_kernels  # K1 and K2 with SiLU and ReLU, timed in [lynx_act]
     # K3's backward at the training batch's shape and the long shape: the
     # wrapper (dK/dV with delta and dS, then dQ), each kernel alone, the plain

@@ -13,9 +13,12 @@ without autograd: there the residual blocks run on K4
 projections one product a step, and ``torch.export`` records them as the
 operator ``ds::wavenet_stack``, so an exported program launches K4 too.
 Training (a gradient wanted), ``torch.compile``, the CPU and other devices
-take the stock ops. The counters ``wavenet.fused_blocks`` and
-``wavenet.stock_blocks`` count the blocks each way takes, and
-``wavenet.stack_frames`` the frames (B x T) of every call on either; the span
+take the stock ops. K4 picks its kernels by the dtype of x: a bfloat16
+model's blocks run on the tensor cores, a float32 model's on the CUDA cores.
+The counters ``wavenet.fused_blocks`` and ``wavenet.stock_blocks`` count the
+blocks each way takes, ``wavenet.tc_blocks`` those of K4's blocks that take
+the tensor cores, and ``wavenet.stack_frames`` the frames (B x T) of every
+call on either; the span
 ``ds.wavenet.stack`` holds the residual blocks on either route
 (``utils/tracing.py``). With ``remat``
 (``recompute_grads``) each block is recomputed on the backward pass where
@@ -114,6 +117,8 @@ class WaveNet(nn.Module):
         with tracing.span("ds.wavenet.stack"):
             if self.on_k4(x):
                 tracing.add("wavenet.fused_blocks", len(layers))
+                if wavenet_block.on_tensor_cores(x):
+                    tracing.add("wavenet.tc_blocks", len(layers))
                 if cond_proj is None:
                     cond_proj = torch.stack([pointwise_conv(layer.conditioner_projection, cond)
                                              for layer in layers])

@@ -1,11 +1,14 @@
 // Helpers shared by the port's CUDA kernels: element conversions, a warp
-// reduction, and thin wrappers over the PTX that Hopper kernels are built
-// from (cp.async, mbarrier, TMA loads, wgmma). Every kernel reads and writes
-// float32 or bfloat16 and does its arithmetic in float32.
+// reduction, thin wrappers over the PTX that Hopper kernels are built from
+// (cp.async, mbarrier, TMA loads, wgmma), and the host's tensor-map encoder.
+// Every kernel reads and writes float32 or bfloat16 and does its arithmetic
+// in float32.
 #pragma once
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <dlfcn.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -24,6 +27,27 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
+}
+
+// two float32 values rounded to a bf16 pair (one word)
+__device__ __forceinline__ uint32_t pack_pair(float a, float b) {
+  const __nv_bfloat162 r = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const uint32_t*>(&r);
+}
+
+// Transposes the 4 x 4 words that the four lanes t = 0..3 of a quad hold:
+// afterwards v[i] is what lane i held in v[t]. All lanes of the warp call it.
+__device__ __forceinline__ void quad_transpose(uint32_t (&v)[4], int t) {
+#pragma unroll
+  for (int k = 0; k < 4; k += 2) {  // 2 x 2 blocks: swap the off-diagonal words
+    const uint32_t got = __shfl_xor_sync(0xffffffffu, (t & 1) ? v[k] : v[k + 1], 1);
+    if (t & 1) v[k] = got; else v[k + 1] = got;
+  }
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {  // then the off-diagonal 2 x 2 blocks
+    const uint32_t got = __shfl_xor_sync(0xffffffffu, (t & 2) ? v[k] : v[k + 2], 2);
+    if (t & 2) v[k] = got; else v[k + 2] = got;
+  }
 }
 
 // 32-bit shared-memory address of a generic pointer, as PTX wants it
@@ -93,6 +117,18 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const void* tmap, uint64_
       "[%0], [%1, {%3, %4}], [%2];\n"
       :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(tmap)), "r"(smem_u32(bar)),
          "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// The same for a 3-D tensor map: c0 along the contiguous dimension, then c1, c2.
+// Coordinates may be negative or past the end: those elements arrive as 0.
+__device__ __forceinline__ void tma_load_3d(void* dst, const void* tmap, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(tmap)), "r"(smem_u32(bar)),
+         "r"(c0), "r"(c1), "r"(c2)
       : "memory");
 }
 
@@ -210,6 +246,22 @@ __device__ __forceinline__ void wgmma_m64n256k16_ss(float (&d)[128], uint64_t de
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
+// D[64 x 128] (+)= A[64 x 16] B[128 x 16]^T, both from shared memory: the
+// m64n256k16 product's layout with 16 column groups of 8 (64 registers).
+__device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t desc_a,
+                                                   uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
 // Four 8 x 8 bf16 matrices from shared memory; lane i gives the address of
 // row i % 8 of matrix i / 8. Word j of a thread is its pair of matrix j.
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
@@ -223,6 +275,66 @@ template <int N> __device__ __forceinline__ void reg_dealloc() {
 }
 template <int N> __device__ __forceinline__ void reg_alloc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(N));
+}
+
+// ------------------------------------------------------------------- host side
+// cuTensorMapEncodeTiled from the libcuda that the process has loaded
+using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+static EncodeTiledFn encode_tiled_fn() {
+  static EncodeTiledFn fn = [] {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_GLOBAL);
+    return lib ? reinterpret_cast<EncodeTiledFn>(dlsym(lib, "cuTensorMapEncodeTiled")) : nullptr;
+  }();
+  return fn;
+}
+
+// streaming multiprocessors of the current device
+static int sm_count() {
+  static int count = [] {
+    int dev = 0, n = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    return n > 0 ? n : 1;
+  }();
+  return count;
+}
+
+// The tensor-core kernels' shared layout: k in stages of one 128-byte row
+// of the swizzle, a ring of at most TC_MAX_STAGES stages, two consumer
+// warpgroups and a producer warpgroup, in one block per SM.
+constexpr int TC_BK = 64;
+constexpr int TC_MAX_STAGES = 4;
+constexpr int TC_THREADS = 384;  // consumer warpgroups 0 and 1, producer warpgroup 2
+constexpr int TC_SMEM_LIMIT = 232448;
+
+// Stages of `stage_bytes` that fit beside `fixed` bytes, from TC_MAX_STAGES
+// down to `least`; the caller checks that `least` fits.
+static int tc_stages(int fixed, int stage_bytes, int least) {
+  int stages = TC_MAX_STAGES;
+  while (stages > least && fixed + stages * stage_bytes > TC_SMEM_LIMIT) --stages;
+  return stages;
+}
+
+// Tensor map of a row-major bf16 array [n2, n1, n0] of rank 3 or, for a
+// matrix [n1, n0], 2, with boxes of `box_rows` x TC_BK under the 128-byte
+// swizzle; reads outside the array give 0.
+static bool make_map(CUtensorMap* map, const void* ptr, int rank, int n2, int n1, int n0,
+                     int box_rows) {
+  EncodeTiledFn encode = encode_tiled_fn();
+  if (!encode) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)n0, (cuuint64_t)n1, (cuuint64_t)n2};
+  const cuuint64_t strides[2] = {(cuuint64_t)n0 * sizeof(bf16),
+                                 (cuuint64_t)n1 * n0 * sizeof(bf16)};
+  const cuuint32_t box[3] = {TC_BK, (cuuint32_t)box_rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr), dims,
+                strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
 }
 
 }  // namespace ds

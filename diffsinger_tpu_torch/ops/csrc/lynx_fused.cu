@@ -72,9 +72,6 @@
 // clusters of two blocks along M with W multicast (no change: L2 is not the
 // limit).
 
-#include <cuda.h>
-#include <dlfcn.h>
-
 #include "common.cuh"
 
 namespace ds {
@@ -132,32 +129,8 @@ __device__ __forceinline__ int w_row(int r, int n0, int N) {
 // ------------------------------------------------- bf16: tensor-core GEMM
 constexpr int TC_BM = 128;   // rows of an output tile (64 per consumer warpgroup)
 constexpr int TC_BOX = 128;  // rows of one box of W
-constexpr int TC_BK = 64;    // 128 bytes: one row of the 128-byte swizzle
 constexpr int TC_TILE_BYTES = 128 * TC_BK * 2;
 constexpr int TC_STAGE_BYTES = 3 * TC_TILE_BYTES;  // A, box 0, box 1
-constexpr int TC_MAX_STAGES = 4;
-constexpr int TC_THREADS = 384;  // consumer warpgroups 0 and 1, producer warpgroup 2
-constexpr int TC_SMEM_LIMIT = 232448;
-
-__device__ __forceinline__ uint32_t pack_pair(float a, float b) {
-  const __nv_bfloat162 r = __floats2bfloat162_rn(a, b);
-  return *reinterpret_cast<const uint32_t*>(&r);
-}
-
-// Transposes the 4 x 4 words that the four lanes t = 0..3 of a quad hold:
-// afterwards v[i] is what lane i held in v[t]. All lanes of the warp call it.
-__device__ __forceinline__ void quad_transpose(uint32_t (&v)[4], int t) {
-#pragma unroll
-  for (int k = 0; k < 4; k += 2) {  // 2 x 2 blocks: swap the off-diagonal words
-    const uint32_t got = __shfl_xor_sync(0xffffffffu, (t & 1) ? v[k] : v[k + 1], 1);
-    if (t & 1) v[k] = got; else v[k + 1] = got;
-  }
-#pragma unroll
-  for (int k = 0; k < 2; ++k) {  // then the off-diagonal 2 x 2 blocks
-    const uint32_t got = __shfl_xor_sync(0xffffffffu, (t & 2) ? v[k] : v[k + 2], 2);
-    if (t & 2) v[k] = got; else v[k + 2] = got;
-  }
-}
 
 // two bf16 values of x (one word) -> LN -> two bf16 values;
 // wb = (ln_w[c], ln_b[c], ln_w[c + 1], ln_b[c + 1])
@@ -373,58 +346,19 @@ gemm_bf16_kernel(const __grid_constant__ CUtensorMap map_a,
   }
 }
 
-// cuTensorMapEncodeTiled from the libcuda that the process has loaded
-using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-static EncodeTiledFn encode_tiled_fn() {
-  static EncodeTiledFn fn = [] {
-    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_GLOBAL);
-    return lib ? reinterpret_cast<EncodeTiledFn>(dlsym(lib, "cuTensorMapEncodeTiled")) : nullptr;
-  }();
-  return fn;
-}
-
-// Tensor map of a row-major bf16 matrix [rows, cols] with boxes of
-// 128 rows x 64 columns under the 128-byte swizzle; reads past an edge give 0.
-static bool make_map(CUtensorMap* map, const void* ptr, int rows, int cols) {
-  EncodeTiledFn encode = encode_tiled_fn();
-  if (!encode) return false;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * sizeof(bf16)};
-  const cuuint32_t box[2] = {TC_BK, 128};
-  const cuuint32_t elem[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides,
-                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
-         CUDA_SUCCESS;
-}
-
-// streaming multiprocessors of the current device
-static int sm_count() {
-  static int count = [] {
-    int dev = 0, n = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-    return n > 0 ? n : 1;
-  }();
-  return count;
-}
-
 template <bool PW1>
 int launch_gemm_bf16(const void* A, const float* mean, const float* rstd, const void* ln_w,
                      const void* ln_b, const void* W, const void* bias, void* out, int M, int N,
                      int K, cudaStream_t s) {
   CUtensorMap map_a, map_w;
-  if (!make_map(&map_a, A, M, K) || !make_map(&map_w, W, PW1 ? 2 * N : N, K))
+  // A [M, K] and W [N or 2N, K] in boxes of 128 rows
+  if (!make_map(&map_a, A, 2, 1, M, K, 128) ||
+      !make_map(&map_w, W, 2, 1, PW1 ? 2 * N : N, K, 128))
     return (int)cudaErrorInvalidValue;
   // alignment slack, barriers, and pw1's table of (ln_w, ln_b) pairs
   const int k_tiles = (K + TC_BK - 1) / TC_BK;
   const int fixed = 1024 + 2 * TC_MAX_STAGES * 8 + (PW1 ? k_tiles * TC_BK * 8 : 0);
-  int stages = TC_MAX_STAGES;
-  while (stages > 1 && fixed + stages * TC_STAGE_BYTES > TC_SMEM_LIMIT) --stages;
+  const int stages = tc_stages(fixed, TC_STAGE_BYTES, 1);
   const int smem = fixed + stages * TC_STAGE_BYTES;
   if (smem > TC_SMEM_LIMIT) return (int)cudaErrorInvalidValue;
   auto kernel = gemm_bf16_kernel<PW1>;

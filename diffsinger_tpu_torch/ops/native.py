@@ -51,6 +51,8 @@ SIGNATURES = {
     ("flash_attention", "ds_flash_attn_bwd"): (_P,) * 11 + (_I, _I, _I, _I, _F, _I, _P),
     ("wavenet_block", "ds_wavenet_conv_gate"): (_P,) * 5 + (_I,) * 4 + (_P,),
     ("wavenet_block", "ds_wavenet_out_skip"): (_P,) * 6 + (_I, _F, _P, _P) + (_I,) * 4 + (_P,),
+    ("wavenet_block", "ds_wavenet_conv_gate_bf16"): (_P,) * 5 + (_I,) * 4 + (_P,),
+    ("wavenet_block", "ds_wavenet_out_skip_bf16"): (_P,) * 6 + (_I, _F, _P, _P) + (_I,) * 4 + (_P,),
 }
 
 

@@ -1,6 +1,6 @@
-"""K4, the fused WaveNet residual block: its plain version against the stock
-block on the CPU, the route between them, its counters, and on the card the
-kernels against the stock ops (``python -m pytest
+"""K4, the fused WaveNet residual block: its plain versions against the stock
+block on the CPU, the routes between them, its counters, and on the card the
+kernels against the plain versions and the stock ops (``python -m pytest
 tests/test_torch_wavenet_block.py -q -m cuda --noconftest`` there)."""
 
 import math
@@ -16,7 +16,7 @@ from diffsinger_tpu_torch.models.backbones import precompute_cond_projections
 from diffsinger_tpu_torch.models.backbones.lynxnet import pointwise_conv
 from diffsinger_tpu_torch.models.backbones.wavenet import ResidualBlock, WaveNet
 from diffsinger_tpu_torch.models.commons import resolve_remat_policy
-from diffsinger_tpu_torch.ops import wavenet_block
+from diffsinger_tpu_torch.ops import native, wavenet_block
 from diffsinger_tpu_torch.utils import no_tf32, tracing
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -143,14 +143,17 @@ def _small_wavenet(seed=0, layers=4, c=64):
     return net, spec, t, cond
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("route", ["stock", "fused"])
-def test_counters_count_the_block_calls(route, counting, monkeypatch):
-    """Each WaveNet call counts its blocks once, on its route. On the CPU the
-    fused route (forced here) runs the plain stack, which is the stock
-    route's arithmetic: the same numbers, bit for bit."""
+def test_counters_count_the_block_calls(route, dtype, counting, monkeypatch):
+    """Each WaveNet call counts its blocks once, on its route; a bfloat16
+    model's fused blocks are tensor-core blocks too. On the CPU the fused
+    route (forced here) runs the plain stack, which is the stock route's
+    arithmetic: the same numbers, bit for bit."""
     net, spec, t, cond = _small_wavenet()
+    net.to(dtype)
     with torch.no_grad():
-        proj = precompute_cond_projections(net, cond)
+        proj = precompute_cond_projections(net, cond.to(dtype))
         want = net(spec, t, cond, cond_proj=proj)
         assert counting == {"wavenet.stock_blocks": 4, "wavenet.stack_frames": 2 * 50}
         counting.clear()
@@ -158,8 +161,10 @@ def test_counters_count_the_block_calls(route, counting, monkeypatch):
             monkeypatch.setattr(WaveNet, "on_k4", lambda self, x: True)
         got = net(spec, t, cond, cond_proj=proj)
         unhoisted = net(spec, t, cond)  # without the hoisting: the route projects the condition
-    blocks = "wavenet.stock_blocks" if route == "stock" else "wavenet.fused_blocks"
-    assert counting == {blocks: 8, "wavenet.stack_frames": 2 * 2 * 50}
+    blocks = {"wavenet.stock_blocks": 8} if route == "stock" else {"wavenet.fused_blocks": 8}
+    if route == "fused" and dtype == torch.bfloat16:
+        blocks["wavenet.tc_blocks"] = 8
+    assert counting == {**blocks, "wavenet.stack_frames": 2 * 2 * 50}
     assert torch.equal(got, want) and torch.equal(unhoisted, want)
 
 
@@ -172,9 +177,14 @@ def test_remat_counts_a_training_call_once(counting):
     assert counting == {"wavenet.stock_blocks": 4, "wavenet.stack_frames": 2 * 50}
 
 
-def test_counters_stay_off_while_tracing_is_off():
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("route", ["stock", "fused"])
+def test_counters_stay_off_while_tracing_is_off(route, dtype, monkeypatch):
     tracing.counters().clear()
     net, spec, t, cond = _small_wavenet()
+    net.to(dtype)
+    if route == "fused":
+        monkeypatch.setattr(WaveNet, "on_k4", lambda self, x: True)
     with torch.no_grad():
         net(spec, t, cond)
     assert tracing.counters() == {}
@@ -192,6 +202,105 @@ def test_step_projections_are_made_again_after_an_in_place_write():
         w[2].mul_(2.0)
         want = torch.stack([layer.diffusion_projection(step) for layer in layers], dim=1)
         torch.testing.assert_close(wavenet_block.step_projections(step, w, b), want)
+
+
+def _rounded_stack(c, t, b, dilations, seed=0, device="cpu"):
+    """A stack's inputs and weights rounded to bfloat16, as a bf16 model holds
+    them, and the same values in float32."""
+    x, step, cond_proj, weights = _stack(c, t, b, dilations, device, seed=seed)
+    bf = torch.bfloat16
+    x, step, cond_proj = x.to(bf), step.to(bf), cond_proj.to(bf)
+    weights = [[w.to(bf) for w in ws] for ws in weights[:6]] + weights[6:]
+    as_f32 = ([x.float(), step.float(), cond_proj.float()]
+              + [[w.float() for w in ws] for ws in weights[:6]] + weights[6:])
+    return [x, step, cond_proj, *weights], as_f32
+
+
+# The bfloat16 route rounds x + d and z to bfloat16 (a relative step of 2^-8)
+# at every block and its result once; the float32 stack rounds nothing. Those
+# roundings, carried through 20 blocks' products, leave the skip sums within
+# two bfloat16 steps of the float32 stack's largest entry.
+BF16_ROUTE_TOL = 2 ** -7
+
+
+@pytest.mark.parametrize("c,t,dilations", [
+    (64, 37, (1, 2, 4, 8)), (192, 50, (1, 2, 4, 8) * 5), (256, 20, (16, 1))])
+def test_bf16_plain_stack_against_the_float32_stack(c, t, dilations):
+    args, as_f32 = _rounded_stack(c, t, 2, dilations)
+    with torch.no_grad():
+        want = wavenet_block.residual_stack_plain(*as_f32)
+        got = wavenet_block.residual_stack_bf16_plain(*args)
+    assert got.dtype == torch.bfloat16
+    err = (got.float() - want).abs().max().item()
+    assert 0 < err <= BF16_ROUTE_TOL * want.abs().max().item(), err
+
+
+class FakeLibrary:
+    """K4's C functions, recording their calls instead of launching."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        if not name.startswith("ds_wavenet_"):
+            raise AttributeError(name)
+        return lambda *args: self.calls.append((name, args)) or 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_the_kernels_are_picked_by_dtype(dtype, monkeypatch):
+    """bfloat16 x launches the tensor-core kernels, float32 x the float32
+    ones, two a block, after the same checks; the bfloat16 route updates x
+    in place and writes each next x + d over the last."""
+    lib = FakeLibrary()
+    monkeypatch.setattr(native, "load", lambda name: lib)
+    monkeypatch.setattr(native, "stream_ptr", lambda t: 0)
+    dilations = (1, 2, 4)
+    x, step, cond_proj, weights = _stack(64, 30, 2, dilations, "cpu")
+    x, step, cond_proj = x.to(dtype), step.to(dtype), cond_proj.to(dtype)
+    weights = [[w.to(dtype) for w in ws] for ws in weights[:6]] + weights[6:]
+    n = wavenet_block.launches
+    got = wavenet_block._launch_stack(x, step, cond_proj, *weights)
+    assert got.dtype == dtype and got.shape == x.shape
+    assert wavenet_block.launches == n + 2 * len(dilations)
+    suffix = "_bf16" if dtype == torch.bfloat16 else ""
+    names = [name for name, _ in lib.calls]
+    assert names == [f"ds_wavenet_{k}{suffix}" for k in ("conv_gate", "out_skip")] * 3
+    assert [args[8] for name, args in lib.calls if "conv_gate" in name] == list(dilations)
+    out_skip = [args for name, args in lib.calls if "out_skip" in name]
+    assert [args[6] for args in out_skip] == [1, 0, 0]  # the first block writes the skip sum
+    assert out_skip[-1][8] is None and out_skip[-1][9] is None  # no next block
+    if dtype == torch.bfloat16:
+        conv_gate = [args for name, args in lib.calls if "conv_gate" in name]
+        assert all(args[3] == args[4] for args in out_skip)  # x in place
+        assert {args[9] for args in out_skip[:-1]} == {conv_gate[0][0]}  # one x + d buffer
+    else:
+        assert len({args[4] for args in out_skip}) == 2  # x', in turns
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_the_kernels_weights_layouts(dtype):
+    """float32: k-major [3C, 2C] (row tap * C + ci) and [C, 2C]; bfloat16:
+    [2C, 3C] and [2C, C] with k contiguous and float32 biases."""
+    c = 64
+    x, _, _, weights = _stack(c, 10, 1, (1, 2), "cpu")
+    conv_ws, conv_bs, out_ws, out_bs = ([w.to(dtype) for w in ws] for ws in weights[2:6])
+    if dtype == torch.bfloat16:
+        w_conv, w_out, b_conv, b_out = wavenet_block._tc_weights(
+            x.to(dtype), conv_ws, conv_bs, out_ws, out_bs)
+        assert w_conv[1].shape == (2 * c, 3 * c) and w_conv[1].dtype == dtype
+        for tap in range(3):
+            assert torch.equal(w_conv[1][:, tap * c:(tap + 1) * c], conv_ws[1][:, :, tap])
+        assert torch.equal(w_out[1], out_ws[1][:, :, 0])
+        assert b_conv[1].dtype == torch.float32 and torch.equal(b_out[1], out_bs[1].float())
+    else:
+        w_conv, w_out, b_conv, b_out = wavenet_block._kernel_weights(
+            x, conv_ws, conv_bs, out_ws, out_bs)
+        for tap in range(3):
+            assert torch.equal(w_conv[1][tap * c:(tap + 1) * c], conv_ws[1][:, :, tap].t())
+        assert torch.equal(w_out[1], out_ws[1][:, :, 0].t())
+        assert torch.equal(b_conv[1], conv_bs[1])
+    assert all(w.is_contiguous() for w in (*w_conv, *w_out))
 
 
 # ------------------------------------------------------------------ the card
@@ -217,10 +326,13 @@ def _stack(c, t, b, dilations, device, seed=0):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["float16", "width", "strided"])
+@pytest.mark.parametrize("case", ["float16", "width", "width_bf16", "strided"])
 def test_wrapper_raises_on_what_the_kernels_do_not_take(dev, case):
-    c = 96 if case == "width" else 64
+    c = 96 if case.startswith("width") else 64
     x, step, cond_proj, weights = _stack(c, 40, 2, (1, 2), dev)
+    if case == "width_bf16":
+        x, step, cond_proj = (v.bfloat16() for v in (x, step, cond_proj))
+        weights = [[w.bfloat16() for w in ws] for ws in weights[:6]] + weights[6:]
     if case == "float16":
         x, step, cond_proj = x.half(), step.half(), cond_proj.half()
         weights = [[w.half() for w in ws] for ws in weights[:6]] + weights[6:]
@@ -250,6 +362,40 @@ def test_fused_blocks_against_the_stock_blocks(dev, b, t, c):
         assert err <= 1e-4, (dilations, err)
 
 
+# The kernels and their plain counterpart round the same values to bfloat16 at
+# the same places, from float32 sums taken in another order: a value that lies
+# within that difference of a rounding boundary is rounded a step apart, the
+# step moves later values across other boundaries, and after a few blocks the
+# two carry unrelated rounding errors of the same size. Each is within
+# BF16_ROUTE_TOL of the float32 stack, so the two are within twice that.
+BF16_KERNEL_TOL = 2 * BF16_ROUTE_TOL
+
+
+def _check_bf16_route(got, plain, stock, want):
+    """The tensor-core stack ``got`` against its plain counterpart, within the
+    plain route's tolerance of the float32 stack ``want``, and no further from
+    it than the stock bfloat16 blocks."""
+    assert got.dtype == torch.bfloat16 and torch.isfinite(got).all()
+    scale = want.abs().max().item()
+    err_plain = (got.float() - plain.float()).abs().max().item()
+    assert err_plain <= BF16_KERNEL_TOL * scale, err_plain
+    err, err_stock = ((y.float() - want).abs().max().item() for y in (got, stock))
+    assert err <= BF16_ROUTE_TOL * scale and err <= err_stock, (err, err_stock)
+
+
+def _bf16_route(args, as_f32):
+    """The tensor-core stack, its plain counterpart, the stock bfloat16 blocks
+    and the float32 stack on the same values (TF32 off)."""
+    with torch.no_grad(), no_tf32():
+        n = wavenet_block.launches
+        got = wavenet_block.residual_stack(*args)
+        torch.cuda.synchronize()
+        assert wavenet_block.launches == n + 2 * len(args[-1])
+        return (got, wavenet_block.residual_stack_bf16_plain(*args),
+                wavenet_block.residual_stack_plain(*args),
+                wavenet_block.residual_stack_plain(*as_f32))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dilations", [(1, 2, 4, 8), (1, 2, 4, 8) * 5],
                          ids=["cycle", "published_stack"])
@@ -257,45 +403,49 @@ def test_the_acoustic_wavenet_width_from_bfloat16_values(dev, dilations):
     """The WaveNet acoustic model's blocks (512 channels, dilation cycle 4) at
     [16, 861, 512], one cycle and the whole published stack of 20: inputs and
     weights rounded to bfloat16, as a bf16 model holds them. The bfloat16
-    call is the float32 call on the same values, rounded (K4 computes a bf16
-    stack in float32), and the float32 call is within 1e-4 of the stock ops
-    (float32 sums in another order)."""
-    x, step, cond_proj, weights = _stack(512, 861, 16, dilations, dev)
-    bf = torch.bfloat16
-    x, step, cond_proj = x.to(bf), step.to(bf), cond_proj.to(bf)
-    weights = [[w.to(bf) for w in ws] for ws in weights[:6]] + weights[6:]
-    as_f32 = [[w.float() for w in ws] for ws in weights[:6]] + weights[6:]
+    call runs on the tensor cores (``_check_bf16_route``); the float32 call
+    on the same values is within 1e-4 of the stock ops (float32 sums in
+    another order)."""
+    args, as_f32 = _rounded_stack(512, 861, 16, dilations, device=dev)
+    got, plain, stock, want = _bf16_route(args, as_f32)
+    _check_bf16_route(got, plain, stock, want)
     with torch.no_grad(), no_tf32():
-        want = wavenet_block.residual_stack_plain(x.float(), step.float(), cond_proj.float(),
-                                                  *as_f32)
-        n = wavenet_block.launches
-        got32 = wavenet_block.residual_stack(x.float(), step.float(), cond_proj.float(),
-                                             *as_f32)
-        got = wavenet_block.residual_stack(x, step, cond_proj, *weights)
-        torch.cuda.synchronize()
-    assert wavenet_block.launches == n + 2 * 2 * len(dilations)
-    assert got.dtype == bf and torch.equal(got, got32.to(bf))
+        got32 = wavenet_block.residual_stack(*as_f32)
     err = (got32 - want).abs().max().item()
     assert err <= 1e-4, err
 
 
 @pytest.mark.cuda
-def test_a_bfloat16_stack_is_computed_in_float32(dev):
-    """bfloat16 inputs and weights: the kernels in float32 from them, the
-    skip sum rounded to bfloat16, within one bfloat16 step of the float32
-    plain stack's largest output."""
-    x, step, cond_proj, weights = _stack(256, 861, 16, (1, 2, 4, 8, 16), dev)
-    bf = torch.bfloat16
-    x, step, cond_proj = x.to(bf), step.to(bf), cond_proj.to(bf)
-    weights = [[w.to(bf) for w in ws] for ws in weights[:6]] + weights[6:]
-    with torch.no_grad(), no_tf32():
-        want = wavenet_block.residual_stack_plain(
-            x.float(), step.float(), cond_proj.float(),
-            *([w.float() for w in ws] for ws in weights[:6]), *weights[6:])
-        got = wavenet_block.residual_stack(x, step, cond_proj, *weights)
-        again = wavenet_block.residual_stack(x, step, cond_proj, *weights)  # the kept copy
-    assert got.dtype == bf and torch.equal(got, again)
-    assert (got.float() - want).abs().max().item() <= 2 ** -7 * want.abs().max().item()
+def test_a_bfloat16_stack_at_the_pitch_width_on_the_tensor_cores(dev):
+    """bfloat16 inputs and weights at the pitch WaveNet's width: products from
+    bfloat16 operands summed in float32, x and the skip sum carried in
+    float32 (``_check_bf16_route``); a second call on the kept weights gives
+    the same bits."""
+    args, as_f32 = _rounded_stack(256, 861, 16, (1, 2, 4, 8, 16), device=dev)
+    got, plain, stock, want = _bf16_route(args, as_f32)
+    _check_bf16_route(got, plain, stock, want)
+    with torch.no_grad():
+        again = wavenet_block.residual_stack(*args)  # the kept copy
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,c,dilations", [
+    (1, 173, 512, (1, 2, 4, 8)),  # a ragged T, B = 1
+    (3, 300, 192, (1, 2, 4, 8, 16)),  # widths that are not a multiple of 128
+    (2, 120, 64, (1, 2)),
+    (2, 300, 256, (1, 130, 2)),  # a dilation longer than the frame tiles
+])
+def test_the_tensor_core_kernels_at_other_shapes(dev, b, t, c, dilations):
+    """Ragged frame counts, narrow widths and long dilations; a large value
+    in row 0's last frame changes no other row."""
+    args, as_f32 = _rounded_stack(c, t, b, dilations, device=dev)
+    got, plain, stock, want = _bf16_route(args, as_f32)
+    _check_bf16_route(got, plain, stock, want)
+    if b > 1:  # the kernels read no other row: the rows after the first, bit for bit
+        args[0][0, -1] = 100.0
+        with torch.no_grad():
+            assert torch.equal(wavenet_block.residual_stack(*args)[1:], got[1:])
 
 
 @pytest.mark.cuda
@@ -330,6 +480,7 @@ def test_pitch_sampling_on_the_fused_blocks_against_the_stock_ops(dev, monkeypat
     torch.cuda.synchronize()
     assert wavenet_block.launches == n + 2 * 20 * 20
     assert counting.get("wavenet.stock_blocks", 0) == 0
+    assert "wavenet.tc_blocks" not in counting  # float32: the CUDA cores' kernels
     monkeypatch.setattr(WaveNet, "on_k4", lambda self, x: False)
     _, stock, _ = model.forward_infer(*args, **kw)
     assert counting["wavenet.stock_blocks"] == 400 and counting["wavenet.fused_blocks"] == 400

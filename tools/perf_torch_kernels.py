@@ -26,14 +26,22 @@ k2: the conv module's two bf16 GEMMs alone at the main shape, with
     ``torch.matmul`` on the same operands as a yardstick (it computes no LN,
     SwiGLU or bias, and the port never calls it).
 
-wavenet: K4, the WaveNet's residual blocks in float32, as the pitch WaveNet
+wavenet: K4, the WaveNet's residual blocks. In float32, as the pitch WaveNet
     (20 blocks of 256, dilations 1-16) and the variance WaveNet (10 of 192,
     1-8) run them, at [16, 1024] and a served chunk's [16, 861]: a block on
     the kernels and on the stock ops (the plain version), each averaged over
     the stack; kernel A (conv + gate) at each dilation and kernel B (output
     projection, residual, skip, next input) alone, with their float32
-    bounds; checked against the plain version (1e-4). Then the opcodes of
-    the library's SASS, which must hold no HMMA or HGMMA (``cuobjdump``).
+    bounds; checked against the plain version (1e-4). In bfloat16, as the
+    acoustic WaveNet (20 blocks of 512, dilations 1-8) runs it, at [16, 544]
+    (about the render cell's mean chunk) and [16, 861]: a block on the
+    tensor-core kernels, kernel A at each dilation and kernel B alone,
+    beside their bf16 bounds, the float32 route and the stock bf16 ops at
+    the same shapes; checked against the bf16
+    route's plain version (2^-6 of the largest entry), and against the
+    float32 stack (2^-7, and no further than the stock bf16 ops). Then the
+    opcodes of each kernel's SASS (``cuobjdump``): the float32 kernels must
+    hold no HMMA or HGMMA, the bf16 ones HGMMA.
 
 k1probe (only when named): where K1's time goes. Builds ``depthwise_conv.cu``
     again with its probe macros (without the copies from device memory;
@@ -80,6 +88,7 @@ from diffsinger_tpu_torch.ops import native  # noqa: E402
 PEAK_F32 = 67e12  # H100 SXM, CUDA cores
 PEAK_TF32 = 495e12  # H100 SXM, TF32 tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM, device memory
+PEAK_BF16 = 989e12  # H100 SXM, bf16 tensor cores, dense
 
 
 def time_ms(fn, iters=20, warmup=3):
@@ -450,16 +459,102 @@ def sweep_wavenet(dev, gen) -> int:
               f"dilation {', '.join(f'{k}: {v:.4f}' for k, v in times_a.items())}), "
               f"B {ms_b:.4f} ms ({flops_b / ms_b / 1e9:.1f} TFLOP/s, bound "
               f"{flops_b / PEAK_F32 * 1e3:.4f}); max|err| {err:.2e} (tolerance 1e-4)")
+    bad += sweep_wavenet_bf16(dev, gen)
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([cuobjdump, "-sass", str(native.library_path("wavenet_block"))],
                           capture_output=True, text=True).stdout
-    ops = collections.Counter(
-        m.group(1) for m in (re.match(r"\s+/\*[0-9a-f]+\*/\s+(?:@!?U?P\d+\s+)?([A-Z0-9_]+)", line)
-                             for line in sass.splitlines()) if m)
-    tensor = {op: n for op, n in ops.items() if "MMA" in op}
-    print(f"   SASS: {sum(ops.values())} instructions, FFMA {ops.get('FFMA', 0)}, "
-          f"tensor-core ops {tensor or 'none'}")
-    return bad + (not ops) + bool(tensor)
+    # opcodes by kernel: the float32 kernels (wavenet_block_kernel) and the
+    # tensor-core ones (wavenet_tc_kernel)
+    ops = {"float32": collections.Counter(), "bf16": collections.Counter()}
+    kind = None
+    for line in sass.splitlines():
+        fn = re.search(r"Function : (\S+)", line)
+        if fn:
+            kind = ("bf16" if "wavenet_tc_kernel" in fn.group(1) else
+                    "float32" if "wavenet_block_kernel" in fn.group(1) else None)
+            continue
+        m = re.match(r"\s+/\*[0-9a-f]+\*/\s+(?:@!?U?P\d+\s+)?([A-Z0-9_]+)", line)
+        if m and kind:
+            ops[kind][m.group(1)] += 1
+    for kind, counts in ops.items():
+        tensor = {op: n for op, n in counts.items() if "MMA" in op}
+        print(f"   SASS of the {kind} kernels: {sum(counts.values())} instructions, "
+              f"FFMA {counts.get('FFMA', 0)}, tensor-core ops {tensor or 'none'}")
+    return (bad + (not ops["float32"]) + any("MMA" in op for op in ops["float32"])
+            + (ops["bf16"].get("HGMMA", 0) == 0))
+
+
+def sweep_wavenet_bf16(dev, gen) -> int:
+    """The tensor-core route at the acoustic WaveNet's width (see the module
+    note)."""
+    from diffsinger_tpu_torch.ops import wavenet_block as wb
+    from diffsinger_tpu_torch.utils import no_tf32
+
+    lib = native.load("wavenet_block")
+    bad = 0
+    bf = torch.bfloat16
+    for b, t, c, layers, cycle in ((16, 544, 512, 20, 4), (16, 861, 512, 20, 4)):
+        dilations = [2 ** (i % cycle) for i in range(layers)]
+
+        def rnd(*shape, scale=1.0):
+            return (scale * torch.randn(shape, generator=gen, device=dev)).to(bf)
+
+        args = (rnd(b, t, c), rnd(b, c), rnd(layers, b, t, 2 * c),
+                [rnd(c, c, scale=c ** -0.5) for _ in dilations],
+                [rnd(c, scale=0.1) for _ in dilations],
+                [rnd(2 * c, c, 3, scale=(3 * c) ** -0.5) for _ in dilations],
+                [rnd(2 * c, scale=0.1) for _ in dilations],
+                [rnd(2 * c, c, 1, scale=c ** -0.5) for _ in dilations],
+                [rnd(2 * c, scale=0.1) for _ in dilations], dilations)
+        as_f32 = tuple([w.float() for w in a] if isinstance(a, list) and a is not dilations
+                       else a.float() if torch.is_tensor(a) else a for a in args)
+        with torch.no_grad(), no_tf32():
+            want = wb.residual_stack_plain(*as_f32)
+            plain = wb.residual_stack_bf16_plain(*args)
+            stock = wb.residual_stack_plain(*args)
+            ms_stock = time_ms(lambda: wb.residual_stack_plain(*args)) / layers
+            ms_f32 = time_ms(lambda: wb.residual_stack(*as_f32)) / layers
+        scale = want.abs().max().item()
+        err_stock = (stock.float() - want).abs().max().item()
+        m = b * t
+        flops_a, flops_b = 2 * m * 3 * c * 2 * c, 2 * m * c * 2 * c
+        # A: x + d, the condition's 2C, z; B: z, x, x', the skip sum read and
+        # written, the next x + d (bytes a frame and channel: 8 and 20)
+        bound_a = max(flops_a / PEAK_BF16, (8 * m * c + 6 * c * 2 * c) / PEAK_BYTES) * 1e3
+        bound_b = max(flops_b / PEAK_BF16, (20 * m * c + 2 * c * 2 * c) / PEAK_BYTES) * 1e3
+        print(f"K4 bf16 [{b},{t},{c}] x {layers} blocks: bound {bound_a + bound_b:.4f} ms a "
+              f"block (A {bound_a:.4f}, B {bound_b:.4f}); float32 route {ms_f32:.4f} ms, "
+              f"stock bf16 ops {ms_stock:.4f} ms; stock bf16 max|err| against float32 "
+              f"{err_stock / scale:.2e} of the largest entry")
+        with torch.no_grad():
+            got = wb.residual_stack(*args)
+            ms = time_ms(lambda: wb.residual_stack(*args)) / layers
+        err_plain = (got.float() - plain.float()).abs().max().item()
+        err = (got.float() - want).abs().max().item()
+        bad += not (err_plain <= 2 ** -6 * scale and err <= min(2 ** -7 * scale, err_stock))
+        w_conv, w_out, b_conv, b_out = wb.kept(
+            args[5][0], [w for ws in args[5:9] for w in ws], None)
+        d = wb.step_projections(args[1], args[3], args[4])
+        xd, z = torch.empty_like(args[0]), torch.empty_like(args[0])
+        x, skip = torch.zeros(b, t, c, device=dev), torch.zeros(b, t, c, device=dev)
+        stream = native.stream_ptr(x)
+        times_a = {}
+        for i in range(cycle):
+            times_a[dilations[i]] = time_ms(lambda: native.check(lib.ds_wavenet_conv_gate_bf16(
+                xd.data_ptr(), w_conv[i].data_ptr(), b_conv[i].data_ptr(),
+                args[2][i].data_ptr(), z.data_ptr(), b, t, c, dilations[i], stream), "A"))
+        ms_b = time_ms(lambda: native.check(lib.ds_wavenet_out_skip_bf16(
+            z.data_ptr(), w_out[0].data_ptr(), b_out[0].data_ptr(), x.data_ptr(),
+            x.data_ptr(), skip.data_ptr(), 0, wb.INV_SQRT2, d[:, 1].data_ptr(),
+            xd.data_ptr(), layers * c, b, t, c, stream), "B"))
+        ms_a = sum(times_a.values()) / len(times_a)
+        print(f"   tensor cores: {ms:.4f} ms a block; A {ms_a:.4f} ms "
+              f"({flops_a / ms_a / 1e9:.1f} TFLOP/s; by dilation "
+              f"{', '.join(f'{k}: {v:.4f}' for k, v in times_a.items())}), "
+              f"B {ms_b:.4f} ms ({(20 * m * c) / ms_b / 1e6:.0f} GB/s); max|err| against "
+              f"the bf16 plain {err_plain / scale:.2e}, against float32 {err / scale:.2e} "
+              f"of the largest entry")
+    return bad
 
 
 def main() -> None:
